@@ -3,12 +3,17 @@
     python3 chip_smoke.py [--accounts N] [--slots N] [--state-accounts N] [--state-slots N]
 
 1. Builds every native source of the port from this checkout (the two CUDA
-   kernel libraries with nvcc, the trie sweep with g++, all at once).
+   kernel libraries with nvcc, the trie sweep with g++, all at once), and
+   prints ptxas's registers, stack frame and spills per kernel function; a
+   stack frame or a spill in either level kernel fails the run.
 2. Kernel checks: each of the three kernels against its plain PyTorch
    version on the card, bit for bit (tolerance zero): keccak256_absorb on
-   65,536 random messages of 0-600 bytes plus the 135/136-byte edges;
-   packed_level and branch_level on the largest PACKED and BITMAP level of
-   a one-shot triebuild sweep of the account trie.
+   65,536 random messages of 0-600 bytes plus the 135/136-byte edges (timed
+   beside its plain version and bound); packed_level and branch_level on
+   the edge levels of tests/_torch_helpers.py (every row alignment, holes
+   across rate-block edges, rows of up to 15 rate blocks, every branch
+   popcount, launches of 1-257 rows) and on the largest PACKED and BITMAP
+   level of a one-shot triebuild sweep of the account trie.
 3. Slice phase (the main path, launch counters zeroed just before it): the
    full-state rebuild through TurboCommitter.commit_hashed_pipelined —
    storage tries, then the account trie as 256 two-nibble prefix subtries
@@ -24,7 +29,13 @@
    launch with the most rows and its launch at the median row count,
    replayed on a random digest buffer, bit for bit against the plain
    version on the same arguments, then timed with CUDA events beside the
-   plain version and the bound. The JSON line carries the median launch.
+   plain version, the bound and the launch's one-warp floor (its longest
+   row's permutations, one warp issuing an integer instruction every 2
+   cycles at the maximum SM clock). The JSON line carries the median
+   launch, plus the largest launch's time and plain time. Beside bound_ms
+   it carries floor_bound_ms, the one-warp floor: like bound_ms, computed
+   from this run's inputs, not measured (largest_bound_ms and
+   largest_floor_bound_ms for the largest launch).
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernels' JSON.
@@ -51,6 +62,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # spin before a kernel timing: longer than the host takes to enqueue 50
 # launches of one wrapper
 HOLD_MS = 20.0
+# a warp issues one 32-bit integer instruction every 2 cycles: 16 integer
+# lanes per SM sub-partition (scheduler) on compute capability 9.0
+WARP_CYCLES_PER_INT_OP = 2
 INT_OPCODES = ("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "IMAD", "PRMT", "LEA",
                "ISETP", "SEL", "IMNMX", "FLO", "POPC", "MOV")
 
@@ -152,6 +166,50 @@ def sass_int_ops(lib_path: str, kernel: str) -> int:
     return count
 
 
+def ptxas_report(text: str) -> dict[str, dict]:
+    """Registers, stack frame and spill bytes per function from ``ptxas -v``
+    output, keyed by the (mangled) function name."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+LEVEL_KERNELS = ("packed_level_kernel", "branch_level_kernel")
+
+
+def check_ptxas(src_name: str, text: str, enforce: bool) -> None:
+    """Log each kernel function's ptxas line; with ``enforce``, raise if a
+    level kernel is missing, has a stack frame or spills."""
+    short = {}
+    for fn, r in ptxas_report(text).items():
+        name = next((k for k in LEVEL_KERNELS + ("keccak256_absorb_kernel",) if k in fn), fn)
+        short[name] = r
+        log(f"ptxas {src_name} {name}: {r.get('registers', '?')} registers, "
+            f"{r.get('stack', '?')} bytes stack frame, {r.get('spill_stores', '?')} bytes spill "
+            f"stores, {r.get('spill_loads', '?')} bytes spill loads")
+    for k in LEVEL_KERNELS if enforce else ():
+        r = short.get(k)
+        if r is None or "stack" not in r:
+            raise AssertionError(f"ptxas reported nothing for {k}")
+        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{k} has a {r['stack']}-byte stack frame or spills "
+                                 f"({r['spill_stores']}/{r['spill_loads']} bytes)")
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2, hold_ms: float = 0.0) -> float:
     """Mean time of ``fn`` over ``iters`` back-to-back runs, by CUDA events.
     ``hold_ms`` first parks the stream in a spin kernel that long, so that
@@ -184,12 +242,33 @@ class Bound:
 
     def __init__(self, ops_per_perm: int, sms: int, clock_hz: float):
         self.ops_per_perm = ops_per_perm
+        self.clock_hz = clock_hz
         self.int_rate = sms * INT_OPS_PER_CLK_PER_SM * clock_hz
 
     def __call__(self, perms: int, nbytes: int) -> tuple[float, str]:
         t_ops = perms * self.ops_per_perm / self.int_rate
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+    def floor_ms(self, longest_row_perms: int) -> float:
+        """One-warp floor of a launch: its longest row's permutations issued
+        by one warp, an integer instruction every WARP_CYCLES_PER_INT_OP
+        cycles at the maximum SM clock. One thread per row cannot go below
+        it."""
+        return longest_row_perms * self.ops_per_perm * WARP_CYCLES_PER_INT_OP / self.clock_hz * 1e3
+
+
+def make_bound(libs) -> Bound:
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    bound = Bound(sass_int_ops(libs["keccak.cu"], "keccak256_absorb_kernel"),
+                  props.multi_processor_count, max_sm_clock_hz())
+    log(f"bound model: {bound.ops_per_perm} integer SASS instructions per permutation "
+        f"(cuobjdump), {INT_OPS_PER_CLK_PER_SM} int ops/clk/SM x {props.multi_processor_count} "
+        f"SMs x max SM clock {bound.clock_hz / 1e6:.0f} MHz = {bound.int_rate:.4e} ops/s; "
+        f"HBM {HBM_BYTES_PER_S:.3e} B/s")
+    return bound
 
 
 def _put(a, dtype):
@@ -211,12 +290,42 @@ def _same_buffer(kernel, ref, args, buf_rows: int, rng) -> int:
     return max_abs_err(b_k, b_r)
 
 
-def kernel_checks(args, account_jobs) -> None:
+def edge_level_checks() -> None:
+    """packed_level and branch_level bit for bit against their plain
+    versions on every edge level of tests/_torch_helpers.py."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_helpers import EDGE_CASES, edge_digest_buffer, edge_level, level_kernel_args
+
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    n_cases = 0
+    for case in EDGE_CASES:
+        kind, largs = edge_level(case)
+        kargs = level_kernel_args(kind, largs, "cuda")
+        kernel, ref = ((fc.packed_level, fc.packed_level_ref) if kind == "packed"
+                       else (fc.branch_level, fc.branch_level_ref))
+        b_k = torch.from_numpy(edge_digest_buffer()).to("cuda")
+        b_r = b_k.clone()
+        kernel(*kargs, b_k)
+        ref(*kargs, b_r)
+        torch.cuda.synchronize()
+        err = max_abs_err(b_k, b_r)
+        if err:
+            raise AssertionError(f"{kind}_level differs from its plain version on edge level "
+                                 f"{case} (max abs err {err})")
+        n_cases += 1
+    log(f"packed_level and branch_level: bit-exact vs plain on {n_cases} edge launches")
+
+
+def kernel_checks(args, account_jobs, bound: Bound) -> None:
     """Before the main path: each kernel bit for bit against its plain
-    version on inputs of its own (kernel 1 on 65,543 mixed messages,
-    kernels 2 and 3 on the largest PACKED and BITMAP level of a one-shot
-    triebuild sweep of the account trie, larger than any dispatch of the
-    pipelined main path). Raises on any difference."""
+    version on inputs of its own (kernel 1 on 65,543 mixed messages, timed
+    beside its plain version and bound; kernels 2 and 3 on the edge levels
+    and on the largest PACKED and BITMAP level of a one-shot triebuild sweep
+    of the account trie, larger than any dispatch of the pipelined main
+    path). Raises on any difference."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
@@ -241,8 +350,13 @@ def kernel_checks(args, account_jobs) -> None:
     if err1:
         raise AssertionError(f"keccak256_absorb differs from its plain version (max abs err {err1})")
     t_mixed = cuda_ms(lambda: keccak256_words_masked(words, counts), 20, hold_ms=HOLD_MS)
-    log(f"keccak256_absorb: {len(msgs)} mixed messages (1-5 blocks) bit-exact; "
-        f"{t_mixed:.4f} ms per launch")
+    plain_mixed = cuda_ms(lambda: keccak256_words_masked_ref(words, counts), 3)
+    perms, nbytes, longest = keccak_work(words, counts)
+    b_ms, b_by = bound(perms, nbytes)
+    log(f"keccak256_absorb: {len(msgs)} mixed messages (1-5 blocks, {perms} permutations, "
+        f"{nbytes} B) bit-exact; kernel {t_mixed:.4f} ms per launch, plain {plain_mixed:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), one-warp floor {bound.floor_ms(longest):.4f} ms")
+    edge_level_checks()
 
     levels = sweep_levels(account_jobs, collect_branches=False, start_depth=2)
     lp = max(levels, key=lambda lv: len(lv.row_slot))
@@ -337,17 +451,18 @@ class MainPathRecorder:
 
 
 def keccak_work(words, counts):
-    """(permutations, bytes moved) of kernel 1: the blocks each row absorbs
+    """(permutations, bytes moved, longest row's permutations) of kernel 1: the blocks each row absorbs
     are read once, plus counts in and digests out."""
     perms = int(counts.sum())
     n = words.shape[0]
-    return perms, perms * 136 + n * (4 + 32)
+    return perms, perms * 136 + n * (4 + 32), int(counts.max())
 
 
 def packed_work(flat, row_off, row_len, slots, hole_start, hole_off, hole_src):
     n, H = row_off.shape[0], hole_off.shape[0]
-    perms = int((row_len.long() // 136 + 1).sum())
-    return perms, flat.numel() + n * (8 + 4 + 8 + 8 + 32) + 8 + H * (4 + 8 + 32)
+    blocks = row_len.long() // 136 + 1
+    return (int(blocks.sum()), flat.numel() + n * (8 + 4 + 8 + 8 + 32) + 8 + H * (4 + 8 + 32),
+            int(blocks.max()))
 
 
 def branch_work(masks, slots, ch_start, ch_nib, ch_src):
@@ -355,27 +470,22 @@ def branch_work(masks, slots, ch_start, ch_nib, ch_src):
     pop = np.unpackbits(masks.cpu().numpy().astype("<u2").view(np.uint8)).reshape(n, 16).sum(1)
     payload = 16 + 32 * pop.astype(np.int64) + 1
     total = payload + np.where(payload > 0xFF, 3, 2)
-    perms = int((total // 136 + 1).sum())
-    return perms, n * (4 + 8 + 8 + 32) + 8 + C * (4 + 8 + 32)
+    blocks = total // 136 + 1
+    return int(blocks.sum()), n * (4 + 8 + 8 + 32) + 8 + C * (4 + 8 + 32), int(blocks.max())
 
 
-def kernel_timings(recorder: MainPathRecorder, libs, rng) -> list[dict]:
+def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
     """After the main path: each kernel at the arguments of two of its own
     launches there (the one with the most rows, and the one at the median
     row count), bit for bit against its plain version on those arguments,
-    then timed by CUDA events beside the plain version and the bound. The
-    kernels' JSON rows carry the median launch; both are logged."""
+    then timed by CUDA events beside the plain version, the bound and the
+    one-warp floor. The kernels' JSON rows carry the median launch and the
+    largest launch's times, bound and floor bound; both are logged."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
     from reth_tpu_torch.ops.keccak import keccak256_words_masked, keccak256_words_masked_ref
 
-    props = torch.cuda.get_device_properties(0)
-    bound = Bound(sass_int_ops(libs["keccak.cu"], "keccak256_absorb_kernel"),
-                  props.multi_processor_count, max_sm_clock_hz())
-    log(f"bound model: {bound.ops_per_perm} integer SASS instructions per permutation "
-        f"(cuobjdump), {INT_OPS_PER_CLK_PER_SM} int ops/clk/SM x {props.multi_processor_count} "
-        f"SMs x max SM clock = {bound.int_rate:.4e} ops/s; HBM {HBM_BYTES_PER_S:.3e} B/s")
     specs = {
         "keccak256_absorb": (keccak256_words_masked, keccak256_words_masked_ref, keccak_work,
                              "reth_tpu_torch/ops/csrc/keccak.cu",
@@ -393,7 +503,7 @@ def kernel_timings(recorder: MainPathRecorder, libs, rng) -> list[dict]:
         sizes = sorted(recorder.rows(name, a) for a in recorder.calls[name])
         log(f"{name}: {n_calls} launches on the main path, rows per launch min {sizes[0]}, "
             f"median {sizes[len(sizes) // 2]}, mean {sum(sizes) / len(sizes):.1f}, max {sizes[-1]}")
-        row = None
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None)
         for label, rec in recorder.picks(name).items():
             if name == "keccak256_absorb":
                 err = max_abs_err(kernel(*rec).view(torch.uint8), ref(*rec).view(torch.uint8))
@@ -410,15 +520,19 @@ def kernel_timings(recorder: MainPathRecorder, libs, rng) -> list[dict]:
             plain = (lambda: ref(*fargs)) if b_k is None else (lambda: ref(*fargs, b_k))
             ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
             plain_ms = cuda_ms(plain, 5)
-            perms, nbytes = work(*fargs)
+            perms, nbytes, longest = work(*fargs)
             b_ms, b_by = bound(perms, nbytes)
+            floor = bound.floor_ms(longest)
             log(f"{name} at the main path's {label} launch ({recorder.rows(name, rec)} rows, "
-                f"{perms} permutations, {nbytes} B): bit-exact vs plain; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"{perms} permutations, longest row {longest}, {nbytes} B): bit-exact vs plain; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"one-warp floor {floor:.4f} ms")
             if label == "median":
-                row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=None)
+                row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, floor_bound_ms=floor)
+            else:
+                row.update(largest_ms=ms, largest_plain_ms=plain_ms, largest_bound_ms=b_ms,
+                           largest_floor_bound_ms=floor)
         rows.append(row)
     return rows
 
@@ -579,9 +693,9 @@ def main() -> int:
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
     for s, p in zip(srcs[:2], paths[:2]):
         log_path = p.with_name(p.name + ".log")
-        for line in (log_path.read_text().splitlines() if log_path.exists() else []):
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {s.name}: {line.strip()}")
+        check_ptxas(s.name, log_path.read_text() if log_path.exists() else "",
+                    enforce=s.name == "fused_level.cu")
+    bound = make_bound(libs)
 
     if args.accounts != 1_000_000 or args.slots != 400_000:
         log(f"size cut: {args.accounts} accounts / {args.slots} slots "
@@ -590,9 +704,9 @@ def main() -> int:
     storage_jobs, account_jobs = build_state(args.accounts, args.slots, args.seed)
     log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
-    kernel_checks(args, account_jobs)
+    kernel_checks(args, account_jobs, bound)
     launches, recorder = slice_phase(args, storage_jobs, account_jobs)
-    rows = kernel_timings(recorder, libs, np.random.default_rng(args.seed + 2))
+    rows = kernel_timings(recorder, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,139 +4,422 @@
 // (an XLA program): gather each PACKED row's RLP bytes from the level's
 // concatenated bytes, XOR keccak padding (0x01 at the row length, 0x80 at
 // the last byte of the row's last rate block, so a 135-byte row gets 0x81),
-// splice 32-byte child digests from the buffer at the row's holes, absorb,
-// and write the digest into the row's slot.
+// splice 32-byte child digests from the buffer at the row's holes (after the
+// padding, as the reference does), absorb, and write the digest into the
+// row's slot.
 //
 // branch_level replaces _branch_level (fused_commit.py): build each BITMAP
 // branch row's whole RLP from its 16-bit state mask (f8 <len> or f9 <len:2>
-// header, a0 + 32-byte child digest or 80 per nibble, 80 empty value), then
-// splice, pad, absorb and scatter as above.
+// header, a0 + 32-byte child digest or 80 per nibble, 80 empty value; an f8
+// row's byte 2 is its first marker), splice the children, then XOR the
+// padding, absorb and scatter as above.
 //
-// The reference materialises every level as an (n, L) u8 tensor in device
-// memory, padded to batch tiers with junk rows and holes aimed at dummy slot
-// 0, and its flat indices are int32. Here one thread builds one row a rate
-// block at a time in registers and local memory, so no (n, L) tensor exists;
-// the wrapper passes the exact row count, so there are no padding rows or
-// junk holes at all; and every flat index is 64-bit. Holes (children) come
-// sorted by row with a per-row start index (CSR), so a thread reads only its
-// own.
+// The reference materialises every level as an (n, L) u8 tensor padded to
+// batch tiers with junk rows aimed at dummy slot 0, with int32 indices. Here
+// the wrapper passes the exact row count (no padding rows, no junk holes),
+// every flat index is 64-bit, and holes (children) come sorted by row with a
+// per-row start index (CSR).
 //
-// Bound: the same integer issue as kernel 1 (one permutation per rate block
-// absorbed); the bytes moved (row bytes, indices, 32 bytes per child digest
-// read, 32 per digest written) are the second bound. All reads of the buffer
-// are of slots written by earlier (deeper) levels, and every row writes its
-// own slot, so rows of one launch never race.
+// Bound. Each row costs one keccak-f[1600] per rate block, a fixed count of
+// integer instructions (keccak.cuh); the bytes moved (row bytes, indices, 32
+// per child digest read and per digest written) are far below that, so a
+// large launch is bound by integer issue. A small launch (a few hundred rows
+// on a few of the 132 SMs) cannot beat its one-warp floor: the serial chain
+// of its longest row's permutations in one warp.
+//
+// What the first design (one thread per row building its row in a private
+// array) lost, and what this one does instead:
+//   - The branch row was a uint64_t[68] indexed at runtime byte positions,
+//     so it lived in a 544-byte local-memory frame, and every byte of every
+//     child digest was a separate 64-bit load-modify-store there, each
+//     digest byte read from global memory on its own. Now a block of
+//     LEVEL_ROWS rows assembles its rows in shared memory, lane-major (lane
+//     q of row t at word q * LEVEL_ROWS + t, so a half-warp's 64-bit
+//     accesses hit 16 distinct bank pairs whatever lane each thread
+//     touches). The branch skeleton (header, markers, value byte) is
+//     streamed out as whole 8-byte lanes, and each digest lands as four
+//     funnel-shifted lanes plus two masked edge lanes.
+//   - Child digests are staged per block: the children of a block's rows are
+//     one contiguous CSR range, copied with 16-byte cp.async by the whole
+//     block, neighbouring threads on neighbouring chunks. The branch block
+//     builds its skeletons while those copies are in flight.
+//   - The packed row was read one byte per global load behind a bounds test,
+//     uncoalesced, and every hole was rescanned for every rate block. Now
+//     each thread reads its row as aligned 8-byte words and builds its
+//     lanes with funnel shifts, all of a rate block's words loaded before
+//     any lane is stored (the one word that runs past the end of flat is
+//     read up to it, so flat needs no slack). A row is built and absorbed a
+//     window of LEVEL_WINDOW rate blocks at a time, and each hole is spliced
+//     into every window it overlaps: once for a row of up to four blocks,
+//     which is every row of the main path (a longer row, such as a leaf
+//     with a long value, takes as many windows as it needs). Staging the
+//     block's byte span of flat in shared memory first was measured no
+//     faster at the largest launch than these direct loads, and was left out.
+//   - Absorption reads 17 lanes per rate block at compile-time lane indices,
+//     so the state stays in registers: no stack frame, no spills (ptxas -v;
+//     chip_smoke.py enforces it).
+//   - The permutation runs LEVEL_ROUND_UNROLL rounds per loop trip instead
+//     of 24 unrolled: the blocks an SM holds are at different points of it,
+//     and the rolled body (a sixth of the size) shares the instruction
+//     caches better; it measured about 5 % faster at the largest launches.
+//
+// All reads of the buffer are of slots written by earlier (deeper) levels,
+// and every row writes its own slot, so rows of one launch never race.
 
 #include <cuda_runtime.h>
 
 #include "keccak.cuh"
 
-// Copy the part of a 32-byte digest spliced at row byte `at` that falls in
-// the rate block starting at row byte `base`.
-__device__ __forceinline__ void splice_digest(uint64_t blk[KECCAK_RATE_LANES], int base,
-                                              int at, const uint8_t* __restrict__ digest) {
-    const int lo = at > base ? at : base;
-    const int hi = (at + 32) < (base + KECCAK_RATE) ? (at + 32) : (base + KECCAK_RATE);
-    for (int p = lo; p < hi; ++p) lanes_set_byte(blk, p - base, digest[p - at]);
+// Rows per block (one thread each); rate blocks of a row held in shared
+// memory at once (a branch row has at most four); dynamic shared memory per
+// block: the rows' windows plus a staging area of 32 bytes per row, so that
+// three blocks fit an SM (64 rows per block, or two blocks of 128, did worse
+// at the largest branch launch: the SM count does not divide the blocks).
+constexpr int LEVEL_ROWS = 128;
+constexpr int LEVEL_WINDOW = 4;
+constexpr int LEVEL_SMEM = LEVEL_ROWS * (LEVEL_WINDOW * KECCAK_RATE + 32);
+constexpr int LEVEL_ROUND_UNROLL = 4;
+
+static_assert(LEVEL_ROWS % 32 == 0, "whole warps per block");
+static_assert(LEVEL_SMEM % 16 == 0, "16-byte staging");
+
+// Staged CSR entries (32-byte digest + 4-byte tag) a block can hold: they sit
+// at the top of shared memory, above the rows' windows, so they are copied
+// before the rows are even counted.
+constexpr int LEVEL_ENTRY_CAP = (LEVEL_SMEM - LEVEL_ROWS * LEVEL_WINDOW * KECCAK_RATE) / 36;
+
+// 16-byte asynchronous copy global -> shared.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The index within the block of the branch row this thread is to build.
+// Each thread passes its row's rate-block count nb (0 past the end of the
+// level). When the block's rows differ in block count they are grouped by
+// it, so that a warp's rows need the same number of permutations: one
+// 2-block row no longer holds 31 1-block rows of its warp through a second
+// permutation.
+__device__ __forceinline__ int block_order(int nb) {
+    constexpr int W = LEVEL_ROWS / 32;
+    __shared__ int s_cnt[W][LEVEL_WINDOW + 1];  // rows of each block count, per warp
+    __shared__ short s_row[LEVEL_ROWS];
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    unsigned same = 0;  // lanes of this warp whose row has this row's nb
+#pragma unroll
+    for (int k = 0; k <= LEVEL_WINDOW; ++k) {
+        const unsigned b = __ballot_sync(~0u, nb == k);
+        if (lane == 0) s_cnt[warp][k] = __popc(b);
+        if (nb == k) same = b;
+    }
+    __syncthreads();
+    // rows of smaller nb; of this nb in earlier warps
+    int below = 0, before = 0, nb_min = LEVEL_WINDOW, nb_max = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+#pragma unroll
+        for (int k = 0; k <= LEVEL_WINDOW; ++k) {
+            const int c = s_cnt[w][k];
+            if (c && k > nb_max) nb_max = k;
+            if (c && k && k < nb_min) nb_min = k;  // rows past the end do not count
+            below += k < nb ? c : 0;
+            before += k == nb && w < warp ? c : 0;
+        }
+    }
+    if (nb_min >= nb_max) return t;  // the same for the whole block
+    s_row[below + before + __popc(same & ((1u << lane) - 1))] = (short)t;
+    __syncthreads();
+    return s_row[t];
+}
+
+// The first LEVEL_ENTRY_CAP of CSR entries [e0, e0 + total), staged at the
+// top of shared memory: the digest of each (buffer slot in src) as two
+// 16-byte copies spread over the block, and its 4-byte tag (a hole's byte
+// offset, a child's nibble) beside them, so that nothing after the block's
+// barrier waits on global memory. The constructor loads the slots and tags
+// of the block's first pass into registers; copy() issues the copies, so
+// that work in between overlaps those loads.
+struct EntryStage {
+    uint8_t* stage;
+    int count;
+    int64_t e0;
+    int64_t src0;
+    int32_t tag0;
+
+    __device__ __forceinline__ EntryStage(uint8_t* smem, int64_t first, int64_t total,
+                                          const int64_t* __restrict__ src,
+                                          const int32_t* __restrict__ tag)
+        : count((int)(total < LEVEL_ENTRY_CAP ? total : LEVEL_ENTRY_CAP)), e0(first) {
+        stage = smem + ((LEVEL_SMEM - 36 * count) & ~15);
+        const int t = threadIdx.x;
+        src0 = t < 2 * count ? src[e0 + (t >> 1)] : 0;
+        tag0 = t < count ? tag[e0 + t] : 0;
+    }
+
+    __device__ __forceinline__ void copy(const int64_t* __restrict__ src,
+                                         const int32_t* __restrict__ tag,
+                                         const uint8_t* __restrict__ buf) const {
+        const int t = threadIdx.x;
+        int32_t* tags = (int32_t*)(stage + 32 * count);
+        if (t < 2 * count) cp_async16(stage + 16 * t, buf + src0 * 32 + 16 * (t & 1));
+        for (int q = t + LEVEL_ROWS; q < 2 * count; q += LEVEL_ROWS)
+            cp_async16(stage + 16 * q, buf + src[e0 + (q >> 1)] * 32 + 16 * (q & 1));
+        if (t < count) tags[t] = tag0;
+        for (int q = t + LEVEL_ROWS; q < count; q += LEVEL_ROWS) tags[q] = tag[e0 + q];
+    }
+
+    // Entry e's digest and tag: from the stage when it was staged, else from
+    // global memory (digests 16-byte aligned in both).
+    __device__ __forceinline__ int load(const int64_t* __restrict__ src,
+                                        const int32_t* __restrict__ tag,
+                                        const uint8_t* __restrict__ buf, int64_t e,
+                                        uint64_t d[4]) const {
+        const bool staged = e - e0 < count;
+        const ulonglong2* p =
+            (const ulonglong2*)(staged ? stage + 32 * (e - e0) : buf + src[e] * 32);
+        const ulonglong2 a = p[0], b = p[1];
+        d[0] = a.x;
+        d[1] = a.y;
+        d[2] = b.x;
+        d[3] = b.y;
+        return staged ? ((const int32_t*)(stage + 32 * count))[e - e0] : tag[e];
+    }
+};
+
+// Overwrite bytes [at, at + 32) of a window of nl lanes with a digest; reg is
+// the window's lane 0 (lanes LEVEL_ROWS words apart). `at` may lie before
+// the window (a hole that began in the previous one); bytes outside the
+// window are dropped (past the row's last rate block the reference never
+// hashes them).
+__device__ __forceinline__ void splice_digest(uint64_t* reg, int nl, int at, const uint64_t d[4]) {
+    const int a = at >> 3, sh = 8 * (at & 7);  // a < 0 before the window
+    const auto in = [nl](int q) { return (unsigned)q < (unsigned)nl; };
+    if (sh == 0) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+            if (in(a + w)) reg[(a + w) * LEVEL_ROWS] = d[w];
+        return;
+    }
+    const uint64_t keep = (1ULL << sh) - 1;  // bytes of lane a before `at`
+    if (in(a)) reg[a * LEVEL_ROWS] = (reg[a * LEVEL_ROWS] & keep) | (d[0] << sh);
+#pragma unroll
+    for (int w = 1; w < 4; ++w)
+        if (in(a + w)) reg[(a + w) * LEVEL_ROWS] = (d[w - 1] >> (64 - sh)) | (d[w] << sh);
+    if (in(a + 4))
+        reg[(a + 4) * LEVEL_ROWS] = (reg[(a + 4) * LEVEL_ROWS] & ~keep) | (d[3] >> (64 - sh));
+}
+
+// Absorb nb rate blocks from shared memory into the state, which stays in
+// registers (lane indices are compile-time constants).
+__device__ __forceinline__ void absorb_blocks(uint64_t s[25], const uint64_t* reg, int nb) {
+    for (int k = 0; k < nb; ++k) {
+        const uint64_t* blk = reg + k * KECCAK_RATE_LANES * LEVEL_ROWS;
+#pragma unroll
+        for (int j = 0; j < KECCAK_RATE_LANES; ++j) s[j] ^= blk[j * LEVEL_ROWS];
+        keccak_f1600<LEVEL_ROUND_UNROLL>(s);
+    }
 }
 
 __device__ __forceinline__ void store_digest(uint8_t* __restrict__ buf, int64_t slot,
                                              const uint64_t s[25]) {
-    uint64_t* dst = (uint64_t*)(buf + slot * 32);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[j] = s[j];
+    ulonglong2* dst = (ulonglong2*)(buf + slot * 32);
+    dst[0] = make_ulonglong2(s[0], s[1]);
+    dst[1] = make_ulonglong2(s[2], s[3]);
 }
 
-__global__ void __launch_bounds__(KECCAK_THREADS)
-packed_level_kernel(const uint8_t* __restrict__ flat, const int64_t* __restrict__ row_off,
-                    const int32_t* __restrict__ row_len, const int64_t* __restrict__ slots,
-                    const int64_t* __restrict__ hole_start, const int32_t* __restrict__ hole_off,
-                    const int64_t* __restrict__ hole_src, uint8_t* __restrict__ buf, int64_t n) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const uint8_t* row = flat + row_off[i];
-    const int len = row_len[i];
+// The bytes [w, end) of the aligned word at w that runs past `end`, the
+// rest zero: nothing past the end of flat is read.
+__device__ __forceinline__ uint64_t load_tail(const uint64_t* w, const uint8_t* end) {
+    const uint8_t* b = (const uint8_t*)w;
+    uint64_t v = 0;
+    for (int k = 0; b + k < end; ++k) v |= (uint64_t)b[k] << (8 * k);
+    return v;
+}
+
+__global__ void __launch_bounds__(LEVEL_ROWS)
+packed_level_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
+                    const int64_t* __restrict__ row_off, const int32_t* __restrict__ row_len,
+                    const int64_t* __restrict__ slots, const int64_t* __restrict__ hole_start,
+                    const int32_t* __restrict__ hole_off, const int64_t* __restrict__ hole_src,
+                    uint8_t* __restrict__ buf, int64_t n) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int t = threadIdx.x;
+    const int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS;
+    const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
+    // every load that needs nothing else is issued before the barrier, so
+    // that their latencies overlap
+    const int64_t i = i0 + t;
+    const bool active = i < n;
+    const int64_t off = active ? row_off[i] : 0;
+    const int len = active ? row_len[i] : 0;
+    const int64_t h0 = active ? hole_start[i] : 0, h1 = active ? hole_start[i + 1] : 0;
+    const int64_t slot = active ? slots[i] : 0;
     const int nb = len / KECCAK_RATE + 1;
-    const int64_t h0 = hole_start[i], h1 = hole_start[i + 1];
+    const int64_t h_lo = hole_start[i0];
+    const EntryStage holes(smem, h_lo, hole_start[last] - h_lo, hole_src, hole_off);
+    holes.copy(hole_src, hole_off, buf);
+    cp_async_wait_all();
+    __syncthreads();
+    if (!active) return;
+
+    uint64_t* reg = (uint64_t*)smem + t;
+    const uint8_t* src = flat + off;
+    const uint8_t* end = flat + flat_len;
+    const int mis = (int)((uintptr_t)src & 7), sh = 8 * mis;
+    const uint64_t* wp = (const uint64_t*)(src - mis);
+    // the aligned word that runs past the end of flat, if the row reaches
+    // it: read once, up to the end (only the last row of flat can)
+    const uint64_t* wtail = (const uint64_t*)((uintptr_t)end & ~(uintptr_t)7);
+    const uint64_t tail = src + len > (const uint8_t*)wtail ? load_tail(wtail, end) : 0;
     uint64_t s[25];
 #pragma unroll
     for (int j = 0; j < 25; ++j) s[j] = 0;
-    for (int k = 0; k < nb; ++k) {
-        const int base = k * KECCAK_RATE;
-        uint64_t blk[KECCAK_RATE_LANES];
-        for (int j = 0; j < KECCAK_RATE_LANES; ++j) {
-            uint64_t w = 0;
-            for (int b = 0; b < 8; ++b) {
-                const int p = base + 8 * j + b;
-                if (p < len) w |= (uint64_t)row[p] << (8 * b);
+    for (int k0 = 0; k0 < nb; k0 += LEVEL_WINDOW) {
+        const int kn = nb - k0 < LEVEL_WINDOW ? nb - k0 : LEVEL_WINDOW;
+        // lane q is row bytes [8q, 8q + 8): the top of word q and the bottom
+        // of word q + 1; a word is read only if it holds a byte of the row.
+        // Each rate block's 18 words are loaded before any lane is stored,
+        // so the loads are in flight together.
+        uint64_t w[KECCAK_RATE_LANES + 1];
+        for (int k = 0; k < kn; ++k) {
+            const int kb = k0 + k;
+#pragma unroll
+            for (int j = 0; j <= KECCAK_RATE_LANES; ++j) {
+                const int q = kb * KECCAK_RATE_LANES + j;
+                const uint64_t* a = wp + q;
+                w[j] = 8 * q - mis < len ? (a < wtail ? *a : tail) : 0;
             }
-            blk[j] = w;
+#pragma unroll
+            for (int j = 0; j < KECCAK_RATE_LANES; ++j) {
+                const int q = kb * KECCAK_RATE_LANES + j, p = 8 * q;
+                uint64_t lane = sh ? (w[j] >> sh) | (w[j + 1] << (64 - sh)) : w[j];
+                if (p + 8 > len) lane &= len > p ? (1ULL << (8 * (len - p))) - 1 : 0;
+                // multi-rate padding, XOR as in the reference
+                if (len >= p && len < p + 8) lane ^= 1ULL << (8 * (len - p));
+                if (j == KECCAK_RATE_LANES - 1 && kb == nb - 1) lane ^= 0x80ULL << 56;
+                reg[(k * KECCAK_RATE_LANES + j) * LEVEL_ROWS] = lane;
+            }
         }
-        // multi-rate padding, XOR as in the reference
-        if (len >= base && len < base + KECCAK_RATE) lanes_xor_byte(blk, len - base, 0x01);
-        if (k == nb - 1) lanes_xor_byte(blk, KECCAK_RATE - 1, 0x80);
         for (int64_t h = h0; h < h1; ++h) {
-            const int at = hole_off[h];
-            if (at + 32 > base && at < base + KECCAK_RATE)
-                splice_digest(blk, base, at, buf + hole_src[h] * 32);
+            uint64_t d[4];
+            const int at = holes.load(hole_src, hole_off, buf, h, d);
+            splice_digest(reg, kn * KECCAK_RATE_LANES, at - k0 * KECCAK_RATE, d);
         }
-        keccak_absorb_block(s, blk);
+        absorb_blocks(s, reg, kn);
     }
-    store_digest(buf, slots[i], s);
+    store_digest(buf, slot, s);
 }
 
-// Largest branch RLP: 3-byte header + 16 * 33 + 1 = 532 bytes < 4 rate blocks.
-#define BRANCH_MAX_LANES (4 * KECCAK_RATE_LANES)
-
-__global__ void __launch_bounds__(KECCAK_THREADS)
+__global__ void __launch_bounds__(LEVEL_ROWS)
 branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict__ slots,
                     const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
                     const int64_t* __restrict__ ch_src, uint8_t* __restrict__ buf, int64_t n) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const uint32_t mask = (uint32_t)masks[i] & 0xFFFF;
-    const int present = __popc(mask);
-    const int payload = 16 + 32 * present + 1;  // child refs + empty value byte
-    const int hl = payload > 0xFF ? 3 : 2;
-    const int total = hl + payload;
-    const int nb = total / KECCAK_RATE + 1;
-    uint64_t row[BRANCH_MAX_LANES];
-    for (int j = 0; j < nb * KECCAK_RATE_LANES; ++j) row[j] = 0;
-    lanes_set_byte(row, 0, hl == 3 ? 0xF9 : 0xF8);
-    lanes_set_byte(row, 1, hl == 3 ? (payload >> 8) : (payload & 0xFF));
-    // f9 rows: low length byte; f8 rows: overwritten by the first marker
-    lanes_set_byte(row, 2, payload & 0xFF);
-    int pos = hl;
-    for (int nib = 0; nib < 16; ++nib) {
-        const bool has = (mask >> nib) & 1;
-        lanes_set_byte(row, pos, has ? 0xA0 : 0x80);
-        pos += has ? 33 : 1;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int t = threadIdx.x;
+    const int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS;
+    const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
+    int64_t i = i0 + t, c0, c1, slot;
+    uint32_t mask;
+    int payload, hl, total, nb;
+    const auto load_row = [&] {
+        const bool active = i < n;
+        mask = active ? (uint32_t)masks[i] & 0xFFFF : 0;
+        c0 = active ? ch_start[i] : 0;
+        c1 = active ? ch_start[i + 1] : 0;
+        slot = active ? slots[i] : 0;
+        payload = 16 + 32 * __popc(mask) + 1;  // child refs + empty value byte
+        hl = payload > 0xFF ? 3 : 2;
+        total = hl + payload;  // at most 532 bytes: four rate blocks
+        nb = active ? total / KECCAK_RATE + 1 : 0;
+    };
+    load_row();
+    const int64_t c_lo = ch_start[i0];
+    const EntryStage kids(smem, c_lo, ch_start[last] - c_lo, ch_src, ch_nib);
+    const int r = block_order(nb);
+    if (r != t) {  // this thread builds another row of the block
+        i = i0 + r;
+        load_row();
     }
-    lanes_set_byte(row, total - 1, 0x80);
-    for (int64_t c = ch_start[i]; c < ch_start[i + 1]; ++c) {
-        const int nib = ch_nib[c] & 15;
+    const int nl = nb * KECCAK_RATE_LANES;
+
+    // the rows' skeletons are written while the child digests are copied
+    kids.copy(ch_src, ch_nib, buf);
+    uint64_t* reg = (uint64_t*)smem + t;
+    if (i < n) {
+        // stream header, markers and value byte out as whole lanes, leaving
+        // zeros where the digests go; for f8 rows the first marker lands on
+        // byte 2, as in the reference
+        uint64_t acc = hl == 3 ? 0xF9ULL | (uint64_t)(payload >> 8) << 8 |
+                                     (uint64_t)(payload & 0xFF) << 16
+                               : 0xF8ULL | (uint64_t)payload << 8;
+        int p = hl;
+        for (int nib = 0; nib <= 16; ++nib) {  // nibble 16: the empty value
+            const bool has = nib < 16 && ((mask >> nib) & 1);
+            acc |= (uint64_t)(has ? 0xA0 : 0x80) << (8 * (p & 7));
+            if ((++p & 7) == 0) {
+                reg[((p >> 3) - 1) * LEVEL_ROWS] = acc;
+                acc = 0;
+            }
+            if (has) {  // 32 zero bytes: the rest of this lane, 3 lanes, the
+                        // start of the next
+                const int q = p >> 3;
+                reg[q * LEVEL_ROWS] = acc;
+                reg[(q + 1) * LEVEL_ROWS] = 0;
+                reg[(q + 2) * LEVEL_ROWS] = 0;
+                reg[(q + 3) * LEVEL_ROWS] = 0;
+                acc = 0;
+                p += 32;
+            }
+        }
+        int q = p >> 3;  // p == total
+        if (p & 7) reg[q++ * LEVEL_ROWS] = acc;
+        for (; q < nl; ++q) reg[q * LEVEL_ROWS] = 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (i >= n) return;
+
+    for (int64_t c = c0; c < c1; ++c) {
+        uint64_t d[4];
+        const int nib = kids.load(ch_src, ch_nib, buf, c, d) & 15;
         // marker position of `nib` + 1: one byte per earlier nibble plus 32
         // per earlier present one
         const int at = hl + nib + 32 * __popc(mask & ((1u << nib) - 1)) + 1;
-        const uint8_t* d = buf + ch_src[c] * 32;
-        for (int b = 0; b < 32; ++b) lanes_set_byte(row, at + b, d[b]);
+        splice_digest(reg, nl, at, d);
     }
-    lanes_xor_byte(row, total, 0x01);
-    lanes_xor_byte(row, nb * KECCAK_RATE - 1, 0x80);
+    reg[(total >> 3) * LEVEL_ROWS] ^= 1ULL << (8 * (total & 7));
+    reg[(nl - 1) * LEVEL_ROWS] ^= 0x80ULL << 56;
     uint64_t s[25];
 #pragma unroll
     for (int j = 0; j < 25; ++j) s[j] = 0;
-    for (int k = 0; k < nb; ++k) keccak_absorb_block(s, row + k * KECCAK_RATE_LANES);
-    store_digest(buf, slots[i], s);
+    absorb_blocks(s, reg, nb);
+    store_digest(buf, slot, s);
 }
 
-extern "C" int packed_level(const void* flat, const void* row_off, const void* row_len,
-                            const void* slots, const void* hole_start, const void* hole_off,
-                            const void* hole_src, void* buf, int64_t n, void* stream) {
+// Once per kernel: allow its dynamic shared memory (above the 48 KB default).
+template <typename K>
+static int allow_smem(K kernel, bool& done) {
+    if (done) return 0;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LEVEL_SMEM);
+    done = err == cudaSuccess;
+    return (int)err;
+}
+
+extern "C" int packed_level(const void* flat, int64_t flat_len, const void* row_off,
+                            const void* row_len, const void* slots, const void* hole_start,
+                            const void* hole_off, const void* hole_src, void* buf, int64_t n,
+                            void* stream) {
+    static bool ready = false;
     if (n <= 0) return 0;
-    const int64_t grid = (n + KECCAK_THREADS - 1) / KECCAK_THREADS;
-    packed_level_kernel<<<(unsigned)grid, KECCAK_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)flat, (const int64_t*)row_off, (const int32_t*)row_len,
+    if (const int err = allow_smem(packed_level_kernel, ready)) return err;
+    const int64_t grid = (n + LEVEL_ROWS - 1) / LEVEL_ROWS;
+    packed_level_kernel<<<(unsigned)grid, LEVEL_ROWS, LEVEL_SMEM, (cudaStream_t)stream>>>(
+        (const uint8_t*)flat, flat_len, (const int64_t*)row_off, (const int32_t*)row_len,
         (const int64_t*)slots, (const int64_t*)hole_start, (const int32_t*)hole_off,
         (const int64_t*)hole_src, (uint8_t*)buf, n);
     return (int)cudaGetLastError();
@@ -145,9 +428,11 @@ extern "C" int packed_level(const void* flat, const void* row_off, const void* r
 extern "C" int branch_level(const void* masks, const void* slots, const void* ch_start,
                             const void* ch_nib, const void* ch_src, void* buf, int64_t n,
                             void* stream) {
+    static bool ready = false;
     if (n <= 0) return 0;
-    const int64_t grid = (n + KECCAK_THREADS - 1) / KECCAK_THREADS;
-    branch_level_kernel<<<(unsigned)grid, KECCAK_THREADS, 0, (cudaStream_t)stream>>>(
+    if (const int err = allow_smem(branch_level_kernel, ready)) return err;
+    const int64_t grid = (n + LEVEL_ROWS - 1) / LEVEL_ROWS;
+    branch_level_kernel<<<(unsigned)grid, LEVEL_ROWS, LEVEL_SMEM, (cudaStream_t)stream>>>(
         (const int32_t*)masks, (const int64_t*)slots, (const int64_t*)ch_start,
         (const int32_t*)ch_nib, (const int64_t*)ch_src, (uint8_t*)buf, n);
     return (int)cudaGetLastError();

@@ -41,8 +41,14 @@ __device__ __forceinline__ uint64_t keccak_rotl(uint64_t x, int r) {
 }
 
 // One keccak-f[1600] permutation in place. Lane index is x + 5*y (FIPS-202).
+// RoundUnroll rounds are unrolled per loop trip (24: all of them). Within a
+// round every lane index and rotation is a compile-time constant either way;
+// a rolled loop trades a few loop instructions per round for a ~24x smaller
+// body, which warps at different points of the permutation share in the
+// instruction caches.
+template <int RoundUnroll = 24>
 __device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
-#pragma unroll
+#pragma unroll (RoundUnroll)
     for (int round = 0; round < 24; ++round) {
         // theta
         uint64_t c[5], d[5];
@@ -101,21 +107,7 @@ __device__ __forceinline__ void keccak_absorb_block(uint64_t s[25], const uint64
     keccak_f1600(s);
 }
 
-// Overwrite byte p (0 <= p < 8*lanes) of a little-endian lane array.
-__device__ __forceinline__ void lanes_set_byte(uint64_t* lanes, int p, uint32_t v) {
-    const int sh = 8 * (p & 7);
-    uint64_t w = lanes[p >> 3];
-    w &= ~(0xFFULL << sh);
-    w |= (uint64_t)(v & 0xFF) << sh;
-    lanes[p >> 3] = w;
-}
-
-// XOR byte p of a little-endian lane array with v.
-__device__ __forceinline__ void lanes_xor_byte(uint64_t* lanes, int p, uint32_t v) {
-    lanes[p >> 3] ^= (uint64_t)(v & 0xFF) << (8 * (p & 7));
-}
-
-// Threads per block for the one-thread-per-message kernels: enough warps in
+// Threads per block for keccak256_absorb (one thread per message): enough warps in
 // flight per SM to hide the byte gathers, few enough registers per thread
 // (the 25-lane state plus the rho/pi temporaries) to keep several blocks
 // resident.

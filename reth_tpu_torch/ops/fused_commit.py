@@ -79,7 +79,7 @@ def _fused_lib() -> ctypes.CDLL:
     lib = _build.load_kernel("fused_level.cu")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.packed_level.restype = ctypes.c_int
-    lib.packed_level.argtypes = [p, p, p, p, p, p, p, p, i64, p]
+    lib.packed_level.argtypes = [p, i64, p, p, p, p, p, p, p, i64, p]
     lib.branch_level.restype = ctypes.c_int
     lib.branch_level.argtypes = [p, p, p, p, p, p, i64, p]
     return lib
@@ -90,14 +90,16 @@ _PACKED_TYPES = (torch.uint8, torch.int64, torch.int32, torch.int64, torch.int64
 
 
 def _check(name, tensors, types, buf):
+    """Raise on any argument the kernels cannot take; they copy digests in
+    16-byte chunks, so ``buf`` must start on a 16-byte boundary."""
     for t, ty in zip(tensors, types):
         if t.dtype != ty or not t.is_contiguous() or t.device != buf.device:
             raise ValueError(f"{name}: expected contiguous {ty} tensors on {buf.device}, "
                              f"got {t.dtype} on {t.device}")
     if buf.dim() != 2 or buf.shape[1] != 32:
         raise ValueError(f"{name}: digest buffer must be (S, 32) uint8")
-    if buf.data_ptr() % 8:
-        raise ValueError(f"{name}: digest buffer must be 8-byte aligned (64-bit stores)")
+    if buf.data_ptr() % 16:
+        raise ValueError(f"{name}: digest buffer must be 16-byte aligned (16-byte copies)")
 
 
 def packed_level(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf):
@@ -110,13 +112,18 @@ def packed_level(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, 
     of the digest spliced there. ``buf``: (S, 32) u8, updated in place."""
     args = (flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf)
     _check("packed_level", args, _PACKED_TYPES, buf)
+    # flat is read as aligned 8-byte words; it needs no slack past its end
+    # (the kernel reads the word that runs past it only up to the end)
+    if flat.data_ptr() % 8:
+        raise ValueError("packed_level: flat must be 8-byte aligned (8-byte loads)")
     n = row_off.shape[0]
     if n == 0:
         return
     if buf.device.type == "cpu":
         packed_level_ref(*args)
         return
-    err = _fused_lib().packed_level(*(t.data_ptr() for t in args), n, stream_handle(buf))
+    ptrs = [t.data_ptr() for t in args]
+    err = _fused_lib().packed_level(ptrs[0], flat.numel(), *ptrs[1:], n, stream_handle(buf))
     _build.check_launch(err, "packed_level")
     packed_level.launches += 1
 
@@ -299,7 +306,10 @@ class FusedLevelEngine:
         launches eagerly, so there is nothing to flush."""
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """``arr`` on this engine's device, 16-byte aligned as the level
+        kernels need (on the CPU a numpy view may start anywhere)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return t if t.data_ptr() % 16 == 0 else t.clone()
 
     # -- dispatch ----------------------------------------------------------
 

@@ -48,3 +48,151 @@ def branches(branch_nodes: dict) -> dict:
     differ, so dataclass equality alone would never hold across them."""
     return {path: (b.state_mask, b.tree_mask, b.hash_mask, b.hashes)
             for path, b in branch_nodes.items()}
+
+
+# -- edge levels for the level kernels (packed_level, branch_level) ------------
+
+EDGE_SRC = 256  # child digests come from slots 1..EDGE_SRC-1
+EDGE_BUF_ROWS = 1024  # the sources plus every case's output slots
+EDGE_LAUNCH_ROWS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 257)
+EDGE_CASES = (
+    "packed-offsets", "packed-holes-mod8", "packed-holes-straddle", "packed-lengths",
+    "packed-tail", "packed-many-holes", "branch-popcounts",
+    *(f"packed-rows{n}" for n in EDGE_LAUNCH_ROWS),
+    *(f"branch-rows{n}" for n in EDGE_LAUNCH_ROWS),
+    "packed-long",
+)
+
+
+def edge_digest_buffer(seed: int = 5) -> np.ndarray:
+    """The (EDGE_BUF_ROWS, 32) random digest buffer every edge case starts from."""
+    return np.random.default_rng(seed).integers(0, 256, size=(EDGE_BUF_ROWS, 32), dtype=np.uint8)
+
+
+def _packed_case(rng, rows, order=None):
+    """Dispatch arguments of a PACKED level from (gap, length, hole offsets)
+    per row: each row lies in ``flat`` after ``gap`` random bytes, and flat
+    ends at the last row's last byte. ``order`` permutes the rows (their
+    offsets then no longer rise)."""
+    parts, row_off, row_len, holes = [], [], [], []
+    pos = 0
+    for gap, ln, _ in rows:
+        parts.append(rng.integers(0, 256, size=gap + ln, dtype=np.uint8))
+        row_off.append(pos + gap)
+        row_len.append(ln)
+        pos += gap + ln
+    order = np.arange(len(rows)) if order is None else np.asarray(order)
+    for r, src in enumerate(order):
+        holes += [(r, off, int(rng.integers(1, EDGE_SRC))) for off in rows[src][2]]
+    holes = np.array(holes, dtype=np.int32).reshape(-1, 3)
+    holes = holes[rng.permutation(len(holes))].T.copy()  # the engine groups them by row
+    return (np.concatenate(parts) if parts else np.zeros(0, np.uint8),
+            np.array(row_off, dtype=np.uint32)[order], np.array(row_len, dtype=np.uint32)[order],
+            np.arange(EDGE_SRC, EDGE_SRC + len(rows), dtype=np.int32),
+            holes if holes.shape[1] else None)
+
+
+def _branch_case(rng, masks):
+    """Dispatch arguments of a BITMAP level: one child per present nibble,
+    children shuffled across rows."""
+    kids = [(r, nib, int(rng.integers(1, EDGE_SRC)))
+            for r, m in enumerate(masks) for nib in range(16) if (m >> nib) & 1]
+    kids = np.array(kids, dtype=np.int32)[rng.permutation(len(kids))].T.copy()
+    return (np.array(masks, dtype=np.uint16),
+            np.arange(EDGE_SRC, EDGE_SRC + len(masks), dtype=np.int32), kids)
+
+
+def _gap_to(pos: int, mod8: int, rng) -> int:
+    """A gap that puts the next row at ``mod8`` modulo 8."""
+    return (mod8 - pos) % 8 + 8 * int(rng.integers(0, 3))
+
+
+def _mask(rng, popcount: int, must=()) -> int:
+    nibs = list(must) + [int(x) for x in rng.permutation([b for b in range(16) if b not in must])]
+    return sum(1 << b for b in nibs[:popcount])
+
+
+def edge_level(case: str, seed: int = 5):
+    """("packed" | "branch", the engine's dispatch arguments) of one edge case
+    (``EDGE_CASES``); numpy only. Packed: (flat, row_off, row_len, slots,
+    holes (3, H) [row, byte_off, src_slot] or None); branch: (masks, slots,
+    children (3, C) [row, nibble, src_slot]). Output slots start at
+    EDGE_SRC, so no row reads a slot its launch writes."""
+    rng = np.random.default_rng([seed, EDGE_CASES.index(case)])
+    if case == "packed-offsets":  # every row_off % 8, rows out of order
+        rows, pos = [], 0
+        for m in range(8):
+            for ln in (1, 7, 8, 9, 40, 135, 136, 200):
+                gap = _gap_to(pos, m, rng)
+                rows.append((gap, ln, [0] if ln >= 32 else []))
+                pos += gap + ln
+        return "packed", _packed_case(rng, rows, order=rng.permutation(len(rows)))
+    if case == "packed-holes-mod8":  # a hole at every offset mod 8, rows at every alignment
+        rows, pos = [], 0
+        for m in range(8):
+            for o in range(8):
+                gap = _gap_to(pos, m, rng)
+                rows.append((gap, 100, [o, 40 + o]))
+                pos += gap + 100
+        return "packed", _packed_case(rng, rows)
+    if case == "packed-holes-straddle":  # holes across the 136/272/408 block edges
+        rows = [(int(rng.integers(0, 8)), 543, [b - s for b in (136, 272, 408)])
+                for s in (1, 7, 8, 16, 24, 31)]
+        rows += [(int(rng.integers(0, 8)), 300, [136 - s, 272 - s]) for s in (3, 29)]
+        return "packed", _packed_case(rng, rows)
+    if case == "packed-lengths":
+        lens = (0, 1, 135, 136, 271, 272, 407, 408, 543)
+        rows = [(int(rng.integers(0, 8)), ln, sorted({0, ln - 32}) if ln >= 64 else [])
+                for ln in lens]
+        return "packed", _packed_case(rng, rows)
+    if case == "packed-tail":  # flat ends at the last row's last byte, mid 16-byte chunk
+        rows = [(5, 77, [3]), (0, 135, [100]), (3, 541, [509]), (1, 13, [])]
+        return "packed", _packed_case(rng, rows)
+    if case == "packed-many-holes":  # rows without holes beside rows with 16
+        rows = [(int(rng.integers(0, 8)), 543, [1 + 33 * k for k in range(16)] if r % 2 else [])
+                for r in range(12)]
+        return "packed", _packed_case(rng, rows)
+    if case == "packed-long":  # rows past four rate blocks beside short ones in one warp
+        # (holes across the 544-byte edge of the kernel's four-block window)
+        rows = [(int(rng.integers(0, 8)), ln, holes) for ln, holes in (
+            (544, [0, 512]), (30, []), (680, [544 - 31, 600]), (700, [544 - 8, 640]),
+            (690, [544 - 1, 600]), (600, [544]), (1000, [1 + 37 * k for k in range(26)]),
+            (5, []), (1088, [1020, 1060]), (1500, [136 * k - 3 for k in range(1, 11)]),
+            (2000, [1967]), (300, [100]))]
+        return "packed", _packed_case(rng, rows)
+    if case == "branch-popcounts":  # popcount 2..16, nibbles 0 and 15, f8 (7) vs f9 (8)
+        masks = [_mask(rng, p, must) for p in range(2, 17) for must in ((0, 15), (0,), (15,), ())]
+        return "branch", _branch_case(rng, masks)
+    kind, n = case.split("-rows")
+    n = int(n)
+    if kind == "packed":  # 1-block and 4-block rows mixed within each warp
+        rows = []
+        for _ in range(n):
+            ln = int(rng.choice([0, 50, 130, 200, 300, 500, 543]))
+            offs = [o for o in (int(rng.integers(0, 8)), ln - 32) if ln >= 72]
+            rows.append((int(rng.integers(0, 8)), ln, sorted(set(offs))))
+        return "packed", _packed_case(rng, rows)
+    masks = [_mask(rng, int(rng.choice([2, 3, 7, 8, 16]))) for _ in range(n)]
+    return "branch", _branch_case(rng, masks)
+
+
+def level_kernel_args(kind: str, args, device) -> tuple:
+    """The wrapper arguments (all but ``buf``) of ``packed_level`` /
+    ``branch_level`` for an edge case's dispatch arguments, as the port's
+    engine builds them."""
+    from reth_tpu_torch.ops.fused_commit import _csr
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(device)
+
+    if kind == "packed":
+        flat, row_off, row_len, slots, holes = args
+        holes = holes if holes is not None else np.zeros((3, 0), np.int32)
+        order, start = _csr(holes[0], len(row_off))
+        return (put(flat, np.uint8), put(row_off, np.int64), put(row_len, np.int32),
+                put(slots, np.int64), put(start, np.int64), put(holes[1][order], np.int32),
+                put(holes[2][order], np.int64))
+    masks, slots, children = args
+    order, start = _csr(children[0], len(masks))
+    return (put(masks, np.int32), put(slots, np.int64), put(start, np.int64),
+            put(children[1][order], np.int32), put(children[2][order], np.int64))

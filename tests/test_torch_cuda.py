@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import prefix_jobs, require_card
+from _torch_helpers import (EDGE_CASES, edge_digest_buffer, edge_level, level_kernel_args,
+                            prefix_jobs, require_card)
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
@@ -69,3 +70,21 @@ def test_kernels_match_plain_versions_on_card():
             fc.branch_level_ref(*args, b_r)
         torch.cuda.synchronize()
         assert torch.equal(b_k, b_r)
+
+
+@pytest.mark.cuda
+def test_level_kernels_match_plain_versions_on_edge_levels():
+    require_card()
+    for case in EDGE_CASES:
+        kind, args = edge_level(case)
+        kargs = level_kernel_args(kind, args, "cuda")
+        kernel, ref = ((fc.packed_level, fc.packed_level_ref) if kind == "packed"
+                       else (fc.branch_level, fc.branch_level_ref))
+        b_k = torch.from_numpy(edge_digest_buffer()).cuda()
+        b_r = b_k.clone()
+        before = kernel.launches
+        kernel(*kargs, b_k)
+        ref(*kargs, b_r)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, case
+        assert torch.equal(b_k, b_r), case
