@@ -5,37 +5,48 @@
 1. Builds every native source of the port from this checkout (the two CUDA
    kernel libraries with nvcc, the trie sweep with g++, all at once), and
    prints ptxas's registers, stack frame and spills per kernel function; a
-   stack frame or a spill in either level kernel fails the run.
-2. Kernel checks: each of the three kernels against its plain PyTorch
+   stack frame or a spill in a level kernel or in subtrie_levels fails the
+   run, and so does a non-coherent (.CONSTANT) 128-bit load, a digest
+   load, in subtrie_levels' SASS.
+2. Kernel checks: each of the four kernels against its plain PyTorch
    version on the card, bit for bit (tolerance zero): keccak256_absorb on
    65,536 random messages of 0-600 bytes plus the 135/136-byte edges (timed
    beside its plain version and bound); packed_level and branch_level on
    the edge levels of tests/_torch_helpers.py (every row alignment, holes
    across rate-block edges, rows of up to 15 rate blocks, every branch
    popcount, launches of 1-257 rows) and on the largest PACKED and BITMAP
-   level of a one-shot triebuild sweep of the account trie.
-3. Slice phase (the main path, launch counters zeroed just before it): the
-   full-state rebuild through TurboCommitter.commit_hashed_pipelined —
-   storage tries, then the account trie as 256 two-nibble prefix subtries
-   at start_depth=2, both collecting branch nodes — on the card, with roots
-   and branch nodes held against backend="numpy"; then a whole-state
+   level of a one-shot triebuild sweep of the account trie; subtrie_levels
+   on chunks (k = 1, 2, 8) of those edge levels chained so that each reads
+   the digests of the one before, at k = 8 with a last level of more rows
+   than one pass of the co-resident grid.
+3. Slice phase, two main paths, the launch counters zeroed just before
+   each and read just after: (a) the full-state rebuild through
+   TurboCommitter.commit_hashed_pipelined (storage tries, then the account
+   trie as 256 two-nibble prefix subtries at start_depth=2, both collecting
+   branch nodes) on the default engine, MegaFusedEngine, then a whole-state
    state_root() through TrieCommitter(fused=True, hasher=KeccakDevice(...)),
-   held against the per-level numpy committer. The arguments of every
-   kernel launch of this run are kept.
-4. Two more rebuilds after the main path's launch counts were read: one
-   under torch.profiler (the card's busy time and idle share), one under
-   cProfile (the host's time by function).
-5. Kernel timings at the main path's own shapes: for each kernel, its
-   launch with the most rows and its launch at the median row count,
-   replayed on a random digest buffer, bit for bit against the plain
-   version on the same arguments, then timed with CUDA events beside the
-   plain version, the bound and the launch's one-warp floor (its longest
-   row's permutations, one warp issuing an integer instruction every 2
-   cycles at the maximum SM clock). The JSON line carries the median
-   launch, plus the largest launch's time and plain time. Beside bound_ms
-   it carries floor_bound_ms, the one-warp floor: like bound_ms, computed
-   from this run's inputs, not measured (largest_bound_ms and
-   largest_floor_bound_ms for the largest launch).
+   held against the per-level numpy committer; (b) the same rebuild through
+   TurboCommitter(subtrie_levels=8), SubtrieFusedEngine. Both rebuilds'
+   roots and branch nodes are held against one backend="numpy" rebuild.
+   The arguments of every kernel launch of both paths are kept; each
+   engine's host-to-device copies, launches and staged levels are logged.
+4. For each engine, two more rebuilds after the launch counts were read:
+   one under torch.profiler (the card's busy time, its host-to-device copy
+   time and idle share), one under cProfile (the host's time by function).
+5. Kernel timings at the main paths' own shapes: for each kernel, its
+   launch with the most rows and its launch at the median row count (for
+   subtrie_levels, the chunk with the most rows over its levels and the
+   median one), replayed on a random digest buffer, bit for bit against the
+   plain version on the same arguments, then timed with CUDA events beside
+   the plain version, the bound and the launch's one-warp floor (its
+   longest row's permutations, one warp issuing an integer instruction
+   every 2 cycles at the maximum SM clock; summed over a chunk's levels,
+   which run one after another, as is its bound). The JSON line carries the
+   median launch, plus the largest launch's time and plain time. Beside
+   bound_ms it carries floor_bound_ms, the one-warp floor: like bound_ms,
+   computed from this run's inputs, not measured (largest_bound_ms and
+   largest_floor_bound_ms for the largest launch). ``launches`` is the sum
+   over both main paths; ``launches_by_path`` splits it.
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernels' JSON.
@@ -145,25 +156,45 @@ def find_cuobjdump() -> str:
     return cand
 
 
-def sass_int_ops(lib_path: str, kernel: str) -> int:
-    """Integer-pipe instructions in ``kernel``'s SASS: kernel 1's body is one
-    fully unrolled keccak-f[1600] inside the block loop, so this is the
-    per-permutation integer work (plus the loop's few instructions)."""
+def sass_opcodes(lib_path: str, kernel: str) -> list[str]:
+    """``kernel``'s SASS instructions (opcode with modifiers), by cuobjdump."""
     sass = subprocess.run([find_cuobjdump(), "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    count, inside = 0, False
+    ops, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
             continue
-        if not inside:
-            continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and m.group(1).split(".")[0] in INT_OPCODES:
-            count += 1
-    if count == 0:
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            ops.append(m.group(1))
+    if not ops:
         raise RuntimeError(f"no SASS found for {kernel} in {lib_path}")
-    return count
+    return ops
+
+
+def sass_int_ops(lib_path: str, kernel: str) -> int:
+    """Integer-pipe instructions in ``kernel``'s SASS: kernel 1's body is one
+    fully unrolled keccak-f[1600] inside the block loop, so this is the
+    per-permutation integer work (plus the loop's few instructions)."""
+    return sum(op.split(".")[0] in INT_OPCODES for op in sass_opcodes(lib_path, kernel))
+
+
+def check_coherent_digest_loads(lib_path: str, kernel: str) -> None:
+    """Raise if a 128-bit load from global memory in ``kernel`` takes the
+    non-coherent path (.CONSTANT). Those loads are the digest loads (every
+    other array is read in words of at most 8 bytes, staged digests from
+    shared memory); a later step of subtrie_levels reads digests an earlier
+    step wrote, which a non-coherent load may miss."""
+    ops = sass_opcodes(lib_path, kernel)
+    wide = [op for op in ops if op.split(".")[0] in ("LDG", "LD") and ".128" in op]
+    nc = [op for op in ops if op.split(".")[0] in ("LDG", "LD") and "CONSTANT" in op]
+    log(f"SASS {kernel}: {len(wide)} 128-bit global loads ({sorted(set(wide))}), "
+        f"{len(nc)} non-coherent loads in all ({sorted(set(nc))})")
+    if not wide:
+        raise AssertionError(f"{kernel}: no 128-bit digest load found in its SASS")
+    if any("CONSTANT" in op for op in wide):
+        raise AssertionError(f"{kernel}: a digest load is non-coherent (.CONSTANT)")
 
 
 def ptxas_report(text: str) -> dict[str, dict]:
@@ -188,12 +219,12 @@ def ptxas_report(text: str) -> dict[str, dict]:
     return out
 
 
-LEVEL_KERNELS = ("packed_level_kernel", "branch_level_kernel")
+LEVEL_KERNELS = ("packed_level_kernel", "branch_level_kernel", "subtrie_levels_kernel")
 
 
 def check_ptxas(src_name: str, text: str, enforce: bool) -> None:
     """Log each kernel function's ptxas line; with ``enforce``, raise if a
-    level kernel is missing, has a stack frame or spills."""
+    level kernel (or subtrie_levels) is missing, has a stack frame or spills."""
     short = {}
     for fn, r in ptxas_report(text).items():
         name = next((k for k in LEVEL_KERNELS + ("keccak256_absorb_kernel",) if k in fn), fn)
@@ -249,6 +280,14 @@ class Bound:
         t_ops = perms * self.ops_per_perm / self.int_rate
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+    def level(self, work) -> tuple[float, str, float, str]:
+        """(bound ms, what bounds it, one-warp floor ms, description) of one
+        launch from its (permutations, bytes, longest row's permutations)."""
+        perms, nbytes, longest = work
+        b_ms, b_by = self(perms, nbytes)
+        return (b_ms, b_by, self.floor_ms(longest),
+                f"{perms} permutations, longest row {longest}, {nbytes} B")
 
     def floor_ms(self, longest_row_perms: int) -> float:
         """One-warp floor of a launch: its longest row's permutations issued
@@ -318,6 +357,29 @@ def edge_level_checks() -> None:
         n_cases += 1
     log(f"packed_level and branch_level: bit-exact vs plain on {n_cases} edge launches")
 
+    from _torch_helpers import edge_chain, staged_chunks
+
+    resident = fc.subtrie_resident_blocks()
+    log(f"subtrie_levels: {resident} co-resident blocks of 128 rows "
+        f"({resident // torch.cuda.get_device_properties(0).multi_processor_count} per SM)")
+    for k in (1, 2, 8):
+        extra = resident * 128 + 1000 if k == 8 else 0
+        levels, rows = edge_chain(extra)
+        chunks = staged_chunks(levels, k, "cuda")
+        base = torch.from_numpy(np.random.default_rng(k).integers(
+            0, 256, size=(rows, 32), dtype=np.uint8)).to("cuda")
+        b_k, b_r = base.clone(), base.clone()
+        for chunk in chunks:
+            fc.subtrie_levels(*chunk, b_k)
+            fc.subtrie_levels_ref(*chunk, b_r)
+        torch.cuda.synchronize()
+        err = max_abs_err(b_k, b_r)
+        if err:
+            raise AssertionError(f"subtrie_levels differs from its plain version on the edge "
+                                 f"chunks at k={k} (max abs err {err})")
+        log(f"subtrie_levels: bit-exact vs plain on {len(chunks)} chunks of {len(levels)} "
+            f"chained edge levels at k={k}" + (f", the last of {extra} rows" if extra else ""))
+
 
 def kernel_checks(args, account_jobs, bound: Bound) -> None:
     """Before the main path: each kernel bit for bit against its plain
@@ -381,7 +443,7 @@ def kernel_checks(args, account_jobs, bound: Bound) -> None:
         f"branch_level: bit-exact vs plain on one of {len(lb.masks)} rows (checks only)")
 
 
-KERNELS = ("keccak256_absorb", "packed_level", "branch_level")
+KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 
 
 class _Recorded:
@@ -421,7 +483,8 @@ class MainPathRecorder:
         self.sites = [(ok, "keccak256_words_masked", "keccak256_absorb"),
                       (fc, "keccak256_words_masked", "keccak256_absorb"),
                       (fc, "packed_level", "packed_level"),
-                      (fc, "branch_level", "branch_level")]
+                      (fc, "branch_level", "branch_level"),
+                      (fc, "subtrie_levels", "subtrie_levels")]
         self.calls: dict[str, list] = {k: [] for k in KERNELS}
         self._saved: list = []
 
@@ -441,7 +504,10 @@ class MainPathRecorder:
         self._saved = []
 
     def rows(self, name: str, args) -> int:
-        """Rows of one launch (packed_level's first argument is its bytes)."""
+        """Rows of one launch (packed_level's first argument is its bytes;
+        subtrie_levels' rows are its levels' rows together)."""
+        if name == "subtrie_levels":
+            return int(args[2][:, 1].sum())
         return args[1 if name == "packed_level" else 0].shape[0]
 
     def picks(self, name: str):
@@ -474,6 +540,25 @@ def branch_work(masks, slots, ch_start, ch_nib, ch_src):
     return int(blocks.sum()), n * (4 + 8 + 8 + 32) + 8 + C * (4 + 8 + 32), int(blocks.max())
 
 
+def subtrie_cost(bound: Bound, u8, idx, steps, max_rows) -> tuple[float, str, float, str]:
+    """A chunk's bound and one-warp floor: its levels run one after another
+    (a grid barrier between them), so both are sums over its levels of each
+    level's own; it is bound by what bounds most of that sum."""
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    b_ms = floor = perms = nbytes = 0.0
+    by_ops = 0.0
+    table = steps.cpu().tolist()
+    for p in table:
+        work = (packed_work if p[0] == 0 else branch_work)(*fc._step_args(u8, idx, p))
+        s_ms, s_by, s_floor, _ = bound.level(work)
+        b_ms, floor = b_ms + s_ms, floor + s_floor
+        by_ops += s_ms if s_by == "operations" else 0.0
+        perms, nbytes = perms + work[0], nbytes + work[1]
+    return (b_ms, "operations" if by_ops >= b_ms / 2 else "bytes", floor,
+            f"{len(table)} levels, {int(perms)} permutations, {int(nbytes)} B")
+
+
 def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
     """After the main path: each kernel at the arguments of two of its own
     launches there (the one with the most rows, and the one at the median
@@ -486,19 +571,26 @@ def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
     from reth_tpu_torch.ops import fused_commit as fc
     from reth_tpu_torch.ops.keccak import keccak256_words_masked, keccak256_words_masked_ref
 
+    def level(work):
+        return lambda *a: bound.level(work(*a))
+
     specs = {
-        "keccak256_absorb": (keccak256_words_masked, keccak256_words_masked_ref, keccak_work,
-                             "reth_tpu_torch/ops/csrc/keccak.cu",
+        "keccak256_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                             level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
                              "reth_tpu/ops/keccak_pallas.py:96"),
-        "packed_level": (fc.packed_level, fc.packed_level_ref, packed_work,
+        "packed_level": (fc.packed_level, fc.packed_level_ref, level(packed_work),
                          "reth_tpu_torch/ops/csrc/fused_level.cu",
                          "reth_tpu/ops/fused_commit.py:93"),
-        "branch_level": (fc.branch_level, fc.branch_level_ref, branch_work,
+        "branch_level": (fc.branch_level, fc.branch_level_ref, level(branch_work),
                          "reth_tpu_torch/ops/csrc/fused_level.cu",
                          "reth_tpu/ops/fused_commit.py:119"),
+        "subtrie_levels": (fc.subtrie_levels, fc.subtrie_levels_ref,
+                           lambda *a: subtrie_cost(bound, *a),
+                           "reth_tpu_torch/ops/csrc/fused_level.cu",
+                           "reth_tpu/ops/fused_commit.py:1046"),
     }
     rows = []
-    for name, (kernel, ref, work, source, replaces) in specs.items():
+    for name, (kernel, ref, cost, source, replaces) in specs.items():
         n_calls = len(recorder.calls[name])
         sizes = sorted(recorder.rows(name, a) for a in recorder.calls[name])
         log(f"{name}: {n_calls} launches on the main path, rows per launch min {sizes[0]}, "
@@ -520,11 +612,9 @@ def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
             plain = (lambda: ref(*fargs)) if b_k is None else (lambda: ref(*fargs, b_k))
             ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
             plain_ms = cuda_ms(plain, 5)
-            perms, nbytes, longest = work(*fargs)
-            b_ms, b_by = bound(perms, nbytes)
-            floor = bound.floor_ms(longest)
+            b_ms, b_by, floor, desc = cost(*fargs)
             log(f"{name} at the main path's {label} launch ({recorder.rows(name, rec)} rows, "
-                f"{perms} permutations, longest row {longest}, {nbytes} B): bit-exact vs plain; "
+                f"{desc}): bit-exact vs plain; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"one-warp floor {floor:.4f} ms")
             if label == "median":
@@ -537,8 +627,35 @@ def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
     return rows
 
 
+def track_engines(committer) -> list:
+    """The engines ``committer`` makes from now on (one per commit)."""
+    made = []
+    make = committer._make_backend
+
+    def tracked():
+        made.append(make())
+        return made[-1]
+
+    committer._make_backend = tracked
+    return made
+
+
+def engine_summary(engines: list) -> str:
+    """Host-to-device copies, launches and staged levels of a rebuild's
+    engines (one per commit: storage tries, account trie)."""
+    uploads = sum(e.uploads for e in engines)
+    dispatches = sum(e.dispatches for e in engines)
+    staged = [getattr(e, "levels_staged", None) for e in engines]
+    out = (f"{type(engines[0]).__name__} x {len(engines)} commits: {uploads} host-to-device "
+           f"copies, {dispatches} launches, {sum(e.staged_u8_bytes for e in engines)} B staged "
+           f"bytes + {sum(e.staged_i32_bytes for e in engines)} B staged indices")
+    if None not in staged:
+        out += f", {sum(staged)} levels staged (k={engines[0].k})"
+    return out
+
+
 def slice_phase(args, storage_jobs, account_jobs):
-    """The main path. Returns the launch counts of the run and the
+    """The two main paths. Returns the launch counts of each and the
     recorder holding each launch's arguments."""
     import torch
 
@@ -564,40 +681,51 @@ def slice_phase(args, storage_jobs, account_jobs):
         return res
 
     accounts, storages = plain_state(args.state_accounts, args.state_slots, args.seed + 1)
-    dev_turbo = TurboCommitter(backend="device", device="cuda")
+    committers = {"default": TurboCommitter(backend="device", device="cuda"),
+                  "k=8": TurboCommitter(backend="device", device="cuda", subtrie_levels=8)}
+    engines = {name: track_engines(c) for name, c in committers.items()}
     fused = TrieCommitter(fused=True, device="cuda",
                           hasher=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch)
+    wrappers = {"keccak256_absorb": keccak256_words_masked, "packed_level": fc.packed_level,
+                "branch_level": fc.branch_level, "subtrie_levels": fc.subtrie_levels}
 
     recorder = MainPathRecorder()
-    for fn in (keccak256_words_masked, fc.packed_level, fc.branch_level):
-        fn.launches = 0
-    torch.cuda.synchronize()
+    launches, got, walls = {}, {}, {}
     with recorder:
-        t0 = time.perf_counter()
-        got = rebuild(dev_turbo)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        root_dev, det_dev = state_root(accounts, storages, committer=fused)
-        torch.cuda.synchronize()
-        wall_sr = time.perf_counter() - t1
-    launches = {"keccak256_absorb": keccak256_words_masked.launches,
-                "packed_level": fc.packed_level.launches,
-                "branch_level": fc.branch_level.launches}
+        for name, committer in committers.items():
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = rebuild(committer)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == "default":
+                t1 = time.perf_counter()
+                root_dev, det_dev = state_root(accounts, storages, committer=fused)
+                torch.cuda.synchronize()
+                wall_sr = time.perf_counter() - t1
+            launches[name] = {k: fn.launches for k, fn in wrappers.items()}
+            log(f"main path {name}: launches {json.dumps(launches[name])}")
+    summaries = {name: engine_summary(made) for name, made in engines.items()}
+    for made in engines.values():
+        del made[:]
 
-    hashed = sum(r.hashed_nodes for r in got)
-    log(f"rebuild on the card: {wall:.3f} s wall, {hashed} hashed nodes, "
-        f"{hashed / wall:.1f} hashed nodes/s")
     t0 = time.perf_counter()
     want = rebuild(TurboCommitter(backend="numpy"))
     wall_np = time.perf_counter() - t0
     log(f"rebuild on the numpy twin (host): {wall_np:.3f} s wall")
-    if [r.root for r in got] != [r.root for r in want]:
-        raise AssertionError("rebuild roots differ between the card and the numpy twin")
-    if [r.branch_nodes for r in got] != [r.branch_nodes for r in want]:
-        raise AssertionError("rebuild branch nodes differ between the card and the numpy twin")
-    n_branches = sum(len(r.branch_nodes) for r in got)
-    log(f"rebuild: {len(got)} roots and {n_branches} branch nodes equal the numpy twin's")
+    for name, res in got.items():
+        hashed = sum(r.hashed_nodes for r in res)
+        log(f"rebuild on the card, {name} engine: {walls[name]:.3f} s wall, {hashed} hashed "
+            f"nodes, {hashed / walls[name]:.1f} hashed nodes/s; {summaries[name]}")
+        if [r.root for r in res] != [r.root for r in want]:
+            raise AssertionError(f"rebuild roots differ between the {name} engine and the numpy twin")
+        if [r.branch_nodes for r in res] != [r.branch_nodes for r in want]:
+            raise AssertionError(f"rebuild branch nodes differ between the {name} engine and "
+                                 f"the numpy twin")
+        log(f"rebuild, {name} engine: {len(res)} roots and "
+            f"{sum(len(r.branch_nodes) for r in res)} branch nodes equal the numpy twin's")
 
     t0 = time.perf_counter()
     root_np, det_np = state_root(accounts, storages,
@@ -609,22 +737,28 @@ def slice_phase(args, storage_jobs, account_jobs):
     log(f"state_root ({len(accounts)} accounts, {sum(len(s) for s in storages.values())} slots): "
         f"fused on the card {wall_sr:.3f} s, per-level numpy {wall_sr_np:.3f} s, "
         f"root {root_dev.hex()} equal")
-    log(f"launches on the main path: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    paths = {"default": ("keccak256_absorb", "packed_level", "branch_level"),
+             "k=8": ("subtrie_levels",)}
+    for path, kernels in paths.items():
+        for name in kernels:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on main path {path}")
+    for name in KERNELS:
+        count = sum(by_path[name] for by_path in launches.values())
         if len(recorder.calls[name]) != count:
             raise AssertionError(f"{name}: {len(recorder.calls[name])} launches recorded, "
                                  f"{count} counted")
-    profile_rebuild(rebuild, dev_turbo)
+    for name, committer in committers.items():
+        profile_rebuild(rebuild, committer, name)
     return launches, recorder
 
 
-def profile_rebuild(rebuild, committer) -> None:
+def profile_rebuild(rebuild, committer, label: str) -> None:
     """Two more rebuilds, after the main path's counters were read (so
     their launches are not counted): one under torch.profiler for the
-    card's busy time by kernel and copy and its idle share of the wall,
-    one under cProfile for the host's time by function."""
+    card's busy time by kernel and copy, its host-to-device copy time and
+    its idle share of the wall, one under cProfile for the host's time by
+    function."""
     import cProfile
     import pstats
 
@@ -642,20 +776,22 @@ def profile_rebuild(rebuild, committer) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
     if busy_us == 0:
-        log(f"profiled rebuild: {wall:.3f} s wall; device time not measured "
+        log(f"profiled rebuild, {label} engine: {wall:.3f} s wall; device time not measured "
             f"(the profiler recorded no device activity)")
     else:
-        log(f"profiled rebuild: {wall:.3f} s wall, device busy {busy_us / 1e3:.3f} ms, "
-            f"idle share {1 - busy_us / 1e6 / wall:.4f}")
+        h2d = [r for r in rows if "HtoD" in r[0]]
+        log(f"profiled rebuild, {label} engine: {wall:.3f} s wall, device busy "
+            f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.4f}; host-to-device "
+            f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
             log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
     prof_host = cProfile.Profile()
     t0 = time.perf_counter()
     prof_host.runcall(rebuild, committer)
     torch.cuda.synchronize()
-    log(f"host profile of a rebuild ({time.perf_counter() - t0:.3f} s wall under cProfile, "
-        f"all threads: cumulative times of concurrent threads overlap), top functions by "
-        f"own time:")
+    log(f"host profile of a rebuild, {label} engine ({time.perf_counter() - t0:.3f} s wall under "
+        f"cProfile, all threads: cumulative times of concurrent threads overlap), top functions "
+        f"by own time:")
     stats = pstats.Stats(prof_host)
     top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]
     for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in top:
@@ -695,6 +831,7 @@ def main() -> int:
         log_path = p.with_name(p.name + ".log")
         check_ptxas(s.name, log_path.read_text() if log_path.exists() else "",
                     enforce=s.name == "fused_level.cu")
+    check_coherent_digest_loads(libs["fused_level.cu"], "subtrie_levels_kernel")
     bound = make_bound(libs)
 
     if args.accounts != 1_000_000 or args.slots != 400_000:
@@ -708,7 +845,8 @@ def main() -> int:
     launches, recorder = slice_phase(args, storage_jobs, account_jobs)
     rows = kernel_timings(recorder, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

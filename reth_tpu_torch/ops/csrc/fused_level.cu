@@ -1,4 +1,6 @@
-// Kernels 2 and 3: one trie level hashed against the resident digest buffer.
+// Kernels 2 and 3: one trie level hashed against the resident digest buffer;
+// kernel 4 (subtrie_levels, at the end): up to k dependent levels in one
+// persistent launch, each level through the same tile bodies.
 //
 // packed_level replaces the JAX package's ops/fused_commit.py _packed_level
 // (an XLA program): gather each PACKED row's RLP bytes from the level's
@@ -66,6 +68,7 @@
 // All reads of the buffer are of slots written by earlier (deeper) levels,
 // and every row writes its own slot, so rows of one launch never race.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "keccak.cuh"
@@ -162,7 +165,7 @@ struct EntryStage {
 
     __device__ __forceinline__ void copy(const int64_t* __restrict__ src,
                                          const int32_t* __restrict__ tag,
-                                         const uint8_t* __restrict__ buf) const {
+                                         const uint8_t* buf) const {
         const int t = threadIdx.x;
         int32_t* tags = (int32_t*)(stage + 32 * count);
         if (t < 2 * count) cp_async16(stage + 16 * t, buf + src0 * 32 + 16 * (t & 1));
@@ -176,7 +179,7 @@ struct EntryStage {
     // global memory (digests 16-byte aligned in both).
     __device__ __forceinline__ int load(const int64_t* __restrict__ src,
                                         const int32_t* __restrict__ tag,
-                                        const uint8_t* __restrict__ buf, int64_t e,
+                                        const uint8_t* buf, int64_t e,
                                         uint64_t d[4]) const {
         const bool staged = e - e0 < count;
         const ulonglong2* p =
@@ -224,7 +227,7 @@ __device__ __forceinline__ void absorb_blocks(uint64_t s[25], const uint64_t* re
     }
 }
 
-__device__ __forceinline__ void store_digest(uint8_t* __restrict__ buf, int64_t slot,
+__device__ __forceinline__ void store_digest(uint8_t* buf, int64_t slot,
                                              const uint64_t s[25]) {
     ulonglong2* dst = (ulonglong2*)(buf + slot * 32);
     dst[0] = make_ulonglong2(s[0], s[1]);
@@ -240,15 +243,15 @@ __device__ __forceinline__ uint64_t load_tail(const uint64_t* w, const uint8_t* 
     return v;
 }
 
-__global__ void __launch_bounds__(LEVEL_ROWS)
-packed_level_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
-                    const int64_t* __restrict__ row_off, const int32_t* __restrict__ row_len,
-                    const int64_t* __restrict__ slots, const int64_t* __restrict__ hole_start,
-                    const int32_t* __restrict__ hole_off, const int64_t* __restrict__ hole_src,
-                    uint8_t* __restrict__ buf, int64_t n) {
-    extern __shared__ __align__(16) uint8_t smem[];
+// Rows [i0, i0 + LEVEL_ROWS) of one PACKED level (the rows below n), built
+// by the block's threads in smem (LEVEL_SMEM bytes). Every thread of the
+// block calls it; threads past n return from it only after its last barrier.
+__device__ __forceinline__ void packed_tile(
+    const uint8_t* __restrict__ flat, int64_t flat_len, const int64_t* __restrict__ row_off,
+    const int32_t* __restrict__ row_len, const int64_t* __restrict__ slots,
+    const int64_t* __restrict__ hole_start, const int32_t* __restrict__ hole_off,
+    const int64_t* __restrict__ hole_src, uint8_t* buf, int64_t n, int64_t i0, uint8_t* smem) {
     const int t = threadIdx.x;
-    const int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS;
     const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
     // every load that needs nothing else is issued before the barrier, so
     // that their latencies overlap
@@ -314,13 +317,12 @@ packed_level_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
     store_digest(buf, slot, s);
 }
 
-__global__ void __launch_bounds__(LEVEL_ROWS)
-branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict__ slots,
-                    const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
-                    const int64_t* __restrict__ ch_src, uint8_t* __restrict__ buf, int64_t n) {
-    extern __shared__ __align__(16) uint8_t smem[];
+// Rows [i0, i0 + LEVEL_ROWS) of one BITMAP level, as packed_tile.
+__device__ __forceinline__ void branch_tile(
+    const int32_t* __restrict__ masks, const int64_t* __restrict__ slots,
+    const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
+    const int64_t* __restrict__ ch_src, uint8_t* buf, int64_t n, int64_t i0, uint8_t* smem) {
     const int t = threadIdx.x;
-    const int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS;
     const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
     int64_t i = i0 + t, c0, c1, slot;
     uint32_t mask;
@@ -400,6 +402,89 @@ branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict
     store_digest(buf, slot, s);
 }
 
+__global__ void __launch_bounds__(LEVEL_ROWS)
+packed_level_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
+                    const int64_t* __restrict__ row_off, const int32_t* __restrict__ row_len,
+                    const int64_t* __restrict__ slots, const int64_t* __restrict__ hole_start,
+                    const int32_t* __restrict__ hole_off, const int64_t* __restrict__ hole_src,
+                    uint8_t* buf, int64_t n) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    packed_tile(flat, flat_len, row_off, row_len, slots, hole_start, hole_off, hole_src, buf, n,
+                (int64_t)blockIdx.x * LEVEL_ROWS, smem);
+}
+
+__global__ void __launch_bounds__(LEVEL_ROWS)
+branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict__ slots,
+                    const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
+                    const int64_t* __restrict__ ch_src, uint8_t* buf, int64_t n) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    branch_tile(masks, slots, ch_start, ch_nib, ch_src, buf, n, (int64_t)blockIdx.x * LEVEL_ROWS,
+                smem);
+}
+
+// subtrie_levels replaces the JAX package's ops/fused_commit.py
+// _subtrie_program (a lax.fori_loop over up to k staged levels in one XLA
+// dispatch, the digest buffer as the loop's carry). One launch runs a chunk
+// of dependent levels, deepest first: step s + 1 splices digests that step s
+// wrote. It is one persistent, cooperative launch of as many blocks as the
+// card holds at once (or fewer, when the chunk's largest level has fewer
+// 128-row tiles); each step runs its level's tiles strided over the grid with
+// the packed or branch body above, and a grid barrier separates the steps.
+//
+// The levels' arrays lie in two staged buffers, bytes (u8: packed rows,
+// branch masks) and indices (idx); a table of STEP_W int64 per step, staged
+// in idx too, says where (byte offsets into the buffer) and how many rows:
+constexpr int STEP_W = 10;  // _PARAM_W in fused_commit.py
+enum StepField {
+    STEP_KIND,       // 0 packed, 1 branch
+    STEP_ROWS,       // n
+    STEP_BYTES,      // u8 offset of flat (packed) or of the i32 masks (branch)
+    STEP_BYTES_LEN,  // flat_len (packed)
+    STEP_ROW_OFF,    // idx offsets of the per-row and CSR arrays, as the
+    STEP_ROW_LEN,    // level kernels take them (row_off / row_len packed only)
+    STEP_SLOTS,
+    STEP_START,      // hole_start / ch_start
+    STEP_TAG,        // hole_off / ch_nib
+    STEP_SRC,        // hole_src / ch_src
+};
+//
+// Coherence: a step reads digests that other blocks wrote in an earlier step
+// of the same launch. The grid barrier orders those writes before the
+// reads, but only for coherent loads, so buf is read without __restrict__
+// (no non-coherent LDG.CONSTANT; chip_smoke.py checks the SASS) and staged
+// with cp.async.cg, which reads through L2. The staged buffers and the step
+// table are read-only for the whole launch.
+//
+// Bound: the sum over steps of each level's bound (they cannot overlap), plus
+// one grid barrier per step.
+__global__ void __launch_bounds__(LEVEL_ROWS)
+subtrie_levels_kernel(const uint8_t* __restrict__ u8, const uint8_t* __restrict__ idx,
+                      const int64_t* __restrict__ steps, int n_steps, uint8_t* buf) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    for (int s = 0; s < n_steps; ++s) {
+        const int64_t* p = steps + (int64_t)s * STEP_W;
+        const int64_t n = p[STEP_ROWS];
+        const bool packed = p[STEP_KIND] == 0;
+        const int64_t* slots = (const int64_t*)(idx + p[STEP_SLOTS]);
+        const int64_t* start = (const int64_t*)(idx + p[STEP_START]);
+        const int32_t* tag = (const int32_t*)(idx + p[STEP_TAG]);
+        const int64_t* src = (const int64_t*)(idx + p[STEP_SRC]);
+        for (int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS; i0 < n;
+             i0 += (int64_t)gridDim.x * LEVEL_ROWS) {
+            if (packed)
+                packed_tile(u8 + p[STEP_BYTES], p[STEP_BYTES_LEN],
+                            (const int64_t*)(idx + p[STEP_ROW_OFF]),
+                            (const int32_t*)(idx + p[STEP_ROW_LEN]), slots, start, tag, src, buf,
+                            n, i0, smem);
+            else
+                branch_tile((const int32_t*)(u8 + p[STEP_BYTES]), slots, start, tag, src, buf, n,
+                            i0, smem);
+            __syncthreads();  // the next tile restages this block's shared memory
+        }
+        if (s + 1 < n_steps) cooperative_groups::this_grid().sync();
+    }
+}
+
 // Once per kernel: allow its dynamic shared memory (above the 48 KB default).
 template <typename K>
 static int allow_smem(K kernel, bool& done) {
@@ -436,4 +521,43 @@ extern "C" int branch_level(const void* masks, const void* slots, const void* ch
         (const int32_t*)masks, (const int64_t*)slots, (const int64_t*)ch_start,
         (const int32_t*)ch_nib, (const int64_t*)ch_src, (uint8_t*)buf, n);
     return (int)cudaGetLastError();
+}
+
+// Blocks of subtrie_levels_kernel the current card holds at once (its
+// occupancy at LEVEL_SMEM bytes of dynamic shared memory times the SMs): the
+// most a cooperative launch may have. Negative: minus a CUDA error.
+extern "C" int subtrie_levels_resident(void) {
+    static bool ready = false;
+    static int resident = 0;
+    if (resident) return resident;
+    if (const int err = allow_smem(subtrie_levels_kernel, ready)) return -err;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, subtrie_levels_kernel,
+                                                            LEVEL_ROWS, LEVEL_SMEM);
+    if (err != cudaSuccess) return -(int)err;
+    resident = per_sm * sms;
+    return resident ? resident : -(int)cudaErrorCooperativeLaunchTooLarge;
+}
+
+// One chunk of n_steps levels (the step table `steps`, n_steps x STEP_W
+// int64 in device memory); max_rows is its largest level's row count.
+extern "C" int subtrie_levels(const void* u8, const void* idx, const void* steps, int n_steps,
+                              int64_t max_rows, void* buf, void* stream) {
+    if (n_steps <= 0 || max_rows <= 0) return 0;
+    const int resident = subtrie_levels_resident();
+    if (resident < 0) return -resident;
+    const int64_t tiles = (max_rows + LEVEL_ROWS - 1) / LEVEL_ROWS;
+    const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+    const uint8_t* a_u8 = (const uint8_t*)u8;
+    const uint8_t* a_idx = (const uint8_t*)idx;
+    const int64_t* a_steps = (const int64_t*)steps;
+    uint8_t* a_buf = (uint8_t*)buf;
+    void* args[] = {&a_u8, &a_idx, &a_steps, &n_steps, &a_buf};
+    const cudaError_t err =
+        cudaLaunchCooperativeKernel((const void*)subtrie_levels_kernel, dim3(grid),
+                                    dim3(LEVEL_ROWS), args, LEVEL_SMEM, (cudaStream_t)stream);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

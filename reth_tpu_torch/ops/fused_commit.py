@@ -22,11 +22,20 @@ aimed at slot 0) so XLA compiles a bounded set of shapes, and splits levels
 at row caps for its int32 indices. Neither applies here: each launch takes
 the exact row count and 64-bit indices, so there is no padding to land
 anywhere and no split.
+
+Three engines, as in the reference. ``FusedLevelEngine`` uploads each
+level's arrays and launches it at once. ``MegaFusedEngine`` (the rebuild's
+default) stages every level of a commit and, at the end, uploads all of them
+in two host-to-device copies (bytes and indices) and launches kernels 2 and
+3 on views into those two buffers. ``SubtrieFusedEngine`` stages the same
+way, but at every window runs each chunk of up to k levels as one launch of
+kernel 4, ``csrc/fused_level.cu subtrie_levels``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -77,11 +86,15 @@ def packed_level_ref(flat, row_off, row_len, slots, hole_start, hole_off, hole_s
 
 def _fused_lib() -> ctypes.CDLL:
     lib = _build.load_kernel("fused_level.cu")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.packed_level.restype = ctypes.c_int
+    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.packed_level.restype = c_int
     lib.packed_level.argtypes = [p, i64, p, p, p, p, p, p, p, i64, p]
-    lib.branch_level.restype = ctypes.c_int
+    lib.branch_level.restype = c_int
     lib.branch_level.argtypes = [p, p, p, p, p, p, i64, p]
+    lib.subtrie_levels.restype = c_int
+    lib.subtrie_levels.argtypes = [p, p, p, c_int, i64, p, p]
+    lib.subtrie_levels_resident.restype = c_int
+    lib.subtrie_levels_resident.argtypes = []
     return lib
 
 
@@ -197,6 +210,88 @@ def branch_level(masks, slots, ch_start, ch_nib, ch_src, buf):
 branch_level.launches = 0
 
 
+# -- kernel 4: a chunk of dependent levels in one launch -----------------------
+
+# One row of the step table per staged level (int64): kind (0 packed, 1
+# branch), rows, then byte offsets of the level's arrays in the two staged
+# buffers, in csrc/fused_level.cu's StepField order.
+_PARAM_W = 10
+(_KIND, _ROWS, _BYTES, _BYTES_LEN, _ROW_OFF, _ROW_LEN, _SLOTS, _START, _TAG,
+ _SRC) = range(_PARAM_W)
+
+
+def _step_args(u8: torch.Tensor, idx: torch.Tensor, p, n_entries: int | None = None) -> tuple:
+    """The level kernel's arguments (all but ``buf``) for one step-table
+    row ``p``: views into the staged byte buffer ``u8`` and index buffer
+    ``idx``. ``n_entries`` is the level's hole (child) count; without it it
+    is read from the end of the CSR start index."""
+    n = p[_ROWS]
+
+    def ix(off: int, count: int, dtype) -> torch.Tensor:
+        size = torch.empty((), dtype=dtype).element_size()
+        return idx[off:off + count * size].view(dtype)
+
+    start = ix(p[_START], n + 1, torch.int64)
+    h = int(start[n]) if n_entries is None else n_entries
+    tail = (ix(p[_SLOTS], n, torch.int64), start, ix(p[_TAG], h, torch.int32),
+            ix(p[_SRC], h, torch.int64))
+    if p[_KIND] == 0:
+        return (u8[p[_BYTES]:p[_BYTES] + p[_BYTES_LEN]], ix(p[_ROW_OFF], n, torch.int64),
+                ix(p[_ROW_LEN], n, torch.int32), *tail)
+    return (u8[p[_BYTES]:p[_BYTES] + 4 * n].view(torch.int32), *tail)
+
+
+def subtrie_levels_ref(u8, idx, steps, max_rows, buf):
+    """Plain PyTorch version of kernel 4 (the reference's
+    ``_subtrie_program``): the chunk's levels in order, each through its
+    level kernel's plain version on views into the staged buffers."""
+    for p in steps.tolist():
+        ref = packed_level_ref if p[_KIND] == 0 else branch_level_ref
+        ref(*_step_args(u8, idx, p), buf)
+
+
+def subtrie_levels(u8, idx, steps, max_rows, buf):
+    """Hash a chunk of dependent levels into ``buf`` in one launch (kernel 4).
+
+    ``u8`` / ``idx``: the staged byte and index buffers (u8, 16-byte
+    aligned); ``steps``: (k, _PARAM_W) i64 step table on the same device,
+    one row per level, deepest first; ``max_rows``: the chunk's largest
+    level's row count (it sizes the grid). ``buf``: (S, 32) u8, updated in
+    place."""
+    for name, t in (("u8", u8), ("idx", idx)):
+        if t.dtype != torch.uint8 or t.dim() != 1 or t.device != buf.device:
+            raise ValueError(f"subtrie_levels: {name} must be a 1-D uint8 tensor on {buf.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"subtrie_levels: {name} must be 16-byte aligned")
+    if (steps.dtype != torch.int64 or steps.dim() != 2 or steps.shape[1] != _PARAM_W
+            or not steps.is_contiguous() or steps.device != buf.device):
+        raise ValueError(f"subtrie_levels: steps must be a contiguous (k, {_PARAM_W}) int64 "
+                         f"tensor on {buf.device}")
+    _check("subtrie_levels", (), (), buf)
+    if steps.shape[0] == 0 or max_rows <= 0:
+        return
+    if buf.device.type == "cpu":
+        subtrie_levels_ref(u8, idx, steps, max_rows, buf)
+        return
+    err = _fused_lib().subtrie_levels(u8.data_ptr(), idx.data_ptr(), steps.data_ptr(),
+                                      steps.shape[0], max_rows, buf.data_ptr(),
+                                      stream_handle(buf))
+    _build.check_launch(err, "subtrie_levels")
+    subtrie_levels.launches += 1
+
+
+subtrie_levels.launches = 0
+
+
+def subtrie_resident_blocks() -> int:
+    """Blocks of kernel 4 the card holds at once: the grid of its largest
+    launches (each 128 rows of a level at a time)."""
+    n = _fused_lib().subtrie_levels_resident()
+    if n <= 0:
+        raise RuntimeError(f"subtrie_levels: occupancy query failed (CUDA error {-n})")
+    return n
+
+
 # -- template levels (TrieCommitter's bucket protocol) -------------------------
 
 
@@ -253,6 +348,7 @@ class FusedLevelEngine:
         self.device = resolve(device)
         self._buf: torch.Tensor | None = None
         self._n_slots = 0
+        self.uploads = 0  # host-to-device copies since begin()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -260,6 +356,7 @@ class FusedLevelEngine:
         s_tier = _next_tier(max_slots + 1, max(self.min_tier, 2))
         self._buf = torch.zeros((s_tier, 32), dtype=torch.uint8, device=self.device)
         self._n_slots = 1  # slot 0 = dummy
+        self.uploads = 0
 
     def begin_from(self, buf: torch.Tensor) -> None:
         """Continue committing against ``buf`` (an (S, 32) u8 tensor on this
@@ -309,6 +406,7 @@ class FusedLevelEngine:
         """``arr`` on this engine's device, 16-byte aligned as the level
         kernels need (on the CPU a numpy view may start anywhere)."""
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        self.uploads += 1
         return t if t.data_ptr() % 16 == 0 else t.clone()
 
     # -- dispatch ----------------------------------------------------------
@@ -362,3 +460,241 @@ class FusedLevelEngine:
             self._put(masks.astype(np.int32)), self._put(slots.astype(np.int64)),
             self._put(start), self._put(children[1][order].astype(np.int32)),
             self._put(children[2][order].astype(np.int64)), self._buf)
+
+
+class _Staging:
+    """One staged buffer in the making: parts at 16-byte boundaries (every
+    view the kernels take then starts where ``_check`` needs it)."""
+
+    def __init__(self):
+        self.parts: list[tuple[int, np.ndarray]] = []
+        self.size = 0
+
+    def add(self, arr: np.ndarray) -> int:
+        """Stage ``arr``'s bytes; returns their offset in the buffer."""
+        b = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+        off = self.size
+        self.parts.append((off, b))
+        self.size = off + -(-b.size // 16) * 16
+        return off
+
+    def fill(self, host: np.ndarray) -> None:
+        for off, b in self.parts:
+            host[off:off + b.size] = b
+
+
+class MegaFusedEngine(FusedLevelEngine):
+    """Whole-commit staging (the reference's ``MegaFusedEngine``): every
+    dispatch of a commit is staged on the host, and the terminal fetch
+    uploads all of them in two copies, one of bytes (packed rows, branch
+    masks) and one of indices (every per-row, CSR and slot array), from
+    pinned memory, then launches kernels 2 and 3 level by level on views
+    into those two resident buffers. The digest buffer is allocated on the
+    card, not uploaded.
+
+    The staged layout is the port's own: what the level kernels take (row
+    offsets computed on the host, holes and children sorted by row with a
+    CSR start index), each part at a 16-byte boundary. ``staged_u8_bytes``
+    / ``staged_i32_bytes`` count the bytes staged into each buffer (the
+    index buffer holds i32 and i64 arrays), ``dispatches`` the level
+    launches and ``uploads`` the host-to-device copies since ``begin``."""
+
+    def __init__(self, min_tier: int = 1024, device: str | torch.device = "cuda"):
+        super().__init__(min_tier=min_tier, device=device)
+        self._s_tier = max(min_tier, 2)
+        self._reset_staging()
+        self._pinned: list[torch.Tensor] = []
+        self.dispatches = 0
+        self.staged_u8_bytes = 0
+        self.staged_i32_bytes = 0
+
+    def _reset_staging(self) -> None:
+        # (b_tier, holes or children, step-table row) per staged level
+        self._plan: list[tuple[int, int, tuple]] = []
+        self._u8 = _Staging()
+        self._idx = _Staging()
+
+    def begin(self, max_slots: int) -> None:
+        self._s_tier = _next_tier(max_slots + 1, max(self.min_tier, 2))
+        self._n_slots = 1
+        self._buf = None
+        self._reset_staging()
+        self._pinned = []
+        self.dispatches = 0
+        self.uploads = 0
+        self.staged_u8_bytes = 0
+        self.staged_i32_bytes = 0
+
+    def ensure(self, max_slots: int) -> None:
+        """Before the first ``_execute`` the buffer is only a planned size,
+        so growing it is free; after, the resident buffer is copy-grown."""
+        if self._buf is None:
+            self._s_tier = max(self._s_tier, _next_tier(max_slots + 1, max(self.min_tier, 2)))
+        else:
+            super().ensure(max_slots)
+
+    # -- staging -----------------------------------------------------------
+
+    def _stage_u8(self, arr: np.ndarray) -> int:
+        off = self._u8.add(arr)
+        self.staged_u8_bytes += arr.nbytes
+        return off
+
+    def _stage_idx(self, arr: np.ndarray) -> int:
+        off = self._idx.add(arr)
+        self.staged_i32_bytes += arr.nbytes
+        return off
+
+    def dispatch_packed(self, flat, row_off, row_len, slots, holes, b_tier) -> None:
+        n = len(row_off)
+        if n == 0:
+            return
+        if holes is None:
+            holes = np.zeros((3, 0), dtype=np.int32)
+        order, start = _csr(holes[0], n)
+        flat = np.asarray(flat, dtype=np.uint8)
+        p = (0, n, self._stage_u8(flat), flat.size,
+             self._stage_idx(row_off.astype(np.int64)),
+             self._stage_idx(row_len.astype(np.int32)),
+             self._stage_idx(slots.astype(np.int64)), self._stage_idx(start),
+             self._stage_idx(holes[1][order].astype(np.int32)),
+             self._stage_idx(holes[2][order].astype(np.int64)))
+        self._plan.append((b_tier, holes.shape[1], p))
+
+    def dispatch_branch(self, masks, slots, children) -> None:
+        n = len(masks)
+        if n == 0:
+            return
+        order, start = _csr(children[0], n)
+        p = (1, n, self._stage_u8(masks.astype(np.int32)), 0, 0, 0,
+             self._stage_idx(slots.astype(np.int64)), self._stage_idx(start),
+             self._stage_idx(children[1][order].astype(np.int32)),
+             self._stage_idx(children[2][order].astype(np.int64)))
+        self._plan.append((4, children.shape[1], p))
+
+    # -- execution ---------------------------------------------------------
+
+    def _upload(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The two staged buffers on the engine's device: each filled in
+        pinned host memory and copied without blocking. The pinned buffers
+        are kept until the terminal fetch, which waits for the stream."""
+        out = []
+        for stage in (self._u8, self._idx):
+            host = torch.empty(max(stage.size, 16), dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            stage.fill(host.numpy())
+            out.append(host.to(self.device, non_blocking=True))
+            self._pinned.append(host)
+            self.uploads += 1
+        return out[0], out[1]
+
+    def _materialize(self) -> None:
+        if self._buf is None:
+            self._buf = torch.zeros((self._s_tier, 32), dtype=torch.uint8, device=self.device)
+
+    def _execute(self) -> None:
+        """Upload everything staged since the last execution, then launch
+        its levels in order against the resident digest buffer."""
+        self._materialize()
+        if not self._plan:
+            return
+        u8, idx = self._upload()
+        for _b_tier, n_entries, p in self._plan:
+            args = _step_args(u8, idx, p, n_entries)
+            (packed_level if p[_KIND] == 0 else branch_level)(*args, self._buf)
+            self.dispatches += 1
+        self._reset_staging()
+
+    def finish(self) -> np.ndarray:
+        self._execute()
+        out = super().finish()
+        self._pinned = []
+        return out
+
+    def fetch_slots(self, slots: np.ndarray) -> np.ndarray:
+        self._execute()
+        out = super().fetch_slots(slots)
+        self._pinned = []
+        return out
+
+
+class SubtrieFusedEngine(MegaFusedEngine):
+    """Whole-subtrie k-level engine (the reference's ``SubtrieFusedEngine``
+    on one card): staging as ``MegaFusedEngine``, but consecutive staged
+    levels group into chunks of up to ``k`` and each chunk runs as ONE
+    launch of kernel 4 (``subtrie_levels``), whose steps read digests the
+    earlier steps wrote — launches per commit drop from O(depth) to
+    O(depth / k). ``flush_window()`` executes each window of the pipelined
+    rebuild at once (two copies, the step table staged with the indices),
+    so the card hashes it while the host sweeps the next; the digest buffer
+    stays resident across windows.
+
+    A level of more than ``_CHUNK_BTIER_CAP`` block tier runs in a chunk of
+    its own, and a chunk of one level launches kernel 4 too, as in the
+    reference, so ``dispatches`` and ``levels_staged`` equal the
+    reference engine's on the same staged plan. A failed launch raises: the
+    reference's journal ladder (per-level replay, CPU twin), ``warmup=``,
+    ``begin_delta`` / ``peek_slots`` and the mesh variant are not ported."""
+
+    _CHUNK_BTIER_CAP = 8
+
+    def __init__(self, min_tier: int = 1024, k: int | None = None, warmup=None,
+                 device: str | torch.device = "cuda"):
+        if warmup is not None:
+            raise NotImplementedError("SubtrieFusedEngine(warmup=...) is not ported yet")
+        super().__init__(min_tier=min_tier, device=device)
+        if k is None:
+            k = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 8)
+        self.k = max(1, int(k))
+        self.levels_staged = 0  # levels run since begin(), in `dispatches` launches
+
+    def begin(self, max_slots: int) -> None:
+        super().begin(max_slots)
+        self.levels_staged = 0
+
+    def _chunk_plan(self, plan: list) -> list[tuple[int, int]]:
+        """[(first step, steps)]: consecutive staged levels, up to ``k`` per
+        chunk; a level above ``_CHUNK_BTIER_CAP`` (a branch level's block
+        tier is 4) takes a chunk alone. The staging order is the dependency
+        order (deeper levels first), so consecutive grouping keeps every
+        parent after its children."""
+        chunks: list[list[int]] = []
+        cur_big = False
+        for i, (b_tier, _, _) in enumerate(plan):
+            big = b_tier > self._CHUNK_BTIER_CAP
+            if chunks and len(chunks[-1]) < self.k and not big and not cur_big:
+                chunks[-1].append(i)
+            else:
+                chunks.append([i])
+            cur_big = big
+        return [(c[0], len(c)) for c in chunks]
+
+    def flush_window(self) -> None:
+        """Execute everything staged so far (the pipelined rebuild calls
+        this per window). The digest buffer stays resident."""
+        self._execute()
+
+    def _execute(self) -> None:
+        self._materialize()
+        self._run_chunks(self._upload_chunks())
+
+    def _upload_chunks(self) -> list[tuple]:
+        """Upload everything staged since the last execution in two copies
+        (the step table rides with the indices) and return each chunk's
+        ``subtrie_levels`` arguments, all but the digest buffer."""
+        plan = self._plan
+        if not plan:
+            return []
+        table = np.array([p for _, _, p in plan], dtype=np.int64)
+        t_off = self._idx.add(table)
+        u8, idx = self._upload()
+        self._reset_staging()
+        self.levels_staged += len(plan)
+        steps = idx[t_off:t_off + table.nbytes].view(torch.int64).view(-1, _PARAM_W)
+        return [(u8, idx, steps[lo:lo + count], int(table[lo:lo + count, _ROWS].max()))
+                for lo, count in self._chunk_plan(plan)]
+
+    def _run_chunks(self, chunks: list[tuple]) -> None:
+        for args in chunks:
+            subtrie_levels(*args, self._buf)
+            self.dispatches += 1

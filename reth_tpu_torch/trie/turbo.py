@@ -6,9 +6,10 @@ no per-node Python:
   sorted 32-byte hashed keys + RLP values
     └─ csrc/triebuild.cpp  (C++ sweep: structure + RLP rows/masks, flat
        per-level arrays)
-        └─ per level, deepest first:
-           PACKED rows  → FusedLevelEngine.dispatch_packed   (kernel 2)
-           BITMAP rows  → FusedLevelEngine.dispatch_branch   (kernel 3)
+        └─ per level, deepest first, staged by MegaFusedEngine:
+           PACKED rows  → dispatch_packed   (kernel 2)
+           BITMAP rows  → dispatch_branch   (kernel 3)
+           (SubtrieFusedEngine: k levels per launch of kernel 4)
            ... or the numpy twin (``_NumpyBackend``), which the caller picks
            explicitly with ``backend="numpy"``
             └─ ONE digest read-back: roots (+ branch-node hashes when
@@ -29,7 +30,7 @@ import torch
 
 from ..device import resolve
 from ..ops import _build
-from ..ops.fused_commit import FusedLevelEngine
+from ..ops.fused_commit import MegaFusedEngine, SubtrieFusedEngine
 from ..primitives.keccak import RATE, keccak256, keccak256_words_masked_np
 from ..primitives.types import EMPTY_ROOT_HASH
 from .committer import BranchNode, TrieBuildResult
@@ -664,12 +665,16 @@ class RebuildPipeline:
 class TurboCommitter:
     """Full-rebuild state committer over 32-byte hashed keys.
 
-    ``backend``: "device" (``ops.fused_commit.FusedLevelEngine`` on
+    ``backend``: "device" (the fused engines of ``ops.fused_commit`` on
     ``device``, the card by default) or "numpy" (the CPU twin). The caller
-    picks one; the twin never stands in for a failed device. The
-    reference's "auto" backend, ``supervisor``, ``hash_service``, ``mesh``
-    and ``subtrie_levels > 1`` are seams for later slices of the port and
-    raise ``NotImplementedError``."""
+    picks one; the twin never stands in for a failed device. The device
+    engine is, as in the reference on one device, ``MegaFusedEngine``
+    (each commit staged and uploaded in two copies, one launch per level),
+    or ``SubtrieFusedEngine(k)`` for ``subtrie_levels`` k > 1 (one launch per
+    chunk of k levels). ``subtrie_levels=None`` reads
+    ``RETH_TPU_SUBTRIE_LEVELS`` (unset: 0). The reference's "auto" backend,
+    ``supervisor``, ``hash_service`` and ``mesh`` are seams for later slices
+    of the port and raise ``NotImplementedError``."""
 
     def __init__(self, backend: str = "device", min_tier: int = 1024, mesh=None,
                  supervisor=None, hash_service=None, subtrie_levels: int | None = None,
@@ -682,8 +687,9 @@ class TurboCommitter:
                             ("hash_service", hash_service)):
             if value is not None:
                 raise NotImplementedError(f"TurboCommitter({name}=...) is not ported yet")
-        if subtrie_levels is not None and subtrie_levels > 1:
-            raise NotImplementedError("TurboCommitter(subtrie_levels>1) is not ported yet")
+        if subtrie_levels is None:
+            subtrie_levels = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 0)
+        self.subtrie_levels = max(0, int(subtrie_levels))
         self.backend_kind = backend
         self.min_tier = min_tier
         # the numpy twin needs no card; the device backend checks for one now
@@ -691,8 +697,11 @@ class TurboCommitter:
         self.arena = DigestArena()  # resident across this committer's commits
         self._lib = load_library()
 
-    def _device_engine(self) -> FusedLevelEngine:
-        return FusedLevelEngine(min_tier=self.min_tier, device=self.device)
+    def _device_engine(self) -> MegaFusedEngine:
+        if self.subtrie_levels > 1:
+            return SubtrieFusedEngine(min_tier=self.min_tier, k=self.subtrie_levels,
+                                      device=self.device)
+        return MegaFusedEngine(min_tier=self.min_tier, device=self.device)
 
     def _make_backend(self):
         if self.backend_kind == "numpy":

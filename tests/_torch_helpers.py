@@ -196,3 +196,58 @@ def level_kernel_args(kind: str, args, device) -> tuple:
     order, start = _csr(children[0], len(masks))
     return (put(masks, np.int32), put(slots, np.int64), put(start, np.int64),
             put(children[1][order], np.int32), put(children[2][order], np.int64))
+
+
+# -- chunks of dependent levels for kernel 4 (subtrie_levels) -------------------
+
+
+def level_b_tier(kind: str, args) -> int:
+    """A level's block tier as the native sweep gives it (a branch level's
+    is 4): the power of two above its longest row's rate blocks."""
+    if kind == "branch":
+        return 4
+    nb = int(args[2].max()) // 136 + 1 if len(args[2]) else 1
+    return 1 << (nb - 1).bit_length()
+
+
+def edge_chain(extra_rows: int = 0, seed: int = 5):
+    """Every edge level in order, each reading only digests the level before
+    it wrote (the first reads slots 1..EDGE_SRC-1), each writing slots of
+    its own; with ``extra_rows``, a last PACKED level of that many rows
+    (1-5 rate blocks, a hole in every row of 32 bytes or more). Returns
+    ([(kind, dispatch arguments)], digest buffer rows needed)."""
+    levels, base, prev = [], EDGE_SRC, (1, EDGE_SRC - 1)
+    cases = [edge_level(case, seed) for case in EDGE_CASES]
+    if extra_rows:
+        rng = np.random.default_rng([seed, len(EDGE_CASES)])
+        lens = rng.choice([0, 20, 100, 135, 136, 300, 543], size=extra_rows)
+        rows = [(int(g), int(ln), [0] if ln >= 32 else [])
+                for g, ln in zip(rng.integers(0, 8, size=extra_rows), lens)]
+        cases.append(("packed", _packed_case(rng, rows)))
+    for kind, args in cases:
+        args = list(args)
+        si, ei = (3, 4) if kind == "packed" else (1, 2)
+        n = len(args[si])
+        args[si] = np.arange(base, base + n, dtype=np.int32)
+        if args[ei] is not None:
+            entries = args[ei].copy()
+            entries[2] = prev[0] + (entries[2] - 1) % prev[1]
+            args[ei] = entries
+        levels.append((kind, tuple(args)))
+        prev, base = (base, n), base + n
+    return levels, base
+
+
+def staged_chunks(levels, k: int, device) -> list[tuple]:
+    """``levels`` staged by the port's SubtrieFusedEngine(k) and uploaded to
+    ``device``: each chunk's ``subtrie_levels`` arguments but the buffer."""
+    from reth_tpu_torch.ops.fused_commit import SubtrieFusedEngine
+
+    eng = SubtrieFusedEngine(min_tier=8, k=k, device=device)
+    eng.begin(0)
+    for kind, args in levels:
+        if kind == "packed":
+            eng.dispatch_packed(*args, b_tier=level_b_tier(kind, args))
+        else:
+            eng.dispatch_branch(*args)
+    return eng._upload_chunks()

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (EDGE_CASES, edge_digest_buffer, edge_level, level_kernel_args,
-                            prefix_jobs, require_card)
+from _torch_helpers import (EDGE_CASES, edge_chain, edge_digest_buffer, edge_level,
+                            level_kernel_args, prefix_jobs, require_card, staged_chunks)
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
@@ -88,3 +88,27 @@ def test_level_kernels_match_plain_versions_on_edge_levels():
         torch.cuda.synchronize()
         assert kernel.launches == before + 1, case
         assert torch.equal(b_k, b_r), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_subtrie_levels_matches_plain_version_on_edge_chunks(k):
+    """Kernel 4 on chunks of the edge levels, each level splicing digests
+    the level before it wrote in the same launch (branch steps, rows of up
+    to 15 rate blocks); at k=8 a last level of more rows than one pass of
+    the co-resident grid."""
+    require_card()
+    extra = fc.subtrie_resident_blocks() * 128 + 1000 if k == 8 else 0
+    levels, rows = edge_chain(extra)
+    chunks = staged_chunks(levels, k, "cuda")
+    base = torch.from_numpy(np.random.default_rng(k).integers(0, 256, size=(rows, 32),
+                                                              dtype=np.uint8)).cuda()
+    b_k, b_r = base.clone(), base.clone()
+    before = fc.subtrie_levels.launches
+    for chunk in chunks:
+        fc.subtrie_levels(*chunk, b_k)
+        fc.subtrie_levels_ref(*chunk, b_r)
+    torch.cuda.synchronize()
+    assert fc.subtrie_levels.launches == before + len(chunks)
+    assert torch.equal(b_k, b_r)
+    assert not torch.equal(b_k, base)

@@ -59,7 +59,8 @@ def test_sources_name_no_jax_import():
 
 
 @pytest.mark.parametrize("entry", [
-    tk.KeccakDevice.__init__, fc.FusedLevelEngine.__init__, TrieCommitter.__init__,
+    tk.KeccakDevice.__init__, fc.FusedLevelEngine.__init__, fc.MegaFusedEngine.__init__,
+    fc.SubtrieFusedEngine.__init__, TrieCommitter.__init__,
     TurboCommitter.__init__, tsr.state_root, tsr.storage_root, tsr.ordered_trie_root,
     convert.jobs_to_device, convert.digest_buffer_from_numpy,
 ])

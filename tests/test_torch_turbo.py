@@ -85,7 +85,7 @@ def test_rejects_like_reference(port):
 
 
 @pytest.mark.parametrize("kw", [dict(backend="auto"), dict(mesh=object()),
-                                dict(hash_service=object()), dict(subtrie_levels=4),
+                                dict(hash_service=object()), dict(subtrie_levels=4, mesh=object()),
                                 dict(supervisor=object())])
 def test_unported_seams_raise(kw):
     with pytest.raises(NotImplementedError):
