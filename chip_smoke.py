@@ -18,7 +18,12 @@
    level of a one-shot triebuild sweep of the account trie; subtrie_levels
    on chunks (k = 1, 2, 8) of those edge levels chained so that each reads
    the digests of the one before, at k = 8 with a last level of more rows
-   than one pass of the co-resident grid.
+   than one pass of the co-resident grid, and on chunks around its path
+   split (tests/_torch_helpers.py threshold_chain: steps of 1, 15, 16, 17
+   rows, at the card's five-lane limit and one past it, narrow steps after
+   a wide one). One keccak-f[1600] is then timed in isolation by one
+   thread and by a five-lane group (a debug entry of fused_level.cu), the
+   two final states held equal.
 3. Slice phase, two main paths, the launch counters zeroed just before
    each and read just after: (a) the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
@@ -46,7 +51,19 @@
    bound_ms it carries floor_bound_ms, the one-warp floor: like bound_ms,
    computed from this run's inputs, not measured (largest_bound_ms and
    largest_floor_bound_ms for the largest launch). ``launches`` is the sum
-   over both main paths; ``launches_by_path`` splits it.
+   over both main paths; ``launches_by_path`` splits it. subtrie_levels'
+   two timed chunks are also broken down by step (rows, block tier, 1 or 5
+   lanes a row, each step timed alone as a one-step launch, and the chunk's
+   time less its steps): logged, and in its JSON row as median_steps /
+   largest_steps and median_steps_rest_ms / largest_steps_rest_ms, beside
+   the isolated permutation times perm_thread_us / perm_lanes5_us. Each
+   step is timed again on the one-thread path (one_thread_ms), and so is the
+   whole chunk (median_one_thread_ms / largest_one_thread_ms), through a
+   debug entry of fused_level.cu that runs the same launch with the
+   five-lane path off, bit for bit against the plain version first. A
+   step's ms and one_thread_ms are measured; its floor_bound_ms is the
+   step's one-warp floor, computed from this run's inputs like the chunk's,
+   not measured.
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernels' JSON.
@@ -357,37 +374,78 @@ def edge_level_checks() -> None:
         n_cases += 1
     log(f"packed_level and branch_level: bit-exact vs plain on {n_cases} edge launches")
 
-    from _torch_helpers import edge_chain, staged_chunks
+    from _torch_helpers import edge_chain, staged_chunks, threshold_chain
 
-    resident = fc.subtrie_resident_blocks()
-    log(f"subtrie_levels: {resident} co-resident blocks of 128 rows "
-        f"({resident // torch.cuda.get_device_properties(0).multi_processor_count} per SM)")
-    for k in (1, 2, 8):
-        extra = resident * 128 + 1000 if k == 8 else 0
-        levels, rows = edge_chain(extra)
-        chunks = staged_chunks(levels, k, "cuda")
-        base = torch.from_numpy(np.random.default_rng(k).integers(
-            0, 256, size=(rows, 32), dtype=np.uint8)).to("cuda")
-        b_k, b_r = base.clone(), base.clone()
-        for chunk in chunks:
-            fc.subtrie_levels(*chunk, b_k)
-            fc.subtrie_levels_ref(*chunk, b_r)
+    resident, lanes5 = fc.subtrie_resident_blocks(), fc.subtrie_lanes5_rows()
+    log(f"subtrie_levels: {resident} co-resident blocks of 128 threads "
+        f"({resident // torch.cuda.get_device_properties(0).multi_processor_count} per SM); "
+        f"steps of at most {lanes5} rows take the five-lane path")
+    for chain in ("edge", "threshold"):
+        for k in (1, 2, 8):
+            extra = resident * 128 + 1000 if k == 8 and chain == "edge" else 0
+            levels, rows = edge_chain(extra) if chain == "edge" else threshold_chain(lanes5)
+            chunks = staged_chunks(levels, k, "cuda")
+            base = torch.from_numpy(np.random.default_rng(k).integers(
+                0, 256, size=(rows, 32), dtype=np.uint8)).to("cuda")
+            b_k, b_r = base.clone(), base.clone()
+            for chunk in chunks:
+                fc.subtrie_levels(*chunk, b_k)
+                fc.subtrie_levels_ref(*chunk, b_r)
+            torch.cuda.synchronize()
+            err = max_abs_err(b_k, b_r)
+            if err:
+                raise AssertionError(f"subtrie_levels differs from its plain version on the "
+                                     f"{chain} chunks at k={k} (max abs err {err})")
+            n_lanes5 = sum(int((c[3] <= lanes5).sum()) for c in chunks)
+            log(f"subtrie_levels: bit-exact vs plain on {len(chunks)} chunks of {len(levels)} "
+                f"chained {chain} levels at k={k} ({n_lanes5} five-lane steps)"
+                + (f", the last of {extra} rows" if extra else ""))
+
+
+def permutation_probe() -> dict:
+    """One keccak-f[1600] in isolation, by one thread (the one-thread tiles')
+    and by one five-lane group (the five-lane tiles'): the two final states
+    must agree; each is timed as a chain of dependent permutations in one
+    launch of one group, by CUDA events."""
+    import torch
+
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    lib, perms = fc._fused_lib(), 4000
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for lanes5 in (0, 1):
+        state = torch.zeros(25, dtype=torch.int64, device="cuda")
+        for _ in range(2):  # warm-up and check run
+            if lib.keccak_perm_probe(state.data_ptr(), 5, lanes5, stream):
+                raise RuntimeError("keccak_perm_probe: launch failed")
         torch.cuda.synchronize()
-        err = max_abs_err(b_k, b_r)
-        if err:
-            raise AssertionError(f"subtrie_levels differs from its plain version on the edge "
-                                 f"chunks at k={k} (max abs err {err})")
-        log(f"subtrie_levels: bit-exact vs plain on {len(chunks)} chunks of {len(levels)} "
-            f"chained edge levels at k={k}" + (f", the last of {extra} rows" if extra else ""))
+        out[lanes5] = state.clone()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            lib.keccak_perm_probe(state.data_ptr(), perms, lanes5, stream)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) * 1e3 / perms)
+        out[f"us{lanes5}"] = min(times)
+    if not torch.equal(out[0], out[1]):
+        raise AssertionError("the five-lane permutation differs from the one-thread one")
+    log(f"one keccak-f[1600] in isolation ({perms} dependent permutations per launch, best of "
+        f"5): one thread {out['us0']:.4f} us, five lanes {out['us1']:.4f} us "
+        f"({out['us0'] / out['us1']:.2f}x); final states equal")
+    return {"perm_thread_us": out["us0"], "perm_lanes5_us": out["us1"]}
 
 
-def kernel_checks(args, account_jobs, bound: Bound) -> None:
+def kernel_checks(args, account_jobs, bound: Bound) -> dict:
     """Before the main path: each kernel bit for bit against its plain
     version on inputs of its own (kernel 1 on 65,543 mixed messages, timed
     beside its plain version and bound; kernels 2 and 3 on the edge levels
     and on the largest PACKED and BITMAP level of a one-shot triebuild sweep
     of the account trie, larger than any dispatch of the pipelined main
-    path). Raises on any difference."""
+    path; kernel 4 on chained edge and path-split chunks). Raises on any
+    difference. Returns the isolated permutation times."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
@@ -419,6 +477,7 @@ def kernel_checks(args, account_jobs, bound: Bound) -> None:
         f"{nbytes} B) bit-exact; kernel {t_mixed:.4f} ms per launch, plain {plain_mixed:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), one-warp floor {bound.floor_ms(longest):.4f} ms")
     edge_level_checks()
+    probe = permutation_probe()
 
     levels = sweep_levels(account_jobs, collect_branches=False, start_depth=2)
     lp = max(levels, key=lambda lv: len(lv.row_slot))
@@ -441,6 +500,7 @@ def kernel_checks(args, account_jobs, bound: Bound) -> None:
         raise AssertionError(f"branch_level differs from its plain version (max abs err {err3})")
     log(f"packed_level: bit-exact vs plain on a one-shot sweep level of {len(lp.row_slot)} rows; "
         f"branch_level: bit-exact vs plain on one of {len(lb.masks)} rows (checks only)")
+    return probe
 
 
 KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
@@ -540,7 +600,7 @@ def branch_work(masks, slots, ch_start, ch_nib, ch_src):
     return int(blocks.sum()), n * (4 + 8 + 8 + 32) + 8 + C * (4 + 8 + 32), int(blocks.max())
 
 
-def subtrie_cost(bound: Bound, u8, idx, steps, max_rows) -> tuple[float, str, float, str]:
+def subtrie_cost(bound: Bound, u8, idx, steps, rows) -> tuple[float, str, float, str]:
     """A chunk's bound and one-warp floor: its levels run one after another
     (a grid barrier between them), so both are sums over its levels of each
     level's own; it is bound by what bounds most of that sum."""
@@ -557,6 +617,58 @@ def subtrie_cost(bound: Bound, u8, idx, steps, max_rows) -> tuple[float, str, fl
         perms, nbytes = perms + work[0], nbytes + work[1]
     return (b_ms, "operations" if by_ops >= b_ms / 2 else "bytes", floor,
             f"{len(table)} levels, {int(perms)} permutations, {int(nbytes)} B")
+
+
+def subtrie_one_thread(u8, idx, steps, rows, buf) -> None:
+    """subtrie_levels with every step on the one-thread path (a debug entry
+    of fused_level.cu, not counted as a launch): the other side of each
+    step's path choice, timed beside it."""
+    from reth_tpu_torch.device import stream_handle
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    err = fc._fused_lib().subtrie_levels_one_thread(
+        u8.data_ptr(), idx.data_ptr(), steps.data_ptr(), steps.shape[0], rows.ctypes.data,
+        buf.data_ptr(), stream_handle(buf))
+    _build.check_launch(err, "subtrie_levels_one_thread")
+
+
+def subtrie_steps(bound: Bound, args, buf, chunk_ms: float, label: str, rng) -> dict:
+    """A timed subtrie_levels chunk broken down by step: each step's rows,
+    block tier and path (1 or 5 lanes a row), timed alone as a one-step
+    launch on the same staged buffers and digest buffer, with the stream
+    held as for the chunk, and again with the step on the one-thread path;
+    the chunk's time less the sum of its steps (its grid barriers, and the
+    grid its narrow steps hold); and the whole chunk on the one-thread
+    path, bit for bit against the plain version first."""
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    u8, idx, steps, rows = args
+    err = _same_buffer(subtrie_one_thread, fc.subtrie_levels_ref, args, buf.shape[0], rng)
+    if err:
+        raise AssertionError(f"subtrie_levels on the one-thread path differs from its plain "
+                             f"version at the {label} chunk (max abs err {err})")
+    one_thread_ms = cuda_ms(lambda: subtrie_one_thread(*args, buf), 50, hold_ms=HOLD_MS)
+    lanes5 = fc.subtrie_lanes5_rows()
+    out = []
+    for s, p in enumerate(steps.cpu().tolist()):
+        longest = (packed_work if p[0] == 0 else branch_work)(*fc._step_args(u8, idx, p))[2]
+        one = (u8, idx, steps[s:s + 1], rows[s:s + 1])
+        ms = cuda_ms(lambda: fc.subtrie_levels(*one, buf), 50, hold_ms=HOLD_MS)
+        thread_ms = cuda_ms(lambda: subtrie_one_thread(*one, buf), 50, hold_ms=HOLD_MS)
+        out.append({"rows": int(rows[s]), "tier": 1 << (longest - 1).bit_length(),
+                    "lanes": 5 if rows[s] <= lanes5 else 1, "ms": ms,
+                    "one_thread_ms": thread_ms, "floor_bound_ms": bound.floor_ms(longest)})
+    rest = chunk_ms - sum(st["ms"] for st in out)
+    log(f"subtrie_levels {label} chunk by step (rows / block tier / lanes a row: ms alone, "
+        f"ms on one thread a row, one-warp floor): " + "; ".join(
+            f"{st['rows']} / {st['tier']} / {st['lanes']}: {st['ms']:.4f}, "
+            f"{st['one_thread_ms']:.4f}, {st['floor_bound_ms']:.4f}" for st in out)
+        + f"; chunk less its steps {rest:.4f} ms; the chunk on one thread a row "
+        f"{one_thread_ms:.4f} ms (bit-exact vs plain) against {chunk_ms:.4f}")
+    return {f"{label}_steps": out, f"{label}_steps_rest_ms": rest,
+            f"{label}_one_thread_ms": one_thread_ms}
 
 
 def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
@@ -617,6 +729,8 @@ def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
                 f"{desc}): bit-exact vs plain; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"one-warp floor {floor:.4f} ms")
+            if name == "subtrie_levels":
+                row.update(subtrie_steps(bound, fargs, b_k, ms, label, rng))
             if label == "median":
                 row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, floor_bound_ms=floor)
@@ -841,12 +955,14 @@ def main() -> int:
     storage_jobs, account_jobs = build_state(args.accounts, args.slots, args.seed)
     log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
-    kernel_checks(args, account_jobs, bound)
+    probe = kernel_checks(args, account_jobs, bound)
     launches, recorder = slice_phase(args, storage_jobs, account_jobs)
     rows = kernel_timings(recorder, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
         r["launches"] = sum(r["launches_by_path"].values())
+        if r["name"] == "subtrie_levels":
+            r.update(probe)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

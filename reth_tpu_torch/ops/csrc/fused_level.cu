@@ -1,6 +1,7 @@
 // Kernels 2 and 3: one trie level hashed against the resident digest buffer;
 // kernel 4 (subtrie_levels, at the end): up to k dependent levels in one
-// persistent launch, each level through the same tile bodies.
+// persistent launch, each level through the same row assembly, a narrow
+// level with five lanes to a row (the five-lane tiles below).
 //
 // packed_level replaces the JAX package's ops/fused_commit.py _packed_level
 // (an XLA program): gather each PACKED row's RLP bytes from the level's
@@ -194,26 +195,27 @@ struct EntryStage {
 };
 
 // Overwrite bytes [at, at + 32) of a window of nl lanes with a digest; reg is
-// the window's lane 0 (lanes LEVEL_ROWS words apart). `at` may lie before
-// the window (a hole that began in the previous one); bytes outside the
-// window are dropped (past the row's last rate block the reference never
-// hashes them).
+// the window's lane 0 (lanes S words apart: LEVEL_ROWS in the one-thread
+// tiles). `at` may lie before the window (a hole that began in the previous
+// one); bytes outside the window are dropped (past the row's last rate block
+// the reference never hashes them).
+template <int S>
 __device__ __forceinline__ void splice_digest(uint64_t* reg, int nl, int at, const uint64_t d[4]) {
     const int a = at >> 3, sh = 8 * (at & 7);  // a < 0 before the window
     const auto in = [nl](int q) { return (unsigned)q < (unsigned)nl; };
     if (sh == 0) {
 #pragma unroll
         for (int w = 0; w < 4; ++w)
-            if (in(a + w)) reg[(a + w) * LEVEL_ROWS] = d[w];
+            if (in(a + w)) reg[(a + w) * S] = d[w];
         return;
     }
     const uint64_t keep = (1ULL << sh) - 1;  // bytes of lane a before `at`
-    if (in(a)) reg[a * LEVEL_ROWS] = (reg[a * LEVEL_ROWS] & keep) | (d[0] << sh);
+    if (in(a)) reg[a * S] = (reg[a * S] & keep) | (d[0] << sh);
 #pragma unroll
     for (int w = 1; w < 4; ++w)
-        if (in(a + w)) reg[(a + w) * LEVEL_ROWS] = (d[w - 1] >> (64 - sh)) | (d[w] << sh);
+        if (in(a + w)) reg[(a + w) * S] = (d[w - 1] >> (64 - sh)) | (d[w] << sh);
     if (in(a + 4))
-        reg[(a + 4) * LEVEL_ROWS] = (reg[(a + 4) * LEVEL_ROWS] & ~keep) | (d[3] >> (64 - sh));
+        reg[(a + 4) * S] = (reg[(a + 4) * S] & ~keep) | (d[3] >> (64 - sh));
 }
 
 // Absorb nb rate blocks from shared memory into the state, which stays in
@@ -243,23 +245,87 @@ __device__ __forceinline__ uint64_t load_tail(const uint64_t* w, const uint8_t* 
     return v;
 }
 
+// -- tile layouts ---------------------------------------------------------------
+//
+// One-thread tiles (the level kernels, and subtrie_levels' wide steps): a
+// block of LEVEL_ROWS rows, one thread building and absorbing each.
+//
+// Five-lane tiles (subtrie_levels' narrow steps): a step of few rows leaves
+// most of the card idle, and one thread per row cannot go below its longest
+// row's permutations at one thread's pace (the one-warp floor, about 4.8 us
+// a permutation). These tiles give each row an 8-lane group: lane x = 0
+// builds the row with the same code as the one-thread tiles, and lanes 0-4
+// absorb it with KeccakLanes5 (keccak.cuh), lane x taking rate-block words
+// j = x (mod 5). A 128-thread block takes LANES5_ROWS = 16 rows. Build and
+// absorb meet under __syncwarp, so a row's windows need no block barrier and
+// rows of different lengths run on independently; the block barrier is the
+// one after the digests are staged. Lanes 0-3 store digest words 0-3.
+constexpr int LANES5_GROUP = 8;
+constexpr int LANES5_ROWS = LEVEL_ROWS / LANES5_GROUP;
+// Words between a row's lanes: 21 = 5 (mod 16), so the 20 lanes of a warp's
+// four rows reading lanes x + 5y of their rows touch each 8-byte bank pair
+// at most twice.
+constexpr int LANES5_STRIDE = 21;
+constexpr int LANES5_ROW_WORDS = LEVEL_WINDOW * KECCAK_RATE_LANES * LANES5_STRIDE;
+static_assert(LANES5_ROWS <= LANES5_STRIDE, "a row's lanes interleave with the tile's rows");
+static_assert(8 * (LANES5_ROW_WORDS + LANES5_ROWS * KECCAK_LANES5_SCRATCH) + 36 * LEVEL_ENTRY_CAP +
+                      16 <= LEVEL_SMEM,
+              "rows, scratch and staged entries fit the level kernels' shared memory");
+
+// The permutation of the row's group (r: the row within the tile), its
+// scratch above the rows' windows. The lane is read from %laneid by a
+// volatile asm, so the compiler cannot hoist the permutation's registers
+// (rotation amounts, shared addresses) out of a row's window loop, where
+// they would stay live across the row assembly: hoisted, they took
+// subtrie_levels_kernel to its 168-register cap with spills; read here, it
+// needs 158 (chip_smoke.py's ptxas check).
+__device__ __forceinline__ KeccakLanes5 lanes5_perm(uint8_t* smem, int r) {
+    unsigned lane;
+    asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
+    return KeccakLanes5((uint64_t*)smem + LANES5_ROW_WORDS + r * KECCAK_LANES5_SCRATCH,
+                        lane & (LANES5_GROUP - 1), lane & ~(LANES5_GROUP - 1u));
+}
+
+// Absorb nb rate blocks (lanes LANES5_STRIDE words apart from reg) into the
+// column state of lane x (0-4) of row r's group: the group meets under
+// __syncwarp before (lane 0's assembled lanes are stored) and after (the next
+// window may overwrite them).
+__device__ __forceinline__ void absorb_lanes5(uint64_t col[5], const uint64_t* reg, int nb, int x,
+                                              uint8_t* smem, int r) {
+    const KeccakLanes5 perm = lanes5_perm(smem, r);
+    __syncwarp(perm.mask);
+    for (int k = 0; k < nb; ++k) {
+        const uint64_t* blk = reg + (k * KECCAK_RATE_LANES + x) * LANES5_STRIDE;
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+            if (x + 5 * y < KECCAK_RATE_LANES) col[y] ^= blk[5 * y * LANES5_STRIDE];
+        perm.permute<LEVEL_ROUND_UNROLL>(col);
+    }
+    __syncwarp(perm.mask);
+}
+
 // Rows [i0, i0 + LEVEL_ROWS) of one PACKED level (the rows below n), built
-// by the block's threads in smem (LEVEL_SMEM bytes). Every thread of the
+// by the block's threads in smem (LEVEL_SMEM bytes); with Lanes5, rows
+// [i0, i0 + LANES5_ROWS) in the five-lane layout. Every thread of the
 // block calls it; threads past n return from it only after its last barrier.
+template <bool Lanes5>
 __device__ __forceinline__ void packed_tile(
     const uint8_t* __restrict__ flat, int64_t flat_len, const int64_t* __restrict__ row_off,
     const int32_t* __restrict__ row_len, const int64_t* __restrict__ slots,
     const int64_t* __restrict__ hole_start, const int32_t* __restrict__ hole_off,
     const int64_t* __restrict__ hole_src, uint8_t* buf, int64_t n, int64_t i0, uint8_t* smem) {
+    constexpr int ROWS = Lanes5 ? LANES5_ROWS : LEVEL_ROWS;  // rows per tile
+    constexpr int S = Lanes5 ? LANES5_STRIDE : LEVEL_ROWS;   // words between a row's lanes
     const int t = threadIdx.x;
-    const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
+    const int r = Lanes5 ? t / LANES5_GROUP : t, x = Lanes5 ? t % LANES5_GROUP : 0;
+    const int64_t last = i0 + ROWS < n ? i0 + ROWS : n;
     // every load that needs nothing else is issued before the barrier, so
     // that their latencies overlap
-    const int64_t i = i0 + t;
-    const bool active = i < n;
-    const int64_t off = active ? row_off[i] : 0;
+    const int64_t i = i0 + r;
+    const bool active = i < n && x < 5, assembles = active && x == 0;
+    const int64_t off = assembles ? row_off[i] : 0;
     const int len = active ? row_len[i] : 0;
-    const int64_t h0 = active ? hole_start[i] : 0, h1 = active ? hole_start[i + 1] : 0;
+    const int64_t h0 = assembles ? hole_start[i] : 0, h1 = assembles ? hole_start[i + 1] : 0;
     const int64_t slot = active ? slots[i] : 0;
     const int nb = len / KECCAK_RATE + 1;
     const int64_t h_lo = hole_start[i0];
@@ -269,7 +335,7 @@ __device__ __forceinline__ void packed_tile(
     __syncthreads();
     if (!active) return;
 
-    uint64_t* reg = (uint64_t*)smem + t;
+    uint64_t* reg = (uint64_t*)smem + r;
     const uint8_t* src = flat + off;
     const uint8_t* end = flat + flat_len;
     const int mis = (int)((uintptr_t)src & 7), sh = 8 * mis;
@@ -277,58 +343,72 @@ __device__ __forceinline__ void packed_tile(
     // the aligned word that runs past the end of flat, if the row reaches
     // it: read once, up to the end (only the last row of flat can)
     const uint64_t* wtail = (const uint64_t*)((uintptr_t)end & ~(uintptr_t)7);
-    const uint64_t tail = src + len > (const uint8_t*)wtail ? load_tail(wtail, end) : 0;
-    uint64_t s[25];
+    const uint64_t tail = assembles && src + len > (const uint8_t*)wtail ? load_tail(wtail, end) : 0;
+    uint64_t s[Lanes5 ? 5 : 25];
 #pragma unroll
-    for (int j = 0; j < 25; ++j) s[j] = 0;
+    for (int j = 0; j < (Lanes5 ? 5 : 25); ++j) s[j] = 0;
     for (int k0 = 0; k0 < nb; k0 += LEVEL_WINDOW) {
         const int kn = nb - k0 < LEVEL_WINDOW ? nb - k0 : LEVEL_WINDOW;
-        // lane q is row bytes [8q, 8q + 8): the top of word q and the bottom
-        // of word q + 1; a word is read only if it holds a byte of the row.
-        // Each rate block's 18 words are loaded before any lane is stored,
-        // so the loads are in flight together.
-        uint64_t w[KECCAK_RATE_LANES + 1];
-        for (int k = 0; k < kn; ++k) {
-            const int kb = k0 + k;
+        if (assembles) {
+            // lane q is row bytes [8q, 8q + 8): the top of word q and the
+            // bottom of word q + 1; a word is read only if it holds a byte
+            // of the row. Each rate block's 18 words are loaded before any
+            // lane is stored, so the loads are in flight together.
+            uint64_t w[KECCAK_RATE_LANES + 1];
+            for (int k = 0; k < kn; ++k) {
+                const int kb = k0 + k;
 #pragma unroll
-            for (int j = 0; j <= KECCAK_RATE_LANES; ++j) {
-                const int q = kb * KECCAK_RATE_LANES + j;
-                const uint64_t* a = wp + q;
-                w[j] = 8 * q - mis < len ? (a < wtail ? *a : tail) : 0;
+                for (int j = 0; j <= KECCAK_RATE_LANES; ++j) {
+                    const int q = kb * KECCAK_RATE_LANES + j;
+                    const uint64_t* a = wp + q;
+                    w[j] = 8 * q - mis < len ? (a < wtail ? *a : tail) : 0;
+                }
+#pragma unroll
+                for (int j = 0; j < KECCAK_RATE_LANES; ++j) {
+                    const int q = kb * KECCAK_RATE_LANES + j, p = 8 * q;
+                    uint64_t lane = sh ? (w[j] >> sh) | (w[j + 1] << (64 - sh)) : w[j];
+                    if (p + 8 > len) lane &= len > p ? (1ULL << (8 * (len - p))) - 1 : 0;
+                    // multi-rate padding, XOR as in the reference
+                    if (len >= p && len < p + 8) lane ^= 1ULL << (8 * (len - p));
+                    if (j == KECCAK_RATE_LANES - 1 && kb == nb - 1) lane ^= 0x80ULL << 56;
+                    reg[(k * KECCAK_RATE_LANES + j) * S] = lane;
+                }
             }
-#pragma unroll
-            for (int j = 0; j < KECCAK_RATE_LANES; ++j) {
-                const int q = kb * KECCAK_RATE_LANES + j, p = 8 * q;
-                uint64_t lane = sh ? (w[j] >> sh) | (w[j + 1] << (64 - sh)) : w[j];
-                if (p + 8 > len) lane &= len > p ? (1ULL << (8 * (len - p))) - 1 : 0;
-                // multi-rate padding, XOR as in the reference
-                if (len >= p && len < p + 8) lane ^= 1ULL << (8 * (len - p));
-                if (j == KECCAK_RATE_LANES - 1 && kb == nb - 1) lane ^= 0x80ULL << 56;
-                reg[(k * KECCAK_RATE_LANES + j) * LEVEL_ROWS] = lane;
+            for (int64_t h = h0; h < h1; ++h) {
+                uint64_t d[4];
+                const int at = holes.load(hole_src, hole_off, buf, h, d);
+                splice_digest<S>(reg, kn * KECCAK_RATE_LANES, at - k0 * KECCAK_RATE, d);
             }
         }
-        for (int64_t h = h0; h < h1; ++h) {
-            uint64_t d[4];
-            const int at = holes.load(hole_src, hole_off, buf, h, d);
-            splice_digest(reg, kn * KECCAK_RATE_LANES, at - k0 * KECCAK_RATE, d);
-        }
-        absorb_blocks(s, reg, kn);
+        if constexpr (Lanes5)
+            absorb_lanes5(s, reg, kn, x, smem, r);
+        else
+            absorb_blocks(s, reg, kn);
     }
-    store_digest(buf, slot, s);
+    if constexpr (Lanes5) {
+        if (x < 4) ((uint64_t*)(buf + slot * 32))[x] = s[0];
+    } else {
+        store_digest(buf, slot, s);
+    }
 }
 
-// Rows [i0, i0 + LEVEL_ROWS) of one BITMAP level, as packed_tile.
+// Rows [i0, i0 + LEVEL_ROWS) of one BITMAP level, as packed_tile (with
+// Lanes5, LANES5_ROWS rows in the five-lane layout).
+template <bool Lanes5>
 __device__ __forceinline__ void branch_tile(
     const int32_t* __restrict__ masks, const int64_t* __restrict__ slots,
     const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
     const int64_t* __restrict__ ch_src, uint8_t* buf, int64_t n, int64_t i0, uint8_t* smem) {
+    constexpr int ROWS = Lanes5 ? LANES5_ROWS : LEVEL_ROWS;  // rows per tile
+    constexpr int S = Lanes5 ? LANES5_STRIDE : LEVEL_ROWS;   // words between a row's lanes
     const int t = threadIdx.x;
-    const int64_t last = i0 + LEVEL_ROWS < n ? i0 + LEVEL_ROWS : n;
-    int64_t i = i0 + t, c0, c1, slot;
+    const int x = Lanes5 ? t % LANES5_GROUP : 0;
+    const int64_t last = i0 + ROWS < n ? i0 + ROWS : n;
+    int64_t i = i0 + (Lanes5 ? t / LANES5_GROUP : t), c0, c1, slot;
     uint32_t mask;
     int payload, hl, total, nb;
     const auto load_row = [&] {
-        const bool active = i < n;
+        const bool active = i < n && x < 5;
         mask = active ? (uint32_t)masks[i] & 0xFFFF : 0;
         c0 = active ? ch_start[i] : 0;
         c1 = active ? ch_start[i + 1] : 0;
@@ -341,17 +421,19 @@ __device__ __forceinline__ void branch_tile(
     load_row();
     const int64_t c_lo = ch_start[i0];
     const EntryStage kids(smem, c_lo, ch_start[last] - c_lo, ch_src, ch_nib);
-    const int r = block_order(nb);
-    if (r != t) {  // this thread builds another row of the block
-        i = i0 + r;
-        load_row();
+    if constexpr (!Lanes5) {
+        const int r = block_order(nb);
+        if (r != t) {  // this thread builds another row of the block
+            i = i0 + r;
+            load_row();
+        }
     }
     const int nl = nb * KECCAK_RATE_LANES;
 
     // the rows' skeletons are written while the child digests are copied
     kids.copy(ch_src, ch_nib, buf);
-    uint64_t* reg = (uint64_t*)smem + t;
-    if (i < n) {
+    uint64_t* reg = (uint64_t*)smem + (Lanes5 ? t / LANES5_GROUP : t);
+    if (i < n && x == 0) {
         // stream header, markers and value byte out as whole lanes, leaving
         // zeros where the digests go; for f8 rows the first marker lands on
         // byte 2, as in the reference
@@ -363,43 +445,50 @@ __device__ __forceinline__ void branch_tile(
             const bool has = nib < 16 && ((mask >> nib) & 1);
             acc |= (uint64_t)(has ? 0xA0 : 0x80) << (8 * (p & 7));
             if ((++p & 7) == 0) {
-                reg[((p >> 3) - 1) * LEVEL_ROWS] = acc;
+                reg[((p >> 3) - 1) * S] = acc;
                 acc = 0;
             }
             if (has) {  // 32 zero bytes: the rest of this lane, 3 lanes, the
                         // start of the next
                 const int q = p >> 3;
-                reg[q * LEVEL_ROWS] = acc;
-                reg[(q + 1) * LEVEL_ROWS] = 0;
-                reg[(q + 2) * LEVEL_ROWS] = 0;
-                reg[(q + 3) * LEVEL_ROWS] = 0;
+                reg[q * S] = acc;
+                reg[(q + 1) * S] = 0;
+                reg[(q + 2) * S] = 0;
+                reg[(q + 3) * S] = 0;
                 acc = 0;
                 p += 32;
             }
         }
         int q = p >> 3;  // p == total
-        if (p & 7) reg[q++ * LEVEL_ROWS] = acc;
-        for (; q < nl; ++q) reg[q * LEVEL_ROWS] = 0;
+        if (p & 7) reg[q++ * S] = acc;
+        for (; q < nl; ++q) reg[q * S] = 0;
     }
     cp_async_wait_all();
     __syncthreads();
-    if (i >= n) return;
+    if (i >= n || x >= 5) return;
 
-    for (int64_t c = c0; c < c1; ++c) {
-        uint64_t d[4];
-        const int nib = kids.load(ch_src, ch_nib, buf, c, d) & 15;
-        // marker position of `nib` + 1: one byte per earlier nibble plus 32
-        // per earlier present one
-        const int at = hl + nib + 32 * __popc(mask & ((1u << nib) - 1)) + 1;
-        splice_digest(reg, nl, at, d);
+    if (x == 0) {
+        for (int64_t c = c0; c < c1; ++c) {
+            uint64_t d[4];
+            const int nib = kids.load(ch_src, ch_nib, buf, c, d) & 15;
+            // marker position of `nib` + 1: one byte per earlier nibble plus
+            // 32 per earlier present one
+            const int at = hl + nib + 32 * __popc(mask & ((1u << nib) - 1)) + 1;
+            splice_digest<S>(reg, nl, at, d);
+        }
+        reg[(total >> 3) * S] ^= 1ULL << (8 * (total & 7));
+        reg[(nl - 1) * S] ^= 0x80ULL << 56;
     }
-    reg[(total >> 3) * LEVEL_ROWS] ^= 1ULL << (8 * (total & 7));
-    reg[(nl - 1) * LEVEL_ROWS] ^= 0x80ULL << 56;
-    uint64_t s[25];
+    uint64_t s[Lanes5 ? 5 : 25];
 #pragma unroll
-    for (int j = 0; j < 25; ++j) s[j] = 0;
-    absorb_blocks(s, reg, nb);
-    store_digest(buf, slot, s);
+    for (int j = 0; j < (Lanes5 ? 5 : 25); ++j) s[j] = 0;
+    if constexpr (Lanes5) {
+        absorb_lanes5(s, reg, nb, x, smem, t / LANES5_GROUP);
+        if (x < 4) ((uint64_t*)(buf + slot * 32))[x] = s[0];
+    } else {
+        absorb_blocks(s, reg, nb);
+        store_digest(buf, slot, s);
+    }
 }
 
 __global__ void __launch_bounds__(LEVEL_ROWS)
@@ -409,8 +498,8 @@ packed_level_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
                     const int32_t* __restrict__ hole_off, const int64_t* __restrict__ hole_src,
                     uint8_t* buf, int64_t n) {
     extern __shared__ __align__(16) uint8_t smem[];
-    packed_tile(flat, flat_len, row_off, row_len, slots, hole_start, hole_off, hole_src, buf, n,
-                (int64_t)blockIdx.x * LEVEL_ROWS, smem);
+    packed_tile<false>(flat, flat_len, row_off, row_len, slots, hole_start, hole_off, hole_src,
+                       buf, n, (int64_t)blockIdx.x * LEVEL_ROWS, smem);
 }
 
 __global__ void __launch_bounds__(LEVEL_ROWS)
@@ -418,8 +507,8 @@ branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict
                     const int64_t* __restrict__ ch_start, const int32_t* __restrict__ ch_nib,
                     const int64_t* __restrict__ ch_src, uint8_t* buf, int64_t n) {
     extern __shared__ __align__(16) uint8_t smem[];
-    branch_tile(masks, slots, ch_start, ch_nib, ch_src, buf, n, (int64_t)blockIdx.x * LEVEL_ROWS,
-                smem);
+    branch_tile<false>(masks, slots, ch_start, ch_nib, ch_src, buf, n,
+                       (int64_t)blockIdx.x * LEVEL_ROWS, smem);
 }
 
 // subtrie_levels replaces the JAX package's ops/fused_commit.py
@@ -427,9 +516,29 @@ branch_level_kernel(const int32_t* __restrict__ masks, const int64_t* __restrict
 // dispatch, the digest buffer as the loop's carry). One launch runs a chunk
 // of dependent levels, deepest first: step s + 1 splices digests that step s
 // wrote. It is one persistent, cooperative launch of as many blocks as the
-// card holds at once (or fewer, when the chunk's largest level has fewer
-// 128-row tiles); each step runs its level's tiles strided over the grid with
-// the packed or branch body above, and a grid barrier separates the steps.
+// card holds at once (or fewer, when no step needs that many tiles); each
+// step runs its level's tiles strided over the grid, and a grid barrier
+// separates the steps.
+//
+// Each step takes one of two paths, by its row count n:
+//   - narrow, 8 n <= the co-resident threads (n <= lanes5_rows, the
+//     co-resident blocks x LANES5_ROWS: 6,336 rows on an H100 at 396
+//     blocks): the five-lane tiles, 16 rows a block, one pass of the grid.
+//     Such a step holds fewer threads than the card has, so one thread per
+//     row would leave the card idle while its rows ran at one thread's pace
+//     (their one-warp floor); five lanes a row split that serial chain.
+//   - wide: the one-thread tiles, 128 rows a block. Rows then fill the
+//     card's warps, and splitting a permutation over five lanes would only
+//     add its exchanges to the same integer work.
+// The bound is drawn from the card's co-resident threads, not placed by
+// measurement, and it is not where the two paths' times cross. A five-lane
+// permutation takes more than half a thread's (chip_smoke.py times both in
+// isolation) and a block's groups do not run fully in parallel, so five
+// lanes gain on steps of a few rows and on steps of multi-block rows, break
+// even on tens to hundreds of one-block rows, and lose on steps of
+// thousands of one-block rows, whose 16-row tiles also widen the grid that
+// every barrier waits for. chip_smoke.py times each step of its timed
+// chunks on both paths (subtrie_levels_one_thread below).
 //
 // The levels' arrays lie in two staged buffers, bytes (u8: packed rows,
 // branch masks) and indices (idx); a table of STEP_W int64 per step, staged
@@ -456,32 +565,68 @@ enum StepField {
 // table are read-only for the whole launch.
 //
 // Bound: the sum over steps of each level's bound (they cannot overlap), plus
-// one grid barrier per step.
-__global__ void __launch_bounds__(LEVEL_ROWS)
+// one grid barrier per step. Three blocks per SM (the launch bound) keep 396
+// blocks co-resident.
+__global__ void __launch_bounds__(LEVEL_ROWS, 3)
 subtrie_levels_kernel(const uint8_t* __restrict__ u8, const uint8_t* __restrict__ idx,
-                      const int64_t* __restrict__ steps, int n_steps, uint8_t* buf) {
+                      const int64_t* __restrict__ steps, int n_steps, int64_t lanes5_rows,
+                      uint8_t* buf) {
     extern __shared__ __align__(16) uint8_t smem[];
     for (int s = 0; s < n_steps; ++s) {
         const int64_t* p = steps + (int64_t)s * STEP_W;
         const int64_t n = p[STEP_ROWS];
-        const bool packed = p[STEP_KIND] == 0;
+        const bool packed = p[STEP_KIND] == 0, lanes5 = n <= lanes5_rows;
+        const int tile = lanes5 ? LANES5_ROWS : LEVEL_ROWS;
         const int64_t* slots = (const int64_t*)(idx + p[STEP_SLOTS]);
         const int64_t* start = (const int64_t*)(idx + p[STEP_START]);
         const int32_t* tag = (const int32_t*)(idx + p[STEP_TAG]);
         const int64_t* src = (const int64_t*)(idx + p[STEP_SRC]);
-        for (int64_t i0 = (int64_t)blockIdx.x * LEVEL_ROWS; i0 < n;
-             i0 += (int64_t)gridDim.x * LEVEL_ROWS) {
-            if (packed)
-                packed_tile(u8 + p[STEP_BYTES], p[STEP_BYTES_LEN],
-                            (const int64_t*)(idx + p[STEP_ROW_OFF]),
-                            (const int32_t*)(idx + p[STEP_ROW_LEN]), slots, start, tag, src, buf,
-                            n, i0, smem);
+        for (int64_t i0 = (int64_t)blockIdx.x * tile; i0 < n; i0 += (int64_t)gridDim.x * tile) {
+            if (packed && lanes5)
+                packed_tile<true>(u8 + p[STEP_BYTES], p[STEP_BYTES_LEN],
+                                  (const int64_t*)(idx + p[STEP_ROW_OFF]),
+                                  (const int32_t*)(idx + p[STEP_ROW_LEN]), slots, start, tag, src,
+                                  buf, n, i0, smem);
+            else if (packed)
+                packed_tile<false>(u8 + p[STEP_BYTES], p[STEP_BYTES_LEN],
+                                   (const int64_t*)(idx + p[STEP_ROW_OFF]),
+                                   (const int32_t*)(idx + p[STEP_ROW_LEN]), slots, start, tag, src,
+                                   buf, n, i0, smem);
+            else if (lanes5)
+                branch_tile<true>((const int32_t*)(u8 + p[STEP_BYTES]), slots, start, tag, src, buf,
+                                  n, i0, smem);
             else
-                branch_tile((const int32_t*)(u8 + p[STEP_BYTES]), slots, start, tag, src, buf, n,
-                            i0, smem);
+                branch_tile<false>((const int32_t*)(u8 + p[STEP_BYTES]), slots, start, tag, src,
+                                   buf, n, i0, smem);
             __syncthreads();  // the next tile restages this block's shared memory
         }
         if (s + 1 < n_steps) cooperative_groups::this_grid().sync();
+    }
+}
+
+// Debug entry, launched only by chip_smoke.py to time one permutation in
+// isolation: `perms` dependent keccak-f[1600] permutations of one state by
+// one thread (lanes5 == 0, the one-thread tiles' permutation) or by one
+// five-lane group (KeccakLanes5), launched as one block of LANES5_GROUP
+// threads; the final state's 25 words go to out, so the two must agree.
+__global__ void keccak_perm_probe_kernel(uint64_t* out, int perms, int lanes5) {
+    __shared__ uint64_t scratch[KECCAK_LANES5_SCRATCH];
+    const int x = threadIdx.x;
+    if (lanes5 && x < 5) {
+        const KeccakLanes5 perm(scratch, x, 0);
+        uint64_t col[5];
+#pragma unroll
+        for (int y = 0; y < 5; ++y) col[y] = (x + 5 * y + 1) * 0x9E3779B97F4A7C15ULL;
+        for (int k = 0; k < perms; ++k) perm.permute<LEVEL_ROUND_UNROLL>(col);
+#pragma unroll
+        for (int y = 0; y < 5; ++y) out[x + 5 * y] = col[y];
+    } else if (!lanes5 && x == 0) {
+        uint64_t st[25];
+#pragma unroll
+        for (int j = 0; j < 25; ++j) st[j] = (j + 1) * 0x9E3779B97F4A7C15ULL;
+        for (int k = 0; k < perms; ++k) keccak_f1600<LEVEL_ROUND_UNROLL>(st);
+#pragma unroll
+        for (int j = 0; j < 25; ++j) out[j] = st[j];
     }
 }
 
@@ -542,22 +687,62 @@ extern "C" int subtrie_levels_resident(void) {
     return resident ? resident : -(int)cudaErrorCooperativeLaunchTooLarge;
 }
 
+// The largest step that takes the five-lane path on this card: the
+// co-resident blocks times LANES5_ROWS (8 lanes a row fill the co-resident
+// threads). Negative: minus a CUDA error.
+extern "C" int64_t subtrie_levels_lanes5_rows(void) {
+    const int resident = subtrie_levels_resident();
+    return resident < 0 ? resident : (int64_t)resident * LANES5_ROWS;
+}
+
 // One chunk of n_steps levels (the step table `steps`, n_steps x STEP_W
-// int64 in device memory); max_rows is its largest level's row count.
-extern "C" int subtrie_levels(const void* u8, const void* idx, const void* steps, int n_steps,
-                              int64_t max_rows, void* buf, void* stream) {
-    if (n_steps <= 0 || max_rows <= 0) return 0;
+// int64 in device memory); rows (host memory) holds each step's row count,
+// from which the grid is sized: the most tiles any step needs on its own
+// path, at most the co-resident blocks. Steps of at most lanes5_rows rows
+// take the five-lane path.
+static int launch_subtrie_levels(const void* u8, const void* idx, const void* steps,
+                                 int n_steps, const int64_t* rows, int64_t lanes5_rows,
+                                 void* buf, void* stream) {
+    if (n_steps <= 0) return 0;
     const int resident = subtrie_levels_resident();
     if (resident < 0) return -resident;
-    const int64_t tiles = (max_rows + LEVEL_ROWS - 1) / LEVEL_ROWS;
+    int64_t tiles = 0;
+    for (int s = 0; s < n_steps; ++s) {
+        const int tile = rows[s] <= lanes5_rows ? LANES5_ROWS : LEVEL_ROWS;
+        const int64_t need = (rows[s] + tile - 1) / tile;
+        tiles = need > tiles ? need : tiles;
+    }
+    if (tiles <= 0) return 0;
     const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
     const uint8_t* a_u8 = (const uint8_t*)u8;
     const uint8_t* a_idx = (const uint8_t*)idx;
     const int64_t* a_steps = (const int64_t*)steps;
     uint8_t* a_buf = (uint8_t*)buf;
-    void* args[] = {&a_u8, &a_idx, &a_steps, &n_steps, &a_buf};
+    void* args[] = {&a_u8, &a_idx, &a_steps, &n_steps, &lanes5_rows, &a_buf};
     const cudaError_t err =
         cudaLaunchCooperativeKernel((const void*)subtrie_levels_kernel, dim3(grid),
                                     dim3(LEVEL_ROWS), args, LEVEL_SMEM, (cudaStream_t)stream);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+extern "C" int subtrie_levels(const void* u8, const void* idx, const void* steps, int n_steps,
+                              const int64_t* rows, void* buf, void* stream) {
+    const int64_t lanes5_rows = subtrie_levels_lanes5_rows();
+    if (lanes5_rows < 0) return (int)-lanes5_rows;
+    return launch_subtrie_levels(u8, idx, steps, n_steps, rows, lanes5_rows, buf, stream);
+}
+
+// Debug entry (chip_smoke.py only): the same launch with every step on the
+// one-thread path, so that each step's two paths are timed side by side.
+extern "C" int subtrie_levels_one_thread(const void* u8, const void* idx, const void* steps,
+                                         int n_steps, const int64_t* rows, void* buf,
+                                         void* stream) {
+    return launch_subtrie_levels(u8, idx, steps, n_steps, rows, 0, buf, stream);
+}
+
+// The permutation debug entry above (chip_smoke.py only): out holds 25 uint64 on the card.
+extern "C" int keccak_perm_probe(void* out, int perms, int lanes5, void* stream) {
+    keccak_perm_probe_kernel<<<1, LANES5_GROUP, 0, (cudaStream_t)stream>>>((uint64_t*)out, perms,
+                                                                           lanes5);
+    return (int)cudaGetLastError();
 }

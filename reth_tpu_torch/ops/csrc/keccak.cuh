@@ -99,6 +99,124 @@ __device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
     }
 }
 
+// 64-bit rotate left by a runtime amount r (0-63): two 32-bit funnel shifts
+// after swapping the halves when r >= 32.
+__device__ __forceinline__ uint64_t keccak_rotl_var(uint64_t v, uint32_t r) {
+    const uint32_t a = (uint32_t)v, b = (uint32_t)(v >> 32);
+    const bool swap = r & 32;
+    const uint32_t lo = swap ? b : a, hi = swap ? a : b;
+    return (uint64_t)__funnelshift_l(lo, hi, r) << 32 | __funnelshift_l(hi, lo, r);
+}
+
+// keccak-f[1600] with one state spread over the first five lanes of an
+// 8-lane group, for launches too narrow to fill the card with one thread per
+// message: a thread's permutation is a serial chain of about 4,700 integer
+// instructions, and five lanes split it (each about a fifth of the ALU work
+// plus two exchanges per round).
+//
+// Lane x (0-4) holds column x of the state, words x, x+5, x+10, x+15, x+20,
+// as col[0..4]. Theta's column parity is then the lane's own; the lanes
+// exchange through a per-group scratch of KECCAK_LANES5_SCRATCH words in
+// shared memory, under __syncwarp(mask):
+//   - the five parities C[x] (scratch words 25-29), read back as C[x-1] and
+//     C[x+1];
+//   - after rho, each lane writes its five words at their pi destinations in
+//     b's layout (word y of lane x to b[y + 5 * ((2x + 3y) % 5)], scratch
+//     words 0-24); chi then reads b's columns x, x+1 and x+2.
+// Iota is lane 0's. The lane's rotation amounts and the shared-memory
+// addresses it writes and reads are computed once, by the constructor, into
+// registers (32-bit addresses in the shared window, read and written with
+// ld/st.shared and immediate row offsets): col[] is only ever indexed by
+// compile-time constants, so the state stays in registers. Two barriers a
+// round suffice: a round's pi writes come after the next theta barrier,
+// which every lane passes only after its chi reads.
+//
+// Scratch of 35 words per group (not 30): a warp's four groups then start
+// 3 bank pairs apart, so both the pi writes (stride 5) and the chi reads
+// (consecutive) of its 20 lanes touch each 8-byte bank pair at most twice.
+#define KECCAK_LANES5_SCRATCH 35
+
+typedef uint32_t keccak_smem_t;  // an address in the shared window
+
+__device__ __forceinline__ keccak_smem_t keccak_smem(const void* p) {
+    return (keccak_smem_t)__cvta_generic_to_shared(p);
+}
+
+template <int Off>
+__device__ __forceinline__ uint64_t keccak_lds(keccak_smem_t a) {
+    uint64_t v;
+    asm volatile("ld.shared.u64 %0, [%1+%2];" : "=l"(v) : "r"(a), "n"(Off) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void keccak_sts(keccak_smem_t a, uint64_t v) {
+    asm volatile("st.shared.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+
+struct KeccakLanes5 {
+    unsigned mask;                    // the group's five lanes in the warp
+    uint32_t rot[5];                  // rho amount of word x + 5y
+    keccak_smem_t pi[5];              // pi target of word x + 5y
+    keccak_smem_t b0, b1, b2;         // b's columns x, x+1, x+2 (row 0)
+    keccak_smem_t par, par_m, par_p;  // the parities C[x], C[x-1], C[x+1]
+    bool iota;                        // lane 0
+
+    // x: the lane within its group (0-4); group_lane0: lane of the warp
+    // where the group starts (a multiple of 8).
+    __device__ __forceinline__ KeccakLanes5(uint64_t* scratch, int x, int group_lane0)
+        : mask(0x1Fu << group_lane0), iota(x == 0) {
+        // rho amounts of words x + 5y, six bits per x
+        constexpr uint32_t RHO[5] = {
+            0u | 1u << 6 | 62u << 12 | 28u << 18 | 27u << 24,
+            36u | 44u << 6 | 6u << 12 | 55u << 18 | 20u << 24,
+            3u | 10u << 6 | 43u << 12 | 25u << 18 | 39u << 24,
+            41u | 45u << 6 | 15u << 12 | 21u << 18 | 8u << 24,
+            18u | 2u << 6 | 61u << 12 | 56u << 18 | 14u << 24,
+        };
+        const keccak_smem_t sc = keccak_smem(scratch);
+#pragma unroll
+        for (int y = 0; y < 5; ++y) {
+            rot[y] = (RHO[y] >> (6 * x)) & 63;
+            pi[y] = sc + 8 * (y + 5 * ((2 * x + 3 * y) % 5));
+        }
+        const int x1 = x < 4 ? x + 1 : x - 4, x2 = x < 3 ? x + 2 : x - 3, xm = x > 0 ? x - 1 : 4;
+        b0 = sc + 8 * x;
+        b1 = sc + 8 * x1;
+        b2 = sc + 8 * x2;
+        par = sc + 8 * (25 + x);
+        par_m = sc + 8 * (25 + xm);
+        par_p = sc + 8 * (25 + x1);
+    }
+
+    // chi of b's row Y for this lane's column
+    template <int Y>
+    __device__ __forceinline__ uint64_t chi() const {
+        return keccak_lds<40 * Y>(b0) ^ (~keccak_lds<40 * Y>(b1) & keccak_lds<40 * Y>(b2));
+    }
+
+    template <int RoundUnroll = 4>
+    __device__ __forceinline__ void permute(uint64_t col[5]) const {
+#pragma unroll (RoundUnroll)
+        for (int round = 0; round < 24; ++round) {
+            // theta
+            keccak_sts(par, col[0] ^ col[1] ^ col[2] ^ col[3] ^ col[4]);
+            __syncwarp(mask);
+            const uint64_t d = keccak_lds<0>(par_m) ^ keccak_rotl(keccak_lds<0>(par_p), 1);
+            // rho + pi
+#pragma unroll
+            for (int y = 0; y < 5; ++y) keccak_sts(pi[y], keccak_rotl_var(col[y] ^ d, rot[y]));
+            __syncwarp(mask);
+            // chi (row y of columns x, x+1, x+2), iota
+            col[0] = chi<0>();
+            col[1] = chi<1>();
+            col[2] = chi<2>();
+            col[3] = chi<3>();
+            col[4] = chi<4>();
+            if (iota) col[0] ^= KECCAK_RC[round];
+        }
+    }
+};
+
 // XOR one 136-byte rate block (17 little-endian lanes) into the state and
 // permute.
 __device__ __forceinline__ void keccak_absorb_block(uint64_t s[25], const uint64_t blk[17]) {

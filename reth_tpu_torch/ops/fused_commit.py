@@ -92,9 +92,15 @@ def _fused_lib() -> ctypes.CDLL:
     lib.branch_level.restype = c_int
     lib.branch_level.argtypes = [p, p, p, p, p, p, i64, p]
     lib.subtrie_levels.restype = c_int
-    lib.subtrie_levels.argtypes = [p, p, p, c_int, i64, p, p]
+    lib.subtrie_levels.argtypes = [p, p, p, c_int, p, p, p]
+    lib.subtrie_levels_one_thread.restype = c_int
+    lib.subtrie_levels_one_thread.argtypes = [p, p, p, c_int, p, p, p]
     lib.subtrie_levels_resident.restype = c_int
     lib.subtrie_levels_resident.argtypes = []
+    lib.subtrie_levels_lanes5_rows.restype = i64
+    lib.subtrie_levels_lanes5_rows.argtypes = []
+    lib.keccak_perm_probe.restype = c_int
+    lib.keccak_perm_probe.argtypes = [p, c_int, c_int, p]
     return lib
 
 
@@ -241,7 +247,7 @@ def _step_args(u8: torch.Tensor, idx: torch.Tensor, p, n_entries: int | None = N
     return (u8[p[_BYTES]:p[_BYTES] + 4 * n].view(torch.int32), *tail)
 
 
-def subtrie_levels_ref(u8, idx, steps, max_rows, buf):
+def subtrie_levels_ref(u8, idx, steps, rows, buf):
     """Plain PyTorch version of kernel 4 (the reference's
     ``_subtrie_program``): the chunk's levels in order, each through its
     level kernel's plain version on views into the staged buffers."""
@@ -250,14 +256,14 @@ def subtrie_levels_ref(u8, idx, steps, max_rows, buf):
         ref(*_step_args(u8, idx, p), buf)
 
 
-def subtrie_levels(u8, idx, steps, max_rows, buf):
+def subtrie_levels(u8, idx, steps, rows, buf):
     """Hash a chunk of dependent levels into ``buf`` in one launch (kernel 4).
 
     ``u8`` / ``idx``: the staged byte and index buffers (u8, 16-byte
     aligned); ``steps``: (k, _PARAM_W) i64 step table on the same device,
-    one row per level, deepest first; ``max_rows``: the chunk's largest
-    level's row count (it sizes the grid). ``buf``: (S, 32) u8, updated in
-    place."""
+    one row per level, deepest first; ``rows``: (k,) int64 numpy array on
+    the host, each step's row count (the kernel picks each step's path by
+    it and sizes the grid from it). ``buf``: (S, 32) u8, updated in place."""
     for name, t in (("u8", u8), ("idx", idx)):
         if t.dtype != torch.uint8 or t.dim() != 1 or t.device != buf.device:
             raise ValueError(f"subtrie_levels: {name} must be a 1-D uint8 tensor on {buf.device}")
@@ -267,14 +273,18 @@ def subtrie_levels(u8, idx, steps, max_rows, buf):
             or not steps.is_contiguous() or steps.device != buf.device):
         raise ValueError(f"subtrie_levels: steps must be a contiguous (k, {_PARAM_W}) int64 "
                          f"tensor on {buf.device}")
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    if rows.shape != (steps.shape[0],):
+        raise ValueError(f"subtrie_levels: rows must hold one count per step "
+                         f"({steps.shape[0]}), got shape {rows.shape}")
     _check("subtrie_levels", (), (), buf)
-    if steps.shape[0] == 0 or max_rows <= 0:
+    if steps.shape[0] == 0 or not rows.any():
         return
     if buf.device.type == "cpu":
-        subtrie_levels_ref(u8, idx, steps, max_rows, buf)
+        subtrie_levels_ref(u8, idx, steps, rows, buf)
         return
     err = _fused_lib().subtrie_levels(u8.data_ptr(), idx.data_ptr(), steps.data_ptr(),
-                                      steps.shape[0], max_rows, buf.data_ptr(),
+                                      steps.shape[0], rows.ctypes.data, buf.data_ptr(),
                                       stream_handle(buf))
     _build.check_launch(err, "subtrie_levels")
     subtrie_levels.launches += 1
@@ -285,8 +295,18 @@ subtrie_levels.launches = 0
 
 def subtrie_resident_blocks() -> int:
     """Blocks of kernel 4 the card holds at once: the grid of its largest
-    launches (each 128 rows of a level at a time)."""
+    launches (each block 128 rows of a wide level at a time, 16 of a
+    narrow one)."""
     n = _fused_lib().subtrie_levels_resident()
+    if n <= 0:
+        raise RuntimeError(f"subtrie_levels: occupancy query failed (CUDA error {-n})")
+    return n
+
+
+def subtrie_lanes5_rows() -> int:
+    """The largest step kernel 4 runs on its five-lane path on this card
+    (the co-resident blocks x 16 rows); larger steps take one thread a row."""
+    n = _fused_lib().subtrie_levels_lanes5_rows()
     if n <= 0:
         raise RuntimeError(f"subtrie_levels: occupancy query failed (CUDA error {-n})")
     return n
@@ -681,7 +701,10 @@ class SubtrieFusedEngine(MegaFusedEngine):
     def _upload_chunks(self) -> list[tuple]:
         """Upload everything staged since the last execution in two copies
         (the step table rides with the indices) and return each chunk's
-        ``subtrie_levels`` arguments, all but the digest buffer."""
+        ``subtrie_levels`` arguments, all but the digest buffer: the staged
+        buffers, the chunk's rows of the step table on the device and its
+        steps' row counts on the host (the launch's grid and each step's
+        path follow from them)."""
         plan = self._plan
         if not plan:
             return []
@@ -691,7 +714,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
         self._reset_staging()
         self.levels_staged += len(plan)
         steps = idx[t_off:t_off + table.nbytes].view(torch.int64).view(-1, _PARAM_W)
-        return [(u8, idx, steps[lo:lo + count], int(table[lo:lo + count, _ROWS].max()))
+        return [(u8, idx, steps[lo:lo + count], table[lo:lo + count, _ROWS].copy())
                 for lo, count in self._chunk_plan(plan)]
 
     def _run_chunks(self, chunks: list[tuple]) -> None:

@@ -508,19 +508,26 @@ class RebuildPipeline:
     one growing digest buffer, so the host sweep of later groups overlaps
     the hashing of earlier ones. ``hash_workers > 1`` parallelises window
     hashing on the numpy twin (windows touch disjoint slot ranges); the
-    device backend takes only 1."""
+    device backend takes only 1.
+
+    A knob left unset (None or 0) is read from the environment as in the
+    reference: ``RETH_TPU_PIPELINE_SWEEPERS``, ``RETH_TPU_PIPELINE_HASHERS``,
+    ``RETH_TPU_PIPELINE_WINDOW``, ``RETH_TPU_PIPELINE_SWEEP_LEAVES``."""
 
     def __init__(self, backend, lib=None, *, sweep_workers=None, hash_workers=1,
-                 pack_window=16, queue_depth=None, leaves_per_sweep=32768,
-                 jobs_per_sweep=64):
+                 pack_window=None, queue_depth=None, leaves_per_sweep=None,
+                 jobs_per_sweep=None):
+        env = os.environ
         self.backend = backend
         self.lib = lib or load_library()
-        self.sweep_workers = int(sweep_workers or max(2, min(4, os.cpu_count() or 1)))
-        self.hash_workers = max(1, int(hash_workers))
-        self.pack_window = int(pack_window)
+        self.sweep_workers = int(sweep_workers or env.get("RETH_TPU_PIPELINE_SWEEPERS", 0)
+                                 or max(2, min(4, os.cpu_count() or 1)))
+        self.hash_workers = max(1, int(hash_workers or env.get("RETH_TPU_PIPELINE_HASHERS", 1)))
+        self.pack_window = int(pack_window or env.get("RETH_TPU_PIPELINE_WINDOW", 0) or 16)
         self.queue_depth = int(queue_depth or 2 * self.sweep_workers)
-        self.leaves_per_sweep = int(leaves_per_sweep)
-        self.jobs_per_sweep = int(jobs_per_sweep)
+        self.leaves_per_sweep = int(leaves_per_sweep
+                                    or env.get("RETH_TPU_PIPELINE_SWEEP_LEAVES", 0) or 32768)
+        self.jobs_per_sweep = int(jobs_per_sweep or 64)
 
     def run(self, jobs, collect_branches: bool = False, start_depth: int = 0):
         if not jobs:

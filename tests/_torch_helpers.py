@@ -251,3 +251,59 @@ def staged_chunks(levels, k: int, device) -> list[tuple]:
         else:
             eng.dispatch_branch(*args)
     return eng._upload_chunks()
+
+
+# -- chunks around kernel 4's path split (five lanes a row on narrow steps) ----
+
+# kernel 4's five-lane limit on an H100: 396 co-resident blocks x 16 rows
+# (on the card, fused_commit.subtrie_lanes5_rows() gives the card's own)
+LANES5_ROWS_H100 = 396 * 16
+
+
+def threshold_chain(limit: int = LANES5_ROWS_H100, seed: int = 7):
+    """Levels around kernel 4's path split, each reading only digests the
+    level before it wrote (the first reads slots 1..EDGE_SRC-1); numpy only.
+    Rows lie tight and in order in ``flat``, as the native sweep emits them,
+    so the JAX package's staged engines take these levels too:
+    - PACKED levels of 1, 15 and 16 rows, then a BITMAP level of 17 rows of
+      1-4 rate blocks;
+    - a PACKED level of 17 rows of 1-15 rate blocks (block tier 16: a chunk
+      of its own);
+    - PACKED levels of ``limit`` rows (the largest five-lane step) and
+      ``limit + 1`` (one thread a row), then a BITMAP level of 40 rows and a
+      PACKED one of 3: narrow steps whose children the wide step wrote in
+      the same launch (k >= 4 puts these four levels in one chunk).
+    Returns ([(kind, dispatch arguments)], digest buffer rows needed)."""
+    rng = np.random.default_rng(seed)
+
+    def packed(lens):
+        # holes that do not overlap: one in a row of 32-63 bytes, two above
+        rows = [(0, int(ln), [int(rng.integers(0, ln - 63)), int(ln) - 32] if ln >= 64
+                 else [0] if ln >= 32 else []) for ln in lens]
+        return "packed", _packed_case(rng, rows)
+
+    def short(n):  # 1-4 rate blocks, mostly one
+        return rng.choice([0, 20, 33, 100, 135, 136, 300, 543], size=n, p=[.05, .2, .2, .25, .1,
+                                                                          .1, .05, .05])
+
+    def branch(pops):
+        return "branch", _branch_case(rng, [_mask(rng, int(p)) for p in pops])
+
+    cases = [packed(short(1)), packed(short(15)), packed(short(16)),
+             branch([2, 3, 4, 7, 8, 11, 12, 16, 2, 5, 9, 13, 15, 3, 6, 10, 14]),
+             packed([136 * b - int(rng.integers(1, 136)) for b in range(1, 16)] + [2039, 1904]),
+             packed(short(limit)), packed(short(limit + 1)),
+             branch(rng.choice([2, 3, 4, 8, 16], size=40)), packed(short(3))]
+    levels, base, prev = [], EDGE_SRC, (1, EDGE_SRC - 1)
+    for kind, args in cases:
+        args = list(args)
+        si, ei = (3, 4) if kind == "packed" else (1, 2)
+        n = len(args[si])
+        args[si] = np.arange(base, base + n, dtype=np.int32)
+        if args[ei] is not None:
+            entries = args[ei].copy()
+            entries[2] = prev[0] + (entries[2] - 1) % prev[1]
+            args[ei] = entries
+        levels.append((kind, tuple(args)))
+        prev, base = (base, n), base + n
+    return levels, base

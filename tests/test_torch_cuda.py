@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from _torch_helpers import (EDGE_CASES, edge_chain, edge_digest_buffer, edge_level,
-                            level_kernel_args, prefix_jobs, require_card, staged_chunks)
+                            level_kernel_args, prefix_jobs, require_card, staged_chunks,
+                            threshold_chain)
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
@@ -92,14 +93,20 @@ def test_level_kernels_match_plain_versions_on_edge_levels():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 8])
-def test_subtrie_levels_matches_plain_version_on_edge_chunks(k):
+@pytest.mark.parametrize("chain", ["edge", "threshold"])
+def test_subtrie_levels_matches_plain_version_on_edge_chunks(chain, k):
     """Kernel 4 on chunks of the edge levels, each level splicing digests
     the level before it wrote in the same launch (branch steps, rows of up
     to 15 rate blocks); at k=8 a last level of more rows than one pass of
-    the co-resident grid."""
+    the co-resident grid. "threshold": the chunks around its path split
+    (steps of 1, 15, 16 and 17 rows, at the card's five-lane limit and one
+    past it, narrow steps after a wide one in one launch)."""
     require_card()
-    extra = fc.subtrie_resident_blocks() * 128 + 1000 if k == 8 else 0
-    levels, rows = edge_chain(extra)
+    if chain == "edge":
+        extra = fc.subtrie_resident_blocks() * 128 + 1000 if k == 8 else 0
+        levels, rows = edge_chain(extra)
+    else:
+        levels, rows = threshold_chain(fc.subtrie_lanes5_rows())
     chunks = staged_chunks(levels, k, "cuda")
     base = torch.from_numpy(np.random.default_rng(k).integers(0, 256, size=(rows, 32),
                                                               dtype=np.uint8)).cuda()
@@ -112,3 +119,21 @@ def test_subtrie_levels_matches_plain_version_on_edge_chunks(k):
     assert fc.subtrie_levels.launches == before + len(chunks)
     assert torch.equal(b_k, b_r)
     assert not torch.equal(b_k, base)
+
+
+@pytest.mark.cuda
+def test_five_lane_permutation_matches_one_thread():
+    """kernel 4's five-lane keccak-f[1600] against the one-thread one, through
+    the timing probe the smoke launches (the same state, 1 and 7 rounds of
+    permutations)."""
+    require_card()
+    lib = fc._fused_lib()
+    for perms in (1, 7):
+        outs = []
+        for lanes5 in (0, 1):
+            out = torch.zeros(25, dtype=torch.int64, device="cuda")
+            assert lib.keccak_perm_probe(out.data_ptr(), perms, lanes5,
+                                         torch.cuda.current_stream().cuda_stream) == 0
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])

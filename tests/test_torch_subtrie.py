@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import EDGE_SRC, branches, edge_chain, level_b_tier, prefix_jobs, staged_chunks
+from _torch_helpers import (EDGE_SRC, branches, edge_chain, level_b_tier, prefix_jobs, staged_chunks,
+                            threshold_chain)
 from reth_tpu.ops import fused_commit as jfc
 from reth_tpu.primitives.keccak import keccak256
 from reth_tpu.trie.turbo import TurboCommitter as JaxTurbo
@@ -219,13 +220,15 @@ def test_subtrie_levels_rejects_malformed_arguments():
     u8 = torch.zeros(64, dtype=torch.uint8)
     steps = torch.zeros((1, fc._PARAM_W), dtype=torch.int64)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fc.subtrie_levels(u8[8:40], u8, steps, 1, buf)
+        fc.subtrie_levels(u8[8:40], u8, steps, [1], buf)
     with pytest.raises(ValueError, match="steps"):
-        fc.subtrie_levels(u8, u8, steps.int(), 1, buf)
+        fc.subtrie_levels(u8, u8, steps.int(), [1], buf)
     with pytest.raises(ValueError, match="uint8"):
-        fc.subtrie_levels(u8.view(torch.int32), u8, steps, 1, buf)
+        fc.subtrie_levels(u8.view(torch.int32), u8, steps, [1], buf)
+    with pytest.raises(ValueError, match="one count per step"):
+        fc.subtrie_levels(u8, u8, steps, [1, 2], buf)
     before = fc.subtrie_levels.launches
-    fc.subtrie_levels(u8, u8, steps[:0], 0, buf)  # an empty chunk launches nothing
+    fc.subtrie_levels(u8, u8, steps[:0], [], buf)  # an empty chunk launches nothing
     assert fc.subtrie_levels.launches == before and not buf.any()
 
 
@@ -261,3 +264,35 @@ def test_edge_chain_chunks_match_per_level_engine(edge_chain_per_level, k):
     assert np.array_equal(buf.numpy(), want)
     # every level wrote its slots (the first level read only zeros)
     assert (want[EDGE_SRC:] != 0).any(axis=1).all()
+
+
+@pytest.fixture(scope="module")
+def threshold_levels():
+    return threshold_chain()
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_threshold_chunks_match_jax_subtrie_engine(threshold_levels, k):
+    """The card test's chunks around kernel 4's path split (levels of 1, 15,
+    16 and 17 rows, 1-4 block branch rows, 1-15 block packed rows, levels at
+    the H100's five-lane limit and one past it, narrow steps after a wide
+    one) through the port's SubtrieFusedEngine against the JAX package's."""
+    levels, rows = threshold_levels
+    engines = (fc.SubtrieFusedEngine(min_tier=8, k=k, device="cpu"), _jax_subtrie(k))
+    bufs = []
+    for eng in engines:
+        eng.begin(rows)
+        for kind, args in levels:
+            if kind == "packed":
+                eng.dispatch_packed(*args, b_tier=level_b_tier(kind, args))
+            else:
+                eng.dispatch_branch(*args)
+        bufs.append(eng.finish())
+    got, want = bufs
+    assert np.array_equal(got[1:rows], want[1:rows])
+    assert (got[EDGE_SRC:rows] != 0).any(axis=1).all()  # every level wrote its slots
+    port, ref = engines
+    assert (port.dispatches, port.levels_staged) == (ref.dispatches, ref.levels_staged)
+    assert port.dispatches == {1: 9, 2: 5, 8: 3}[k]
+    chunks = staged_chunks(levels, k, "cpu")
+    assert [c[3].tolist() for c in chunks][-1][-2:] == ([40, 3] if k != 1 else [3])

@@ -98,3 +98,42 @@ def test_jobs_to_device_round_trip():
     for (keys, values), (k, flat, off) in zip(jobs, out):
         assert k.dtype == torch.uint8 and np.array_equal(k.numpy(), keys)
         assert [flat[off[i]:off[i + 1]].numpy().tobytes() for i in range(len(values))] == values
+
+
+_PIPE_ENV = ("RETH_TPU_PIPELINE_SWEEPERS", "RETH_TPU_PIPELINE_HASHERS",
+             "RETH_TPU_PIPELINE_WINDOW", "RETH_TPU_PIPELINE_SWEEP_LEAVES")
+_PIPE_KNOBS = ("sweep_workers", "hash_workers", "pack_window", "queue_depth",
+               "leaves_per_sweep", "jobs_per_sweep")
+
+
+@pytest.mark.parametrize("env,kw", [
+    ({}, {}),
+    ({"RETH_TPU_PIPELINE_SWEEPERS": "3", "RETH_TPU_PIPELINE_WINDOW": "5",
+      "RETH_TPU_PIPELINE_SWEEP_LEAVES": "1000"}, {}),
+    ({"RETH_TPU_PIPELINE_HASHERS": "4"}, {"hash_workers": None}),
+    ({"RETH_TPU_PIPELINE_HASHERS": "4"}, {}),
+    ({"RETH_TPU_PIPELINE_SWEEPERS": "3", "RETH_TPU_PIPELINE_HASHERS": "4",
+      "RETH_TPU_PIPELINE_WINDOW": "5", "RETH_TPU_PIPELINE_SWEEP_LEAVES": "1000"},
+     {"sweep_workers": 7, "hash_workers": 2, "pack_window": 9, "leaves_per_sweep": 77}),
+    ({"RETH_TPU_PIPELINE_WINDOW": "", "RETH_TPU_PIPELINE_SWEEPERS": "0"}, {"pack_window": 0}),
+])
+def test_pipeline_reads_environment_like_reference(monkeypatch, env, kw):
+    """RebuildPipeline's knobs: an argument given wins, an unset one comes
+    from RETH_TPU_PIPELINE_* as in the reference, else the same default."""
+    from reth_tpu.trie.turbo import RebuildPipeline as JaxPipeline
+    from reth_tpu_torch.trie.turbo import RebuildPipeline
+
+    for name in _PIPE_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    lib = object()  # neither package loads its native library
+    got = RebuildPipeline(None, lib, **kw)
+    want = JaxPipeline(None, lib, **kw)
+    assert {k: getattr(got, k) for k in _PIPE_KNOBS} == {k: getattr(want, k) for k in _PIPE_KNOBS}
+    for name, knob in zip(_PIPE_ENV, ("sweep_workers", "hash_workers", "pack_window",
+                                      "leaves_per_sweep")):
+        if kw.get(knob):
+            assert getattr(got, knob) == kw[knob]
+        elif env.get(name) and (knob != "hash_workers" or knob in kw):
+            assert getattr(got, knob) == int(env[name])
