@@ -5,13 +5,16 @@
 1. Builds every native source of the port from this checkout (the two CUDA
    kernel libraries with nvcc, the trie sweep with g++, all at once), and
    prints ptxas's registers, stack frame and spills per kernel function; a
-   stack frame or a spill in a level kernel or in subtrie_levels fails the
-   run, and so does a non-coherent (.CONSTANT) 128-bit load, a digest
-   load, in subtrie_levels' SASS.
+   stack frame or a spill in keccak256_absorb, a level kernel or
+   subtrie_levels fails the run, and so does a non-coherent (.CONSTANT)
+   128-bit load, a digest load, in subtrie_levels' SASS. The bound's
+   integer instructions per permutation are counted on the SASS of kernel
+   1's first design, the debug entry keccak256_absorb_unstaged.
 2. Kernel checks: each of the four kernels against its plain PyTorch
    version on the card, bit for bit (tolerance zero): keccak256_absorb on
-   65,536 random messages of 0-600 bytes plus the 135/136-byte edges (timed
-   beside its plain version and bound); packed_level and branch_level on
+   65,536 random messages of 0-600 bytes plus the 135/136-byte edges, also
+   against keccak256_absorb_unstaged (the two timed in turns, beside the
+   plain version, bound and floor); packed_level and branch_level on
    the edge levels of tests/_torch_helpers.py (every row alignment, holes
    across rate-block edges, rows of up to 15 rate blocks, every branch
    popcount, launches of 1-257 rows) and on the largest PACKED and BITMAP
@@ -24,21 +27,28 @@
    a wide one). One keccak-f[1600] is then timed in isolation by one
    thread and by a five-lane group (a debug entry of fused_level.cu), the
    two final states held equal.
-3. Slice phase, two main paths, the launch counters zeroed just before
-   each and read just after: (a) the full-state rebuild through
+3. Slice phase, three main paths, the launch counters zeroed just before
+   each and read just after: "default", the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
    trie as 256 two-nibble prefix subtries at start_depth=2, both collecting
-   branch nodes) on the default engine, MegaFusedEngine, then a whole-state
-   state_root() through TrieCommitter(fused=True, hasher=KeccakDevice(...)),
-   held against the per-level numpy committer; (b) the same rebuild through
-   TurboCommitter(subtrie_levels=8), SubtrieFusedEngine. Both rebuilds'
-   roots and branch nodes are held against one backend="numpy" rebuild.
-   The arguments of every kernel launch of both paths are kept; each
-   engine's host-to-device copies, launches and staged levels are logged.
-4. For each engine, two more rebuilds after the launch counts were read:
+   branch nodes) on the default engine, MegaFusedEngine; "k=8", the same
+   rebuild through TurboCommitter(subtrie_levels=8), SubtrieFusedEngine;
+   "state_root", a whole-state state_root() through TrieCommitter(fused=True,
+   hasher=KeccakDevice(...)), held against the per-level numpy committer,
+   whose key hashing launches keccak256_absorb and whose template levels
+   launch packed_level (kernel 1 may be launched by KeccakDevice only).
+   Both rebuilds' roots and branch nodes are held against one
+   backend="numpy" rebuild. The arguments of every kernel launch of each
+   path are kept; each engine's host-to-device copies, launches and staged
+   levels are logged.
+4. For each main path, two more runs after the launch counts were read:
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function).
-5. Kernel timings at the main paths' own shapes: for each kernel, its
+5. Kernel timings at the main paths' own shapes: for each kernel, on its
+   main path (keccak256_absorb: state_root; packed_level and branch_level:
+   default; subtrie_levels: k=8; and packed_level once more at state_root's
+   template levels, the "template_levels" row, whose plain version is
+   splice_level on the reference's padded layout), its
    launch with the most rows and its launch at the median row count (for
    subtrie_levels, the chunk with the most rows over its levels and the
    median one), replayed on a random digest buffer, bit for bit against the
@@ -51,7 +61,10 @@
    bound_ms it carries floor_bound_ms, the one-warp floor: like bound_ms,
    computed from this run's inputs, not measured (largest_bound_ms and
    largest_floor_bound_ms for the largest launch). ``launches`` is the sum
-   over both main paths; ``launches_by_path`` splits it. subtrie_levels'
+   over the main paths; ``launches_by_path`` splits it (the template_levels
+   row counts state_root's packed_level launches). keccak256_absorb's row
+   also carries unstaged_ms / largest_unstaged_ms, the debug entry's times
+   at the same launches, and check_* for the 65,543-message check. subtrie_levels'
    two timed chunks are also broken down by step (rows, block tier, 1 or 5
    lanes a row, each step timed alone as a one-step launch, and the chunk's
    time less its steps): logged, and in its JSON row as median_steps /
@@ -66,7 +79,8 @@
    not measured.
 
 Any mismatch or exception exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line before it is the kernels' JSON.
+{"ok": true, "device": {...}}; before it, the card's name and power limit
+(nvidia-smi), and before that the kernels' JSON.
 Without a CUDA card it exits 2 and prints no result.
 """
 
@@ -191,9 +205,11 @@ def sass_opcodes(lib_path: str, kernel: str) -> list[str]:
 
 
 def sass_int_ops(lib_path: str, kernel: str) -> int:
-    """Integer-pipe instructions in ``kernel``'s SASS: kernel 1's body is one
-    fully unrolled keccak-f[1600] inside the block loop, so this is the
-    per-permutation integer work (plus the loop's few instructions)."""
+    """Integer-pipe instructions in ``kernel``'s SASS: the body of kernel 1's
+    first design (keccak256_absorb_unstaged_kernel, kept as a debug entry)
+    is one fully unrolled keccak-f[1600] inside the block loop, so this is
+    the per-permutation integer work (plus the loop's few instructions);
+    the staged kernel's copies and sort are not a permutation's work."""
     return sum(op.split(".")[0] in INT_OPCODES for op in sass_opcodes(lib_path, kernel))
 
 
@@ -236,20 +252,26 @@ def ptxas_report(text: str) -> dict[str, dict]:
     return out
 
 
-LEVEL_KERNELS = ("packed_level_kernel", "branch_level_kernel", "subtrie_levels_kernel")
+# the kernel functions of each source that must have no stack frame and no
+# spills (the debug entries are only logged)
+ENFORCED = {"fused_level.cu": ("packed_level_kernel", "branch_level_kernel",
+                               "subtrie_levels_kernel"),
+            "keccak.cu": ("keccak256_absorb_kernel",)}
+KERNEL_FUNCTIONS = ENFORCED["fused_level.cu"] + ENFORCED["keccak.cu"] + (
+    "keccak256_absorb_unstaged_kernel",)
 
 
-def check_ptxas(src_name: str, text: str, enforce: bool) -> None:
-    """Log each kernel function's ptxas line; with ``enforce``, raise if a
-    level kernel (or subtrie_levels) is missing, has a stack frame or spills."""
+def check_ptxas(src_name: str, text: str) -> None:
+    """Log each kernel function's ptxas line; raise if a kernel of
+    ``ENFORCED[src_name]`` is missing, has a stack frame or spills."""
     short = {}
     for fn, r in ptxas_report(text).items():
-        name = next((k for k in LEVEL_KERNELS + ("keccak256_absorb_kernel",) if k in fn), fn)
+        name = next((k for k in KERNEL_FUNCTIONS if k in fn), fn)
         short[name] = r
         log(f"ptxas {src_name} {name}: {r.get('registers', '?')} registers, "
             f"{r.get('stack', '?')} bytes stack frame, {r.get('spill_stores', '?')} bytes spill "
             f"stores, {r.get('spill_loads', '?')} bytes spill loads")
-    for k in LEVEL_KERNELS if enforce else ():
+    for k in ENFORCED[src_name]:
         r = short.get(k)
         if r is None or "stack" not in r:
             raise AssertionError(f"ptxas reported nothing for {k}")
@@ -278,6 +300,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2, hold_ms: float = 0.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ab_ms(fa, fb, iters: int) -> tuple[float, float]:
+    """Times of two launches of the same work, taken in turns a, b, b, a
+    (each as ``cuda_ms`` with the stream held); the mean of each pair."""
+    a1 = cuda_ms(fa, iters, hold_ms=HOLD_MS)
+    b1 = cuda_ms(fb, iters, hold_ms=HOLD_MS)
+    b2 = cuda_ms(fb, iters, hold_ms=HOLD_MS)
+    a2 = cuda_ms(fa, iters, hold_ms=HOLD_MS)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def max_abs_err(a, b) -> int:
@@ -318,7 +350,7 @@ def make_bound(libs) -> Bound:
     import torch
 
     props = torch.cuda.get_device_properties(0)
-    bound = Bound(sass_int_ops(libs["keccak.cu"], "keccak256_absorb_kernel"),
+    bound = Bound(sass_int_ops(libs["keccak.cu"], "keccak256_absorb_unstaged_kernel"),
                   props.multi_processor_count, max_sm_clock_hz())
     log(f"bound model: {bound.ops_per_perm} integer SASS instructions per permutation "
         f"(cuobjdump), {INT_OPS_PER_CLK_PER_SM} int ops/clk/SM x {props.multi_processor_count} "
@@ -440,16 +472,20 @@ def permutation_probe() -> dict:
 
 def kernel_checks(args, account_jobs, bound: Bound) -> dict:
     """Before the main path: each kernel bit for bit against its plain
-    version on inputs of its own (kernel 1 on 65,543 mixed messages, timed
-    beside its plain version and bound; kernels 2 and 3 on the edge levels
-    and on the largest PACKED and BITMAP level of a one-shot triebuild sweep
-    of the account trie, larger than any dispatch of the pipelined main
-    path; kernel 4 on chained edge and path-split chunks). Raises on any
-    difference. Returns the isolated permutation times."""
+    version on inputs of its own (kernel 1 on 65,543 mixed messages, also
+    against its first design, the debug entry keccak256_absorb_unstaged,
+    both timed beside the plain version, bound and floor; kernels 2 and 3
+    on the edge levels and on the largest PACKED and BITMAP level of a
+    one-shot triebuild sweep of the account trie, larger than any dispatch
+    of the pipelined main path; kernel 4 on chained edge and path-split
+    chunks). Raises on any difference. Returns the isolated permutation
+    times and kernel 1's check times."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
-    from reth_tpu_torch.ops.keccak import keccak256_words_masked, keccak256_words_masked_ref
+    from reth_tpu_torch.ops.keccak import (absorb_rows_per_block, keccak256_words_masked,
+                                           keccak256_words_masked_ref,
+                                           keccak256_words_masked_unstaged)
     from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
     from reth_tpu_torch.trie.turbo import sweep_levels
 
@@ -461,21 +497,32 @@ def kernel_checks(args, account_jobs, bound: Bound) -> dict:
     counts = _put(counts_np, np.int32)
     got = keccak256_words_masked(words, counts)
     want = keccak256_words_masked_ref(words, counts)
+    unstaged = keccak256_words_masked_unstaged(words, counts)
     torch.cuda.synchronize()
     err1 = max_abs_err(got.view(torch.uint8), want.view(torch.uint8))
+    err_u = max_abs_err(got.view(torch.uint8), unstaged.view(torch.uint8))
     host = got.cpu().numpy()
     for i in list(range(256)) + list(range(len(msgs) - 7, len(msgs))):
         if host[i].tobytes() != keccak256(msgs[i]):
             raise AssertionError(f"keccak256_absorb: message {i} ({len(msgs[i])} B) != keccak256")
     if err1:
         raise AssertionError(f"keccak256_absorb differs from its plain version (max abs err {err1})")
-    t_mixed = cuda_ms(lambda: keccak256_words_masked(words, counts), 20, hold_ms=HOLD_MS)
+    if err_u:
+        raise AssertionError(f"keccak256_absorb differs from keccak256_absorb_unstaged "
+                             f"(max abs err {err_u})")
+    t_mixed, t_unstaged = ab_ms(lambda: keccak256_words_masked(words, counts),
+                                lambda: keccak256_words_masked_unstaged(words, counts), 20)
     plain_mixed = cuda_ms(lambda: keccak256_words_masked_ref(words, counts), 3)
     perms, nbytes, longest = keccak_work(words, counts)
     b_ms, b_by = bound(perms, nbytes)
+    rpb = absorb_rows_per_block(len(msgs), words.shape[1] // 34)
     log(f"keccak256_absorb: {len(msgs)} mixed messages (1-5 blocks, {perms} permutations, "
-        f"{nbytes} B) bit-exact; kernel {t_mixed:.4f} ms per launch, plain {plain_mixed:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), one-warp floor {bound.floor_ms(longest):.4f} ms")
+        f"{nbytes} B) bit-exact vs plain and vs keccak256_absorb_unstaged; kernel {t_mixed:.4f} ms "
+        f"per launch ({rpb} rows a block), unstaged {t_unstaged:.4f} ms, plain {plain_mixed:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), one-warp floor {bound.floor_ms(longest):.4f} ms")
+    check1 = {"check_rows": len(msgs), "check_ms": t_mixed, "check_unstaged_ms": t_unstaged,
+              "check_plain_ms": plain_mixed, "check_bound_ms": b_ms,
+              "check_floor_bound_ms": bound.floor_ms(longest)}
     edge_level_checks()
     probe = permutation_probe()
 
@@ -500,10 +547,15 @@ def kernel_checks(args, account_jobs, bound: Bound) -> dict:
         raise AssertionError(f"branch_level differs from its plain version (max abs err {err3})")
     log(f"packed_level: bit-exact vs plain on a one-shot sweep level of {len(lp.row_slot)} rows; "
         f"branch_level: bit-exact vs plain on one of {len(lb.masks)} rows (checks only)")
-    return probe
+    return probe, check1
 
 
 KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
+# the main paths, each driven with the launch counts zeroed just before it:
+# the rebuild on either engine, then state_root() on the general committer
+PATHS = ("default", "k=8", "state_root")
+# the one place the port may launch kernel 1 from
+KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
 
 
 class _Recorded:
@@ -511,8 +563,8 @@ class _Recorded:
     counts its launches through that attribute (``packed_level.launches
     += 1``), so ``launches`` here reads and writes the wrapper's own count."""
 
-    def __init__(self, fn, calls: list, level: bool):
-        self.fn, self.calls, self.level = fn, calls, level
+    def __init__(self, fn, recorder, name: str):
+        self.fn, self.recorder, self.name = fn, recorder, name
 
     @property
     def launches(self) -> int:
@@ -526,36 +578,43 @@ class _Recorded:
         before = self.fn.launches
         out = self.fn(*args)
         if self.fn.launches != before:
-            self.calls.append(args[:-1] + (args[-1].shape[0],) if self.level else args)
+            rec = self.recorder
+            if self.name == "keccak256_absorb":
+                rec.calls[rec.path][self.name].append(args)
+                caller = sys._getframe(1).f_code
+                rec.callers.add(f"{os.path.relpath(caller.co_filename, HERE)}:"
+                                f"{caller.co_qualname}")
+            else:
+                rec.calls[rec.path][self.name].append(args[:-1] + (args[-1].shape[0],))
         return out
 
 
 class MainPathRecorder:
-    """Keeps the arguments of every launch the three kernel wrappers make
-    while it is entered. It wraps the module attributes the port calls
-    through; each wrapper still launches and counts as it does unwrapped.
-    The level kernels' digest buffer is kept as its row count only."""
+    """Keeps the arguments of every launch the four kernel wrappers make
+    while it is entered, by main path (``path``, set by the caller), and
+    the callers of kernel 1's wrapper. It wraps the module attributes the
+    port calls through; each wrapper still launches and counts as it does
+    unwrapped. The level kernels' digest buffer is kept as its row count
+    only."""
 
     def __init__(self):
         from reth_tpu_torch.ops import fused_commit as fc
         from reth_tpu_torch.ops import keccak as ok
 
         self.sites = [(ok, "keccak256_words_masked", "keccak256_absorb"),
-                      (fc, "keccak256_words_masked", "keccak256_absorb"),
                       (fc, "packed_level", "packed_level"),
                       (fc, "branch_level", "branch_level"),
                       (fc, "subtrie_levels", "subtrie_levels")]
-        self.calls: dict[str, list] = {k: [] for k in KERNELS}
+        self.path = PATHS[0]
+        self.calls: dict[str, dict[str, list]] = {p: {k: [] for k in KERNELS} for p in PATHS}
+        self.callers: set[str] = set()
         self._saved: list = []
-
-    def _wrap(self, fn, name):
-        return _Recorded(fn, self.calls[name], level=name != "keccak256_absorb")
 
     def __enter__(self):
         for mod, attr, name in self.sites:
             fn = getattr(mod, attr)
             self._saved.append((mod, attr, fn))
-            setattr(mod, attr, self._wrap(fn, name))
+            setattr(mod, attr, _Recorded(fn, self, name))
         return self
 
     def __exit__(self, *exc):
@@ -570,9 +629,9 @@ class MainPathRecorder:
             return int(args[2][:, 1].sum())
         return args[1 if name == "packed_level" else 0].shape[0]
 
-    def picks(self, name: str):
+    def picks(self, name: str, path: str):
         """The launch with the most rows and the one at the median row count."""
-        calls = sorted(self.calls[name], key=lambda a: self.rows(name, a))
+        calls = sorted(self.calls[path][name], key=lambda a: self.rows(name, a))
         return {"largest": calls[-1], "median": calls[len(calls) // 2]}
 
 
@@ -671,72 +730,113 @@ def subtrie_steps(bound: Bound, args, buf, chunk_ms: float, label: str, rng) -> 
             f"{label}_one_thread_ms": one_thread_ms}
 
 
-def kernel_timings(recorder: MainPathRecorder, bound: Bound, rng) -> list[dict]:
-    """After the main path: each kernel at the arguments of two of its own
-    launches there (the one with the most rows, and the one at the median
-    row count), bit for bit against its plain version on those arguments,
-    then timed by CUDA events beside the plain version, the bound and the
-    one-warp floor. The kernels' JSON rows carry the median launch and the
-    largest launch's times, bound and floor bound; both are logged."""
+def template_plain(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf):
+    """The template levels' plain version (the reference's layout,
+    fused_commit.splice_level) on kernel 2's arguments of such a level."""
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    fc.splice_level(*fc.padded_level(flat, row_off, row_len, slots, hole_start, hole_off,
+                                     hole_src), buf)
+
+
+def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng) -> list[dict]:
+    """After the main paths: each kernel at the arguments of two of its own
+    launches on its main path (the one with the most rows, and the one at
+    the median row count), bit for bit against its plain version on those
+    arguments, then timed by CUDA events beside the plain version, the bound
+    and the one-warp floor. packed_level is timed twice: at the rebuild's
+    launches and, as the template levels' row, at state_root's (its plain
+    version there is splice_level on the reference's padded layout, padded
+    before it is timed). keccak256_absorb is timed in turns with its first
+    design, the debug entry keccak256_absorb_unstaged, at the same launches.
+    The kernels' JSON rows carry the median launch and the largest launch's
+    times, bound and floor bound; both are logged."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
-    from reth_tpu_torch.ops.keccak import keccak256_words_masked, keccak256_words_masked_ref
+    from reth_tpu_torch.ops.keccak import (absorb_rows_per_block, keccak256_words_masked,
+                                           keccak256_words_masked_ref,
+                                           keccak256_words_masked_unstaged)
 
     def level(work):
         return lambda *a: bound.level(work(*a))
 
+    level_src = "reth_tpu_torch/ops/csrc/fused_level.cu"
+    # row name: (wrapper, plain version, cost, source, replaces, main path)
     specs = {
         "keccak256_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
                              level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
-                             "reth_tpu/ops/keccak_pallas.py:96"),
-        "packed_level": (fc.packed_level, fc.packed_level_ref, level(packed_work),
-                         "reth_tpu_torch/ops/csrc/fused_level.cu",
-                         "reth_tpu/ops/fused_commit.py:93"),
-        "branch_level": (fc.branch_level, fc.branch_level_ref, level(branch_work),
-                         "reth_tpu_torch/ops/csrc/fused_level.cu",
-                         "reth_tpu/ops/fused_commit.py:119"),
+                             "reth_tpu/ops/keccak_pallas.py:96", "state_root"),
+        "packed_level": (fc.packed_level, fc.packed_level_ref, level(packed_work), level_src,
+                         "reth_tpu/ops/fused_commit.py:93", "default"),
+        "branch_level": (fc.branch_level, fc.branch_level_ref, level(branch_work), level_src,
+                         "reth_tpu/ops/fused_commit.py:119", "default"),
         "subtrie_levels": (fc.subtrie_levels, fc.subtrie_levels_ref,
-                           lambda *a: subtrie_cost(bound, *a),
-                           "reth_tpu_torch/ops/csrc/fused_level.cu",
-                           "reth_tpu/ops/fused_commit.py:1046"),
+                           lambda *a: subtrie_cost(bound, *a), level_src,
+                           "reth_tpu/ops/fused_commit.py:1046", "k=8"),
+        "template_levels": (fc.packed_level, template_plain, level(packed_work), level_src,
+                            "reth_tpu/ops/fused_commit.py:76", "state_root"),
     }
     rows = []
-    for name, (kernel, ref, cost, source, replaces) in specs.items():
-        n_calls = len(recorder.calls[name])
-        sizes = sorted(recorder.rows(name, a) for a in recorder.calls[name])
-        log(f"{name}: {n_calls} launches on the main path, rows per launch min {sizes[0]}, "
-            f"median {sizes[len(sizes) // 2]}, mean {sum(sizes) / len(sizes):.1f}, max {sizes[-1]}")
+    for name, (kernel, ref, cost, source, replaces, path) in specs.items():
+        wrapper = "packed_level" if name == "template_levels" else name
+        calls = recorder.calls[path][wrapper]
+        sizes = sorted(recorder.rows(wrapper, a) for a in calls)
+        log(f"{name} ({wrapper} on main path {path}): {len(calls)} launches, rows per launch "
+            f"min {sizes[0]}, median {sizes[len(sizes) // 2]}, "
+            f"mean {sum(sizes) / len(sizes):.1f}, max {sizes[-1]}")
         row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None)
-        for label, rec in recorder.picks(name).items():
+        if name == "template_levels":
+            row.update(kernel="packed_level", plain="fused_commit.splice_level",
+                       launches_by_path={path: launches[path]["packed_level"]})
+        else:
+            row["launches_by_path"] = {p: launches[p][name] for p in PATHS}
+        row["launches"] = sum(row["launches_by_path"].values())
+        for label, rec in recorder.picks(wrapper, path).items():
+            extra = ""
             if name == "keccak256_absorb":
-                err = max_abs_err(kernel(*rec).view(torch.uint8), ref(*rec).view(torch.uint8))
                 fargs = rec
-                b_k = None
+                got = kernel(*rec)
+                err = max(max_abs_err(got.view(torch.uint8), ref(*rec).view(torch.uint8)),
+                          max_abs_err(got.view(torch.uint8),
+                                      keccak256_words_masked_unstaged(*rec).view(torch.uint8)))
+                call, plain = (lambda: kernel(*fargs)), (lambda: ref(*fargs))
             else:
                 fargs, buf_rows = rec[:-1], rec[-1]
                 err = _same_buffer(kernel, ref, fargs, buf_rows, rng)
                 b_k = torch.zeros((buf_rows, 32), dtype=torch.uint8, device="cuda")
+                # the template levels' plain version is timed on rows padded beforehand
+                plain_fn, plain_args = ((fc.splice_level, fc.padded_level(*fargs))
+                                        if name == "template_levels" else (ref, fargs))
+                call, plain = (lambda: kernel(*fargs, b_k)), (lambda: plain_fn(*plain_args, b_k))
             if err:
                 raise AssertionError(f"{name} differs from its plain version at the main path's "
                                      f"{label} launch (max abs err {err})")
-            call = (lambda: kernel(*fargs)) if b_k is None else (lambda: kernel(*fargs, b_k))
-            plain = (lambda: ref(*fargs)) if b_k is None else (lambda: ref(*fargs, b_k))
-            ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
+            if name == "keccak256_absorb":
+                ms, unstaged_ms = ab_ms(call, lambda: keccak256_words_masked_unstaged(*fargs), 50)
+                rpb = absorb_rows_per_block(fargs[0].shape[0], fargs[0].shape[1] // 34)
+                extra = (f", unstaged {unstaged_ms:.4f} ms, {rpb} rows a block "
+                         f"(bit-exact vs unstaged too)")
+                row["unstaged_ms" if label == "median" else "largest_unstaged_ms"] = unstaged_ms
+                row["rows_per_block" if label == "median" else "largest_rows_per_block"] = rpb
+            else:
+                ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
             plain_ms = cuda_ms(plain, 5)
             b_ms, b_by, floor, desc = cost(*fargs)
-            log(f"{name} at the main path's {label} launch ({recorder.rows(name, rec)} rows, "
+            log(f"{name} at the main path's {label} launch ({recorder.rows(wrapper, rec)} rows, "
                 f"{desc}): bit-exact vs plain; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"one-warp floor {floor:.4f} ms")
+                f"one-warp floor {floor:.4f} ms{extra}")
             if name == "subtrie_levels":
                 row.update(subtrie_steps(bound, fargs, b_k, ms, label, rng))
             if label == "median":
                 row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, floor_bound_ms=floor)
+                           bound_by=b_by, floor_bound_ms=floor,
+                           rows_timed=recorder.rows(wrapper, rec))
             else:
                 row.update(largest_ms=ms, largest_plain_ms=plain_ms, largest_bound_ms=b_ms,
-                           largest_floor_bound_ms=floor)
+                           largest_floor_bound_ms=floor,
+                           largest_rows_timed=recorder.rows(wrapper, rec))
         rows.append(row)
     return rows
 
@@ -769,8 +869,9 @@ def engine_summary(engines: list) -> str:
 
 
 def slice_phase(args, storage_jobs, account_jobs):
-    """The two main paths. Returns the launch counts of each and the
-    recorder holding each launch's arguments."""
+    """The three main paths (``PATHS``), each with the launch counts zeroed
+    just before it and read just after. Returns the launch counts of each
+    and the recorder holding each launch's arguments."""
     import torch
 
     from reth_tpu_torch.convert import jobs_to_device
@@ -805,22 +906,26 @@ def slice_phase(args, storage_jobs, account_jobs):
 
     recorder = MainPathRecorder()
     launches, got, walls = {}, {}, {}
+
+    def run_path(path: str, drive):
+        recorder.path = path
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive()
+        torch.cuda.synchronize()
+        walls[path] = time.perf_counter() - t0
+        launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"main path {path}: launches {json.dumps(launches[path])}")
+        return out
+
     with recorder:
         for name, committer in committers.items():
-            for fn in wrappers.values():
-                fn.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got[name] = rebuild(committer)
-            torch.cuda.synchronize()
-            walls[name] = time.perf_counter() - t0
-            if name == "default":
-                t1 = time.perf_counter()
-                root_dev, det_dev = state_root(accounts, storages, committer=fused)
-                torch.cuda.synchronize()
-                wall_sr = time.perf_counter() - t1
-            launches[name] = {k: fn.launches for k, fn in wrappers.items()}
-            log(f"main path {name}: launches {json.dumps(launches[name])}")
+            got[name] = run_path(name, lambda: rebuild(committer))
+        root_dev, det_dev = run_path("state_root",
+                                     lambda: state_root(accounts, storages, committer=fused))
+    wall_sr = walls.pop("state_root")
     summaries = {name: engine_summary(made) for name, made in engines.items()}
     for made in engines.values():
         del made[:]
@@ -851,24 +956,33 @@ def slice_phase(args, storage_jobs, account_jobs):
     log(f"state_root ({len(accounts)} accounts, {sum(len(s) for s in storages.values())} slots): "
         f"fused on the card {wall_sr:.3f} s, per-level numpy {wall_sr_np:.3f} s, "
         f"root {root_dev.hex()} equal")
-    paths = {"default": ("keccak256_absorb", "packed_level", "branch_level"),
-             "k=8": ("subtrie_levels",)}
+    paths = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
+             "state_root": ("keccak256_absorb", "packed_level")}
     for path, kernels in paths.items():
         for name in kernels:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on main path {path}")
-    for name in KERNELS:
-        count = sum(by_path[name] for by_path in launches.values())
-        if len(recorder.calls[name]) != count:
-            raise AssertionError(f"{name}: {len(recorder.calls[name])} launches recorded, "
-                                 f"{count} counted")
+    for path in PATHS:
+        for name in KERNELS:
+            if len(recorder.calls[path][name]) != launches[path][name]:
+                raise AssertionError(f"{name} on main path {path}: "
+                                     f"{len(recorder.calls[path][name])} launches recorded, "
+                                     f"{launches[path][name]} counted")
+    # the template levels splice and hash in kernel 2; kernel 1 hashes keys
+    # only, launched by KeccakDevice alone
+    if hasattr(fc, "keccak256_words_masked") or recorder.callers != {KECCAK_DEVICE}:
+        raise AssertionError(f"keccak256_absorb was launched from {sorted(recorder.callers)}; "
+                             f"only {KECCAK_DEVICE} launches it")
+    log(f"keccak256_absorb launched only by {KECCAK_DEVICE}; state_root's template levels "
+        f"went through packed_level ({launches['state_root']['packed_level']} launches)")
     for name, committer in committers.items():
-        profile_rebuild(rebuild, committer, name)
+        profile_path(f"rebuild, {name} engine", lambda: rebuild(committer))
+    profile_path("state_root", lambda: state_root(accounts, storages, committer=fused))
     return launches, recorder
 
 
-def profile_rebuild(rebuild, committer, label: str) -> None:
-    """Two more rebuilds, after the main path's counters were read (so
+def profile_path(label: str, drive) -> None:
+    """Two more runs of a main path, after its counters were read (so
     their launches are not counted): one under torch.profiler for the
     card's busy time by kernel and copy, its host-to-device copy time and
     its idle share of the wall, one under cProfile for the host's time by
@@ -883,27 +997,27 @@ def profile_rebuild(rebuild, committer, label: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        rebuild(committer)
+        drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
     if busy_us == 0:
-        log(f"profiled rebuild, {label} engine: {wall:.3f} s wall; device time not measured "
+        log(f"profiled {label}: {wall:.3f} s wall; device time not measured "
             f"(the profiler recorded no device activity)")
     else:
         h2d = [r for r in rows if "HtoD" in r[0]]
-        log(f"profiled rebuild, {label} engine: {wall:.3f} s wall, device busy "
+        log(f"profiled {label}: {wall:.3f} s wall, device busy "
             f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.4f}; host-to-device "
             f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
             log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
     prof_host = cProfile.Profile()
     t0 = time.perf_counter()
-    prof_host.runcall(rebuild, committer)
+    prof_host.runcall(drive)
     torch.cuda.synchronize()
-    log(f"host profile of a rebuild, {label} engine ({time.perf_counter() - t0:.3f} s wall under "
+    log(f"host profile, {label} ({time.perf_counter() - t0:.3f} s wall under "
         f"cProfile, all threads: cumulative times of concurrent threads overlap), top functions "
         f"by own time:")
     stats = pstats.Stats(prof_host)
@@ -943,8 +1057,7 @@ def main() -> int:
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
     for s, p in zip(srcs[:2], paths[:2]):
         log_path = p.with_name(p.name + ".log")
-        check_ptxas(s.name, log_path.read_text() if log_path.exists() else "",
-                    enforce=s.name == "fused_level.cu")
+        check_ptxas(s.name, log_path.read_text() if log_path.exists() else "")
     check_coherent_digest_loads(libs["fused_level.cu"], "subtrie_levels_kernel")
     bound = make_bound(libs)
 
@@ -955,14 +1068,14 @@ def main() -> int:
     storage_jobs, account_jobs = build_state(args.accounts, args.slots, args.seed)
     log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
-    probe = kernel_checks(args, account_jobs, bound)
+    probe, check1 = kernel_checks(args, account_jobs, bound)
     launches, recorder = slice_phase(args, storage_jobs, account_jobs)
-    rows = kernel_timings(recorder, bound, np.random.default_rng(args.seed + 2))
+    rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
-        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
         if r["name"] == "subtrie_levels":
             r.update(probe)
+        elif r["name"] == "keccak256_absorb":
+            r.update(check1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

@@ -14,10 +14,13 @@ import torch
 
 def resolve(device: str | torch.device = "cuda") -> torch.device:
     """The ``torch.device`` to run on, checked: ``cpu``, or a Hopper ``cuda``
-    device."""
+    device with its index (``"cuda"`` is the current card), so that it
+    compares equal to the device of the tensors made on it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_sm90(dev)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: expected 'cuda' or 'cpu'")
     return dev

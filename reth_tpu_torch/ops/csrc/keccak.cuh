@@ -13,7 +13,7 @@
 //
 // Bound: integer issue. One permutation is a fixed count of LOP3/SHF
 // instructions (chip_smoke.py counts them in the compiled SASS: 4,723
-// integer instructions in keccak256_absorb_kernel with CUDA 12.8) against
+// integer instructions in keccak256_absorb_unstaged_kernel with CUDA 12.8) against
 // the SMs' 32-bit integer rate (64 per clock per SM); a message of B rate
 // blocks costs B permutations and moves only its own bytes, so the kernels
 // that use this header are operation-bound, not memory-bound.
@@ -225,7 +225,7 @@ __device__ __forceinline__ void keccak_absorb_block(uint64_t s[25], const uint64
     keccak_f1600(s);
 }
 
-// Threads per block for keccak256_absorb (one thread per message): enough warps in
+// Threads per block for keccak256_absorb_unstaged (one thread per message): enough warps in
 // flight per SM to hide the byte gathers, few enough registers per thread
 // (the 25-lane state plus the rho/pi temporaries) to keep several blocks
 // resident.

@@ -14,8 +14,10 @@ Three dispatch forms, as in the reference:
 - ``dispatch_branch``: BITMAP branch rows — kernel 3,
   ``csrc/fused_level.cu branch_level``.
 - ``dispatch_level``: RLP templates with digest holes from
-  ``trie/committer.py`` — PyTorch indexing around kernel 1 (the reference's
-  ``_plain_level``/``_splice_level`` XLA programs).
+  ``trie/committer.py`` (the reference's ``_plain_level``/``_splice_level``
+  XLA programs): a bucket of templates is a PACKED level with holes, so it
+  goes through kernel 2 too. ``splice_level`` is its plain version in the
+  reference's padded layout.
 
 The reference pads every dispatch to batch/hole tiers (junk rows and holes
 aimed at slot 0) so XLA compiles a bounded set of shapes, and splits levels
@@ -43,7 +45,7 @@ import torch
 from ..device import resolve, stream_handle
 from ..primitives.keccak import RATE
 from . import _build
-from .keccak import _next_tier, keccak256_words_masked, keccak256_words_masked_ref
+from .keccak import _next_tier, keccak256_words_masked_ref
 
 
 def _bytes_to_words(t: torch.Tensor) -> torch.Tensor:
@@ -65,17 +67,27 @@ def _csr_rows(start: torch.Tensor) -> torch.Tensor:
 # -- kernel 2: one level of PACKED rows ---------------------------------------
 
 
-def packed_level_ref(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf):
-    """Plain PyTorch version of kernel 2 (the reference's ``_packed_level``):
-    gather rows, XOR keccak padding, splice child digests, hash, scatter
-    into ``buf`` in place."""
+def _padded_rows(flat, row_off, row_len, blocks: int | None = None):
+    """(n, blocks * RATE) u8 rows gathered from ``flat``, each XORed with
+    keccak's multi-rate padding at its own last rate block, and their (n,)
+    int32 block counts ``row_len // RATE + 1``; ``blocks`` defaults to the
+    largest count."""
     counts = (row_len // RATE + 1).to(torch.int32)
-    L = int(counts.max()) * RATE
-    col = torch.arange(L, device=buf.device)[None, :]
+    L = (int(counts.max()) if blocks is None else blocks) * RATE
+    col = torch.arange(L, device=flat.device)[None, :]
     idx = (row_off[:, None] + col).clamp(max=max(flat.shape[0] - 1, 0))
     rows = torch.where(col < row_len[:, None], flat[idx], 0).to(torch.uint8)
     rows ^= (col == row_len[:, None]).to(torch.uint8)
     rows ^= (col == (counts.long() * RATE - 1)[:, None]).to(torch.uint8) * 0x80
+    return rows, counts
+
+
+def packed_level_ref(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf):
+    """Plain PyTorch version of kernel 2 (the reference's ``_packed_level``):
+    gather rows, XOR keccak padding, splice child digests, hash, scatter
+    into ``buf`` in place."""
+    rows, counts = _padded_rows(flat, row_off, row_len)
+    L = rows.shape[1]
     if hole_off.shape[0]:
         hole_row = _csr_rows(hole_start)
         sidx = (hole_row * L + hole_off)[:, None] + torch.arange(32, device=buf.device)
@@ -316,15 +328,29 @@ def subtrie_lanes5_rows() -> int:
 
 
 def splice_level(templates, counts, hole_row, hole_off, hole_src, slots, buf):
-    """The reference's ``_plain_level``/``_splice_level``: splice child
-    digests into padded RLP templates (PyTorch indexing), hash them with
-    kernel 1, scatter the digests into ``buf`` in place."""
+    """Plain version of the template levels (the reference's
+    ``_plain_level``/``_splice_level``) in the reference's layout:
+    ``templates`` (n, L) u8, padded on the host at each row's last rate
+    block; splice the child digests at their (row, byte offset), hash with
+    kernel 1's plain version, scatter the digests into ``buf`` in place.
+    The port runs these levels through kernel 2 (``dispatch_level``); the
+    tests and the smoke hold the two against each other."""
     if hole_row.shape[0]:
         L = templates.shape[1]
         sidx = (hole_row * L + hole_off)[:, None] + torch.arange(32, device=buf.device)
         templates.view(-1)[sidx.reshape(-1)] = buf[hole_src].reshape(-1)
-    d = keccak256_words_masked(_bytes_to_words(templates), counts)
+    d = keccak256_words_masked_ref(_bytes_to_words(templates), counts)
     buf[slots] = _digests_to_bytes(d)
+
+
+def padded_level(flat, row_off, row_len, slots, hole_start, hole_off, hole_src):
+    """``splice_level``'s arguments (all but ``buf``) for a level given in
+    kernel 2's: the rows padded in the reference's layout, L = the pow2
+    block tier of the longest row (at least 2) times RATE, and each hole's
+    row from the CSR start index."""
+    tier = _next_tier(int((row_len // RATE + 1).max()), 2)
+    templates, counts = _padded_rows(flat, row_off, row_len, tier)
+    return templates, counts, _csr_rows(hole_start), hole_off.long(), hole_src, slots
 
 
 class _Bucket:
@@ -432,23 +458,27 @@ class FusedLevelEngine:
     # -- dispatch ----------------------------------------------------------
 
     def dispatch_level(self, bucket: _Bucket) -> None:
-        """One level bucket of RLP templates (TrieCommitter's fused path)."""
+        """One level bucket of RLP templates (TrieCommitter's fused path),
+        hashed as a PACKED level with holes by kernel 2: the templates
+        concatenated, each row's offset and length, its slot, and the holes
+        as (row, byte offset, source slot). The kernel pads each row at its
+        own last rate block (``len // RATE + 1`` blocks, the committer's
+        count, checked here) and then splices, as the reference pads on the
+        host and splices on the device; a hole lies inside its template,
+        so it never covers a padding byte."""
         n = len(bucket.templates)
         if n == 0:
             return
-        L = _next_tier(bucket.nb_max, 2) * RATE
-        templates = np.zeros((n, L), dtype=np.uint8)
-        for i, t in enumerate(bucket.templates):
-            tl = len(t)
-            templates[i, :tl] = np.frombuffer(t, dtype=np.uint8)
-            # keccak multi-rate padding at the message's own final block
-            templates[i, tl] ^= 0x01
-            templates[i, bucket.counts[i] * RATE - 1] ^= 0x80
-        holes = np.asarray(bucket.holes, dtype=np.int64).reshape(-1, 3)
-        splice_level(
-            self._put(templates), self._put(np.asarray(bucket.counts, dtype=np.int32)),
-            self._put(holes[:, 0]), self._put(holes[:, 1]), self._put(holes[:, 2]),
-            self._put(np.asarray(bucket.slots, dtype=np.int64)), self._buf)
+        lens = np.fromiter(map(len, bucket.templates), dtype=np.int64, count=n)
+        if not np.array_equal(np.asarray(bucket.counts), lens // RATE + 1):
+            raise ValueError("dispatch_level: a template's block count is not len // RATE + 1")
+        row_off = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=row_off[1:])
+        flat = np.frombuffer(bytearray().join(bucket.templates), dtype=np.uint8)
+        holes = np.asarray(bucket.holes, dtype=np.int64).reshape(-1, 3).T
+        self.dispatch_packed(flat, row_off, lens.astype(np.int32),
+                             np.asarray(bucket.slots, dtype=np.int64), holes,
+                             _next_tier(bucket.nb_max, 2))
 
     def dispatch_packed(self, flat: np.ndarray, row_off: np.ndarray, row_len: np.ndarray,
                         slots: np.ndarray, holes: np.ndarray | None, b_tier: int) -> None:

@@ -82,10 +82,31 @@ def keccak256_words_masked_ref(words: torch.Tensor, counts: torch.Tensor) -> tor
 
 def _absorb_lib() -> ctypes.CDLL:
     lib = _build.load_kernel("keccak.cu")
-    lib.keccak256_absorb.restype = ctypes.c_int
-    lib.keccak256_absorb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p]
+    for fn in (lib.keccak256_absorb, lib.keccak256_absorb_unstaged):
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    lib.keccak256_absorb_rows_per_block.restype = ctypes.c_int
+    lib.keccak256_absorb_rows_per_block.argtypes = [ctypes.c_int64, ctypes.c_int32]
     return lib
+
+
+def _launch(entry: str, words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Launch one of kernel 1's C entries on CUDA tensors; returns the
+    (N, 8) u32 digests."""
+    blocks = _check_words(words, counts)
+    if words.device.type != "cuda":
+        raise ValueError(f"{entry}: expected CUDA tensors, got {words.device}")
+    words = words.contiguous()
+    counts = counts.contiguous()
+    if words.data_ptr() % 8:
+        raise ValueError("words must be 8-byte aligned (the kernel reads 64-bit lanes)")
+    out = torch.empty((words.shape[0], 8), dtype=torch.uint32, device=words.device)
+    err = getattr(_absorb_lib(), entry)(words.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                                        words.shape[0], blocks, stream_handle(words))
+    _build.check_launch(err, entry)
+    return out
 
 
 def keccak256_words_masked(words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -94,26 +115,35 @@ def keccak256_words_masked(words: torch.Tensor, counts: torch.Tensor) -> torch.T
     ``words``: (N, B*34) u32 pre-padded messages, each padded at its own last
     block and zero-extended to B blocks; ``counts``: (N,) int32 real block
     counts. Returns (N, 8) u32 digests. A CPU tensor runs the plain version;
-    a CUDA tensor launches the kernel."""
-    blocks = _check_words(words, counts)
+    a CUDA tensor launches the kernel. ``words`` may start at any 8-byte
+    boundary."""
+    _check_words(words, counts)
     if words.device.type == "cpu":
         return keccak256_words_masked_ref(words, counts)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    words = words.contiguous()
-    counts = counts.contiguous()
-    if words.data_ptr() % 8:
-        raise ValueError("words must be 8-byte aligned (the kernel reads 64-bit lanes)")
-    out = torch.empty((words.shape[0], 8), dtype=torch.uint32, device=words.device)
-    err = _absorb_lib().keccak256_absorb(
-        words.data_ptr(), counts.data_ptr(), out.data_ptr(), words.shape[0], blocks,
-        stream_handle(words))
-    _build.check_launch(err, "keccak256_absorb")
+    out = _launch("keccak256_absorb", words, counts)
     keccak256_words_masked.launches += 1
     return out
 
 
 keccak256_words_masked.launches = 0
+
+
+def keccak256_words_masked_unstaged(words: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's first design (``csrc/keccak.cu keccak256_absorb_unstaged``:
+    one thread a message reading its own row, 128-thread blocks), a debug
+    entry the port never calls: the smoke times it beside the kernel, and
+    counts one permutation's instructions on it. CUDA tensors only; not
+    counted as a launch."""
+    return _launch("keccak256_absorb_unstaged", words, counts)
+
+
+def absorb_rows_per_block(n: int, blocks: int) -> int:
+    """Rows per block kernel 1 takes for a launch of ``n`` rows ``blocks``
+    rate blocks wide on the current card (its grid is ceil(n / that))."""
+    r = _absorb_lib().keccak256_absorb_rows_per_block(n, blocks)
+    if r <= 0:
+        raise RuntimeError(f"keccak256_absorb: grid query failed (CUDA error {-r})")
+    return r
 
 
 def keccak256_words(words: torch.Tensor, num_blocks: int) -> torch.Tensor:

@@ -745,10 +745,11 @@ class TurboCommitter:
         """Overlapped variant of :meth:`commit_hashed_many` (same results
         bit for bit): sweep groups of subtries on a thread pool, pack
         same-depth levels across subtries into one dispatch, hash into one
-        growing digest buffer. ``knobs`` are ``RebuildPipeline``'s."""
+        growing digest buffer. ``knobs`` are ``RebuildPipeline``'s.
+        ``RETH_TPU_PIPELINE=0`` takes the serial path, as in the reference."""
         if not jobs:
             return []
-        if len(jobs) == 1:
+        if len(jobs) == 1 or os.environ.get("RETH_TPU_PIPELINE", "1") == "0":
             return self.commit_hashed_many(jobs, collect_branches, start_depth)
         if self.backend_kind == "device" and int(knobs.get("hash_workers", 1)) > 1:
             raise ValueError("hash_workers > 1 is for the numpy backend: the device "

@@ -307,3 +307,86 @@ def threshold_chain(limit: int = LANES5_ROWS_H100, seed: int = 7):
         levels.append((kind, tuple(args)))
         prev, base = (base, n), base + n
     return levels, base
+
+
+# -- template levels for the general committer's dispatch_level -----------------
+
+TEMPLATE_SRC = 40  # source digests in slots 1..TEMPLATE_SRC-1; outputs from slot TEMPLATE_SRC on
+TEMPLATE_BUF_ROWS = 128
+# template lengths at the rate-block edges, up to 15 blocks (block tier 16)
+TEMPLATE_LENS = (32, 135, 136, 271, 272, 600, 15 * 136 - 1)
+TEMPLATE_CASES = ("plain", "spliced", "chained", "random")
+
+
+def _template_holes(length: int) -> list[int]:
+    """Hole offsets inside a template of ``length`` bytes: at byte 0, one
+    across the first rate-block edge, and one at the last 32 bytes, as far
+    as they fit without overlapping."""
+    offs = [0]
+    if length >= 184:
+        offs.append(120)
+    if length >= 64:
+        offs.append(length - 32)
+    return offs
+
+
+def template_level(rng, lens, spliced: bool, slot0: int, src=range(1, TEMPLATE_SRC)):
+    """(templates, slots, holes [(row, byte_off, src_slot)]) of one level."""
+    templates = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lens]
+    slots = list(range(slot0, slot0 + len(lens)))
+    src = list(src)
+    holes = [(r, off, src[int(rng.integers(0, len(src)))])
+             for r, n in enumerate(lens) for off in (_template_holes(int(n)) if spliced else ())]
+    return templates, slots, holes
+
+
+def _random_template_level(rng, n_rows: int, slot0: int):
+    """Rows of random lengths (32 bytes to 15 blocks) with random
+    non-overlapping holes."""
+    lens = [int(rng.integers(32, 15 * 136)) for _ in range(n_rows)]
+    templates = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes() for n in lens]
+    holes = []
+    for r, n in enumerate(lens):
+        at = int(rng.integers(0, 40))
+        while at + 32 <= n:
+            holes.append((r, at, int(rng.integers(1, TEMPLATE_SRC))))
+            at += 32 + int(rng.integers(0, 200))
+    return templates, list(range(slot0, slot0 + n_rows)), holes
+
+
+def template_levels(case: str, rng) -> list:
+    """The levels of one ``TEMPLATE_CASES`` case, deepest first: "plain"
+    (no holes), "spliced" (holes at byte 0, across a block edge and at the
+    last 32 bytes), "chained" (a second level splicing the first's
+    digests), "random" (40 rows of random lengths and holes)."""
+    if case == "plain":
+        return [template_level(rng, TEMPLATE_LENS, False, TEMPLATE_SRC)]
+    if case == "spliced":
+        return [template_level(rng, TEMPLATE_LENS, True, TEMPLATE_SRC)]
+    if case == "chained":
+        first = template_level(rng, TEMPLATE_LENS, True, TEMPLATE_SRC)
+        second = template_level(rng, TEMPLATE_LENS[::-1], True,
+                                TEMPLATE_SRC + len(TEMPLATE_LENS), src=first[1])
+        return [first, second]
+    return [_random_template_level(rng, 40, TEMPLATE_SRC)]
+
+
+def template_bucket(cls, level, rng=None):
+    """The level as a bucket of ``cls`` (either package's ``_Bucket``);
+    with ``rng``, its holes in a shuffled order (the port groups them by
+    row itself)."""
+    templates, slots, holes = level
+    b = cls()
+    for t, s in zip(templates, slots):
+        b.add(t, len(t) // 136 + 1, s, [])
+    b.holes = list(holes)
+    if rng is not None:
+        rng.shuffle(b.holes)
+    return b
+
+
+def template_buffer(rng) -> np.ndarray:
+    """A (TEMPLATE_BUF_ROWS, 32) digest buffer, random in the source slots."""
+    buf = np.zeros((TEMPLATE_BUF_ROWS, 32), dtype=np.uint8)
+    buf[1:TEMPLATE_SRC] = rng.integers(0, 256, size=(TEMPLATE_SRC - 1, 32), dtype=np.uint8)
+    return buf

@@ -11,13 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (EDGE_CASES, edge_chain, edge_digest_buffer, edge_level,
-                            level_kernel_args, prefix_jobs, require_card, staged_chunks,
+from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, edge_chain, edge_digest_buffer,
+                            edge_level, level_kernel_args, prefix_jobs, require_card,
+                            staged_chunks, template_bucket, template_buffer, template_levels,
                             threshold_chain)
+from reth_tpu_torch import convert
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
+from reth_tpu_torch.primitives.types import Account
+from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie import turbo as tturbo
+from reth_tpu_torch.trie.committer import TrieCommitter
 
 
 def _max_slot(levels):
@@ -137,3 +142,154 @@ def test_five_lane_permutation_matches_one_thread():
             outs.append(out)
         torch.cuda.synchronize()
         assert torch.equal(outs[0], outs[1])
+
+
+# kernel 1's launch widths: below, at and above a warp, a block, and one
+# 128-row block per SM of a 132-SM card
+ABSORB_ROWS = (1, 31, 32, 33, 127, 128, 129, 132 * 128 - 1, 132 * 128, 132 * 128 + 1)
+
+
+def _absorb_inputs(n: int, blocks: int, seed: int):
+    """n messages padded to ``blocks`` rate blocks: counts 1..blocks mixed
+    within every warp (most rows shorter than the padded width), the first
+    rows 0, 135, 136, 271 and 272 bytes long where they fit."""
+    rng = np.random.default_rng([seed, n, blocks])
+    lens = rng.integers(0, blocks * 136, size=n)
+    edge = [ln for ln in (0, 135, 136, 271, 272) if ln < blocks * 136]
+    lens[:len(edge)] = edge[:n]
+    msgs = [rng.integers(0, 256, size=int(ln), dtype=np.uint8).tobytes() for ln in lens]
+    counts = np.array([num_blocks_for(m) for m in msgs], dtype=np.int32)
+    words = pad_batch(msgs, counts, pad_to_blocks=blocks).view("<u4")
+    return msgs, torch.from_numpy(words).cuda(), torch.from_numpy(counts).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3, 4, 16])
+def test_absorb_matches_plain_and_unstaged(blocks):
+    """Kernel 1 (rows staged in shared memory, sorted by count within a
+    block) against its plain version and against its first design (the
+    debug entry keccak256_absorb_unstaged), at every launch width of
+    ABSORB_ROWS; one counted launch a call, none for the debug entry."""
+    require_card()
+    for n in ABSORB_ROWS:
+        msgs, w, c = _absorb_inputs(n, blocks, seed=3)
+        before = tk.keccak256_words_masked.launches
+        got = tk.keccak256_words_masked(w, c)
+        unstaged = tk.keccak256_words_masked_unstaged(w, c)
+        want = tk.keccak256_words_masked_ref(w, c)
+        torch.cuda.synchronize()
+        assert tk.keccak256_words_masked.launches == before + 1
+        assert torch.equal(got, want), (n, blocks)
+        assert torch.equal(got, unstaged), (n, blocks)
+        host = got.cpu().numpy()
+        for i in {0, n // 2, n - 1}:
+            assert host[i].tobytes() == keccak256(msgs[i]), (n, blocks, i)
+
+
+@pytest.mark.cuda
+def test_absorb_counts_below_width_and_clamped():
+    """Counts below a row's own block count (the kernel absorbs only
+    ``counts[i]`` blocks), zero counts (zero digest) and counts above the
+    width (clamped to it), mixed in each warp: equal to the plain version
+    and to the first design."""
+    require_card()
+    _, w, c = _absorb_inputs(1000, 4, seed=5)
+    rng = np.random.default_rng(5)
+    c = torch.from_numpy(rng.integers(0, 7, size=1000).astype(np.int32)).cuda()
+    got = tk.keccak256_words_masked(w, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tk.keccak256_words_masked_ref(w, c.clamp(max=4)))
+    assert torch.equal(got, tk.keccak256_words_masked_unstaged(w, c))
+    assert not got.view(torch.int32)[c == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_absorb_takes_words_at_an_odd_8_byte_offset(blocks):
+    """``words`` starting 8 bytes past a 16-byte boundary (every row then
+    starts 8 bytes off one at even width, every other row at odd width):
+    the same digests as from an aligned copy."""
+    require_card()
+    msgs, w, c = _absorb_inputs(300, blocks, seed=7)
+    flat = torch.empty(w.numel() + 2, dtype=torch.uint32, device="cuda")
+    shifted = flat[2:].view(w.shape)
+    shifted.copy_(w)
+    assert shifted.data_ptr() % 16 == 8
+    got = tk.keccak256_words_masked(shifted, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tk.keccak256_words_masked_ref(w, c))
+    with pytest.raises(ValueError):
+        tk.keccak256_words_masked(flat[1:1 + w.numel()].view(w.shape), c)
+
+
+@pytest.mark.cuda
+def test_absorb_grid_spreads_narrow_launches():
+    """Rows per block: ceil(n / SMs) in whole warps up to one full block per
+    SM, so a narrow launch takes every SM; at most 128."""
+    require_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (1, 33, 6454, sms * 128, sms * 128 + 1, 69396, 10 ** 6):
+        r = tk.absorb_rows_per_block(n, 4)
+        assert r % 32 == 0 and 32 <= r <= 128, (n, r)
+        if n <= sms * 128:
+            assert r == max(32, (-(-n // sms) + 31) // 32 * 32), (n, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TEMPLATE_CASES)
+def test_dispatch_level_on_card_matches_cpu_and_splice_level(case):
+    """The general committer's template levels on the card: one
+    packed_level launch per bucket, the buffer equal to the same dispatch
+    on the CPU and to ``splice_level`` on the reference's padded layout."""
+    require_card()
+    rng = np.random.default_rng(21)
+    levels = template_levels(case, rng)
+    shared = template_buffer(rng)
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = fc.FusedLevelEngine(min_tier=64, device=device)
+        eng.begin_from(convert.digest_buffer_from_numpy(shared, device))
+        before = fc.packed_level.launches
+        for lv in levels:
+            eng.dispatch_level(template_bucket(fc._Bucket, lv, np.random.default_rng(1)))
+        out[device] = eng.finish()
+        if device == "cuda":
+            assert fc.packed_level.launches == before + len(levels)
+    assert np.array_equal(out["cuda"], out["cpu"])
+    buf = torch.from_numpy(shared).cuda()
+    for lv in levels:
+        eng = fc.FusedLevelEngine(min_tier=64, device="cuda")
+        calls, real = [], fc.packed_level
+        fc.packed_level = lambda *a: calls.append(a[:-1])
+        try:
+            eng.begin(1)
+            eng.dispatch_level(template_bucket(fc._Bucket, lv))
+        finally:
+            fc.packed_level = real
+        fc.splice_level(*fc.padded_level(*calls[0]), buf)
+    torch.cuda.synchronize()
+    assert np.array_equal(buf.cpu().numpy(), out["cpu"])
+
+
+@pytest.mark.cuda
+def test_state_root_on_card_matches_cpu():
+    """state_root through TrieCommitter(fused=True) on the card: the same
+    root and branch nodes as on the CPU; its levels launch packed_level,
+    its key hashing keccak256_absorb."""
+    require_card()
+    rng = np.random.default_rng(8)
+    addrs = [bytes(a) for a in rng.integers(0, 256, size=(500, 20), dtype=np.uint8)]
+    accounts = {a: Account(nonce=i + 1, balance=int(rng.integers(1, 1 << 60)))
+                for i, a in enumerate(addrs)}
+    storages = {a: {bytes(rng.integers(0, 256, size=32, dtype=np.uint8)): k + 1 for k in range(9)}
+                for a in addrs[:40]}
+    out = {}
+    for device in ("cpu", "cuda"):
+        committer = TrieCommitter(fused=True, device=device,
+                                  hasher=tk.KeccakDevice(block_tier=4, device=device).hash_batch)
+        k1, k2 = tk.keccak256_words_masked.launches, fc.packed_level.launches
+        out[device] = tsr.state_root(accounts, storages, committer=committer)
+        if device == "cuda":
+            assert tk.keccak256_words_masked.launches > k1 and fc.packed_level.launches > k2
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1]["branch_nodes"] == out["cpu"][1]["branch_nodes"]

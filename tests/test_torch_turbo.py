@@ -59,6 +59,26 @@ def test_numpy_backend_matches_device_backend(port):
           port.commit_hashed_pipelined(jobs, True, 2))
 
 
+def test_pipeline_env_kill_switch(port, monkeypatch):
+    """RETH_TPU_PIPELINE=0 takes the serial path, as in the reference
+    (tests/test_turbo_pipeline.py test_pipeline_env_kill_switch): the
+    pipeline is never run, and the roots are commit_hashed_many's."""
+    from reth_tpu_torch.trie import turbo as tturbo
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("RebuildPipeline.run ran with RETH_TPU_PIPELINE=0")
+
+    jobs = [job(25, seed=i) for i in range(6)]
+    want = port.commit_hashed_many(jobs)
+    monkeypatch.setenv("RETH_TPU_PIPELINE", "0")
+    monkeypatch.setattr(tturbo.RebuildPipeline, "run", refuse)
+    got = port.commit_hashed_pipelined(jobs)
+    assert [r.root for r in got] == [r.root for r in want]
+    monkeypatch.setenv("RETH_TPU_PIPELINE", "1")
+    with pytest.raises(AssertionError, match="RETH_TPU_PIPELINE=0"):
+        port.commit_hashed_pipelined(jobs)
+
+
 def test_device_backend_takes_one_hash_worker(port):
     with pytest.raises(ValueError):
         port.commit_hashed_pipelined(_jobs(2), hash_workers=2)
