@@ -27,7 +27,7 @@
    a wide one). One keccak-f[1600] is then timed in isolation by one
    thread and by a five-lane group (a debug entry of fused_level.cu), the
    two final states held equal.
-3. Slice phase, three main paths, the launch counters zeroed just before
+3. Slice phase, five main paths, the launch counters zeroed just before
    each and read just after: "default", the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
    trie as 256 two-nibble prefix subtries at start_depth=2, both collecting
@@ -38,9 +38,22 @@
    whose key hashing launches keccak256_absorb and whose template levels
    launch packed_level (kernel 1 may be launched by KeccakDevice only).
    Both rebuilds' roots and branch nodes are held against one
-   backend="numpy" rebuild. The arguments of every kernel launch of each
-   path are kept; each engine's host-to-device copies, launches and staged
-   levels are logged.
+   backend="numpy" rebuild, and each rebuild commit's pipeline stage times
+   (sweep, pack, dispatch, fetch), windows and queue peak are logged. Then
+   the sparse live-tip finish on bench.py's sparse generator (1,024
+   storage tries x 64 slots and their accounts): the clean state is hashed
+   once on each path outside the main paths (the whole-trie check), then
+   "sparse", SPARSE_BLOCKS (5) blocks each of a fresh seeded dirty set (4
+   slot writes and 1 delete per trie, every 16th trie wiped, every account
+   leaf rewritten) finished by ParallelSparseCommitter's classic path
+   (kernel 1, launched by KeccakDevice only), and "sparse k=8", the same
+   blocks on a second copy of the state through subtrie_levels=8 (kernel
+   4, SubtrieFusedEngine); every root and the account trie's stored branch
+   updates (export_branch_updates) are held against a third copy finished
+   on the CPU with the numpy hasher. Each finish is timed (median of the
+   blocks). Each path must launch its kernels and no other. The
+   arguments of every kernel launch of each path are kept; each engine's
+   host-to-device copies, launches and staged levels are logged.
 4. For each main path, two more runs after the launch counts were read:
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function).
@@ -48,7 +61,9 @@
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    default; subtrie_levels: k=8; and packed_level once more at state_root's
    template levels, the "template_levels" row, whose plain version is
-   splice_level on the reference's padded layout), its
+   splice_level on the reference's padded layout; keccak256_absorb once more
+   at the sparse finish's launches, the "sparse_absorb" row, and
+   subtrie_levels at the fused finish's, the "sparse_subtrie" row), its
    launch with the most rows and its launch at the median row count (for
    subtrie_levels, the chunk with the most rows over its levels and the
    median one), replayed on a random digest buffer, bit for bit against the
@@ -61,11 +76,12 @@
    bound_ms it carries floor_bound_ms, the one-warp floor: like bound_ms,
    computed from this run's inputs, not measured (largest_bound_ms and
    largest_floor_bound_ms for the largest launch). ``launches`` is the sum
-   over the main paths; ``launches_by_path`` splits it (the template_levels
-   row counts state_root's packed_level launches). keccak256_absorb's row
-   also carries unstaged_ms / largest_unstaged_ms, the debug entry's times
-   at the same launches, and check_* for the 65,543-message check. subtrie_levels'
-   two timed chunks are also broken down by step (rows, block tier, 1 or 5
+   over the main paths; ``launches_by_path`` splits it (the template_levels,
+   sparse_absorb and sparse_subtrie rows count their own path's launches).
+   keccak256_absorb's rows also carry unstaged_ms / largest_unstaged_ms, the
+   debug entry's times at the same launches, and its first row check_* for
+   the 65,543-message check. subtrie_levels' two timed chunks (on each of its
+   rows) are also broken down by step (rows, block tier, 1 or 5
    lanes a row, each step timed alone as a one-step launch, and the chunk's
    time less its steps): logged, and in its JSON row as median_steps /
    largest_steps and median_steps_rest_ms / largest_steps_rest_ms, beside
@@ -111,8 +127,12 @@ INT_OPCODES = ("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "IMAD", "PRMT", "LEA
                "ISETP", "SEL", "IMNMX", "FLO", "POPC", "MOV")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def build_state(n_accounts: int, n_slots: int, seed: int = 42):
@@ -163,6 +183,52 @@ def plain_state(n_accounts: int, n_slots: int, seed: int):
     for k in range(n_slots):
         storages.setdefault(owners[k % len(owners)], {})[bytes(slots[k])] = int(values[k])
     return accounts, storages
+
+
+# the sparse finish's size: storage tries x slots, dirty slot writes per trie
+# and block, and blocks per main path (the dirty set of a heavy mainnet block)
+SPARSE_TRIES, SPARSE_SLOTS, SPARSE_DIRTY, SPARSE_BLOCKS = 1024, 64, 4, 5
+
+
+def sparse_base(n_tries: int, slots: int, seed: int = 3):
+    """bench.py's sparse generator (``build_sparse_state``, the clean state
+    before its dirty set): a SparseStateTrie of ``n_tries`` fully revealed
+    storage tries x ``slots`` random slots (8-byte values) and their account
+    leaves, not yet hashed. Returns (state, owners, slot keys by owner)."""
+    from reth_tpu_torch.trie.sparse import SparseStateTrie
+
+    rng = np.random.default_rng(seed)
+    st = SparseStateTrie()
+    owners, slot_keys = [], {}
+    for _ in range(n_tries):
+        ha = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+        owners.append(ha)
+        t = st.storage_trie(ha)
+        keys = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(slots)]
+        slot_keys[ha] = keys
+        for k in keys:
+            t.update(k, bytes(rng.integers(1, 256, 8, dtype=np.uint8)))
+        st.update_account(ha, b"account-leaf-" + ha)
+    return st, owners, slot_keys
+
+
+def sparse_block(st, owners, slot_keys, dirty: int, block: int, seed: int = 3) -> None:
+    """One block's dirty set in bench.py's shape, fresh from (seed, block):
+    per storage trie ``dirty`` slot writes and one delete (random slots of
+    the trie), every 16th trie wiped (a different 16th each block), and
+    every account leaf rewritten."""
+    from reth_tpu_torch.trie.sparse import SparseTrie
+
+    rng = np.random.default_rng([seed, block])
+    for i, ha in enumerate(owners):
+        t = st.storage_trie(ha)
+        keys = slot_keys[ha]
+        for j in rng.integers(0, len(keys), size=dirty):
+            t.update(keys[int(j)], bytes(rng.integers(1, 256, 8, dtype=np.uint8)))
+        t.delete(keys[int(rng.integers(0, len(keys)))])
+        if (i + block) % 16 == 15:  # a SELFDESTRUCT wipe
+            st.storage_tries[ha] = SparseTrie()
+        st.update_account(ha, b"post-leaf-%d-" % block + ha)
 
 
 def gpu_line() -> str:
@@ -552,8 +618,16 @@ def kernel_checks(args, account_jobs, bound: Bound) -> dict:
 
 KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 # the main paths, each driven with the launch counts zeroed just before it:
-# the rebuild on either engine, then state_root() on the general committer
-PATHS = ("default", "k=8", "state_root")
+# the rebuild on either engine, state_root() on the general committer, then
+# the sparse live-tip finish, classic and fused
+PATHS = ("default", "k=8", "state_root", "sparse", "sparse k=8")
+# the kernels each main path must launch, and the only ones it may
+PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
+                "state_root": ("keccak256_absorb", "packed_level"),
+                "sparse": ("keccak256_absorb",), "sparse k=8": ("subtrie_levels",)}
+# the rows that time a kernel at another main path's launches: row -> kernel
+ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
+              "sparse_subtrie": "subtrie_levels"}
 # the one place the port may launch kernel 1 from
 KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
 
@@ -776,25 +850,32 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                            "reth_tpu/ops/fused_commit.py:1046", "k=8"),
         "template_levels": (fc.packed_level, template_plain, level(packed_work), level_src,
                             "reth_tpu/ops/fused_commit.py:76", "state_root"),
+        "sparse_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                          level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                          "reth_tpu/ops/keccak_pallas.py:96", "sparse"),
+        "sparse_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
+                           lambda *a: subtrie_cost(bound, *a), level_src,
+                           "reth_tpu/ops/fused_commit.py:1046", "sparse k=8"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
-        wrapper = "packed_level" if name == "template_levels" else name
+        wrapper = ROW_KERNEL.get(name, name)
         calls = recorder.calls[path][wrapper]
         sizes = sorted(recorder.rows(wrapper, a) for a in calls)
         log(f"{name} ({wrapper} on main path {path}): {len(calls)} launches, rows per launch "
             f"min {sizes[0]}, median {sizes[len(sizes) // 2]}, "
             f"mean {sum(sizes) / len(sizes):.1f}, max {sizes[-1]}")
         row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None)
-        if name == "template_levels":
-            row.update(kernel="packed_level", plain="fused_commit.splice_level",
-                       launches_by_path={path: launches[path]["packed_level"]})
+        if name in ROW_KERNEL:
+            row.update(kernel=wrapper, launches_by_path={path: launches[path][wrapper]})
+            if name == "template_levels":
+                row["plain"] = "fused_commit.splice_level"
         else:
             row["launches_by_path"] = {p: launches[p][name] for p in PATHS}
         row["launches"] = sum(row["launches_by_path"].values())
         for label, rec in recorder.picks(wrapper, path).items():
             extra = ""
-            if name == "keccak256_absorb":
+            if wrapper == "keccak256_absorb":
                 fargs = rec
                 got = kernel(*rec)
                 err = max(max_abs_err(got.view(torch.uint8), ref(*rec).view(torch.uint8)),
@@ -812,7 +893,7 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
             if err:
                 raise AssertionError(f"{name} differs from its plain version at the main path's "
                                      f"{label} launch (max abs err {err})")
-            if name == "keccak256_absorb":
+            if wrapper == "keccak256_absorb":
                 ms, unstaged_ms = ab_ms(call, lambda: keccak256_words_masked_unstaged(*fargs), 50)
                 rpb = absorb_rows_per_block(fargs[0].shape[0], fargs[0].shape[1] // 34)
                 extra = (f", unstaged {unstaged_ms:.4f} ms, {rpb} rows a block "
@@ -827,7 +908,7 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                 f"{desc}): bit-exact vs plain; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"one-warp floor {floor:.4f} ms{extra}")
-            if name == "subtrie_levels":
+            if wrapper == "subtrie_levels":
                 row.update(subtrie_steps(bound, fargs, b_k, ms, label, rng))
             if label == "median":
                 row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -841,16 +922,17 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
     return rows
 
 
-def track_engines(committer) -> list:
-    """The engines ``committer`` makes from now on (one per commit)."""
+def track_engines(committer, factory: str = "_make_backend") -> list:
+    """The engines ``committer`` makes from now on through its ``factory``
+    method (one per commit)."""
     made = []
-    make = committer._make_backend
+    make = getattr(committer, factory)
 
     def tracked():
         made.append(make())
         return made[-1]
 
-    committer._make_backend = tracked
+    setattr(committer, factory, tracked)
     return made
 
 
@@ -868,6 +950,138 @@ def engine_summary(engines: list) -> str:
     return out
 
 
+class SparseCell:
+    """The sparse live-tip finish at one size: the same generated state
+    three times, committed by the card's classic finish ("sparse":
+    ParallelSparseCommitter hashing each depth through KeccakDevice, kernel
+    1), by the card's fused finish ("sparse k=8": subtrie_levels=8, kernel
+    4) and by the CPU twin (the classic finish on device="cpu" with the
+    numpy hasher). Each block applies the same seeded dirty set to all
+    three; every root and the account trie's stored branch updates are held
+    against the twin's."""
+
+    def __init__(self):
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
+
+        self.hash_np = keccak256_batch_np
+        t0 = time.perf_counter()
+        self.states = {name: sparse_base(SPARSE_TRIES, SPARSE_SLOTS)
+                       for name in ("sparse", "sparse k=8", "twin")}
+        self.owners = self.states["twin"][1]
+        log(f"sparse state generated 3 times in {time.perf_counter() - t0:.1f} s "
+            f"({SPARSE_TRIES} storage tries x {SPARSE_SLOTS} slots, {SPARSE_TRIES} accounts)")
+        self.committers = {"sparse": ParallelSparseCommitter(device="cuda"),
+                           "sparse k=8": ParallelSparseCommitter(subtrie_levels=8, device="cuda"),
+                           "twin": ParallelSparseCommitter(device="cpu")}
+        # the fused finish's engines, one per commit
+        self.engines = track_engines(self.committers["sparse k=8"], "_engine")
+        self.next_block = {name: 0 for name in self.states}
+        self.roots = {name: [] for name in self.states}
+        self.exports = {name: [] for name in self.states}
+        self.stored = {}
+        self.copies = {}
+
+    def finish(self, name: str):
+        """One finish of ``name``'s state; returns (root, wall s, stats).
+        The stats gain ``gc_s``, the interpreter's garbage-collection pauses
+        inside the finish, and ``gc_runs``, their count."""
+        import gc
+
+        import torch
+
+        st, _, _ = self.states[name]
+        c = self.committers[name]
+        hasher = self.hash_np if name == "twin" else None
+        pauses = []
+
+        def on_gc(phase, _info):
+            if phase == "start":
+                pauses.append(-time.perf_counter())
+            elif pauses:
+                pauses[-1] += time.perf_counter()
+
+        gc.callbacks.append(on_gc)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            root = st.root(hasher, committer=c)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gc.callbacks.remove(on_gc)
+        return root, wall, dict(c.last, gc_s=round(sum(pauses), 4), gc_runs=len(pauses))
+
+    def baseline(self) -> None:
+        """The clean state hashed once by each committer (outside the main
+        paths), the card's roots held against the twin's: a whole-trie check
+        of kernel 1 (classic) and kernel 4 (fused) on all of its nodes."""
+        from reth_tpu_torch.trie.sparse import export_branch_updates
+
+        for name in ("twin", "sparse", "sparse k=8"):
+            root, wall, stats = self.finish(name)
+            self.roots[name].append(root)
+            self.stored[name] = export_branch_updates(self.states[name][0].account_trie,
+                                                      self.owners)
+            log(f"sparse baseline, {name}: {wall:.3f} s, root {root.hex()}, stats {stats}")
+        self.check("baseline")
+
+    def apply(self, name: str) -> None:
+        """Apply the next block's dirty set to ``name``'s state."""
+        st, owners, keys = self.states[name]
+        sparse_block(st, owners, keys, SPARSE_DIRTY, self.next_block[name])
+        self.next_block[name] += 1
+
+    def close(self, name: str):
+        """Finish ``name``'s state and export the account trie's stored
+        branch updates; returns the finish's (wall s, stats)."""
+        from reth_tpu_torch.trie.sparse import export_branch_updates
+
+        root, wall, stats = self.finish(name)
+        self.roots[name].append(root)
+        updates = export_branch_updates(self.states[name][0].account_trie, self.owners,
+                                        self.stored[name].get)
+        self.exports[name].append(updates)
+        for path, node in updates.items():
+            if node is None:
+                self.stored[name].pop(path, None)
+            else:
+                self.stored[name][path] = node
+        return wall, stats
+
+    def block(self, name: str):
+        self.apply(name)
+        return self.close(name)
+
+    def check(self, what: str) -> None:
+        """Every root and branch export so far equal to the twin's."""
+        for name in ("sparse", "sparse k=8"):
+            n = len(self.roots[name])
+            if self.roots[name] != self.roots["twin"][:n]:
+                raise AssertionError(f"{name}: a sparse root differs from the CPU twin's ({what})")
+            if self.exports[name] != self.exports["twin"][:len(self.exports[name])]:
+                raise AssertionError(f"{name}: export_branch_updates of the account trie "
+                                     f"differs from the CPU twin's ({what})")
+        log(f"sparse, {what}: {len(self.roots['sparse'])} roots of each card path and "
+            f"{len(self.exports['sparse'])} account-trie branch exports "
+            f"({sum(len(e) for e in self.exports['sparse'])} updates) equal the CPU twin's")
+
+    def drive(self, name: str, walls: dict):
+        """A main path: ``SPARSE_BLOCKS`` blocks of ``name``, each finish
+        timed; logs the median wall, hashed nodes and stats. The classic
+        path's host-to-device copies, counted by its KeccakDevice (built by
+        the baseline), go to ``self.copies``."""
+        hasher = self.committers[name]._hasher
+        before = hasher.__self__.uploads if hasher is not None else 0
+        out = [self.block(name) for _ in range(SPARSE_BLOCKS)]
+        if hasher is not None:
+            self.copies[name] = hasher.__self__.uploads - before
+        walls[name] = [w for w, _ in out]
+        for i, (w, stats) in enumerate(out):
+            log(f"sparse finish, {name}, block {i}: {w:.4f} s, stats {stats}")
+        return out
+
+
 def slice_phase(args, storage_jobs, account_jobs):
     """The three main paths (``PATHS``), each with the launch counts zeroed
     just before it and read just after. Returns the launch counts of each
@@ -875,6 +1089,7 @@ def slice_phase(args, storage_jobs, account_jobs):
     import torch
 
     from reth_tpu_torch.convert import jobs_to_device
+    from reth_tpu_torch.metrics import pipeline_metrics
     from reth_tpu_torch.ops import fused_commit as fc
     from reth_tpu_torch.ops.keccak import KeccakDevice, keccak256_words_masked
     from reth_tpu_torch.primitives.keccak import keccak256_batch_np
@@ -889,10 +1104,20 @@ def slice_phase(args, storage_jobs, account_jobs):
         f"({sum(len(j[1]) for j in storage_jobs)} storage slots in {len(storage_jobs)} tries, "
         f"{sum(len(j[1]) for j in account_jobs)} accounts in {len(account_jobs)} prefix subtries)")
 
-    def rebuild(committer):
+    def rebuild(committer, label=None):
+        """The rebuild's two commits; with a label, each commit's pipeline
+        report (stage times, windows, queue peak) is logged."""
         res = committer.commit_hashed_pipelined(storage_jobs, collect_branches=True)
+        stages = [dict(pipeline_metrics.last)]
         res += committer.commit_hashed_pipelined(account_jobs, collect_branches=True,
                                                  start_depth=2)
+        stages.append(dict(pipeline_metrics.last))
+        if label:
+            for what, st in zip(("storage tries", "account trie"), stages):
+                log(f"rebuild stages, {label}, {what}: wall {st['wall_s']} s = sweep "
+                    f"{st['sweep_s']} (summed over the sweep threads) / pack {st['pack_s']} / "
+                    f"dispatch {st['dispatch_s']} / fetch {st['fetch_s']} s; {st['windows']} "
+                    f"windows of {st['groups']} sweep groups, queue peak {st['queue_peak']}")
         return res
 
     accounts, storages = plain_state(args.state_accounts, args.state_slots, args.seed + 1)
@@ -906,6 +1131,9 @@ def slice_phase(args, storage_jobs, account_jobs):
 
     recorder = MainPathRecorder()
     launches, got, walls = {}, {}, {}
+    cell = SparseCell()
+    cell.baseline()
+    sparse_walls: dict[str, list] = {}
 
     def run_path(path: str, drive):
         recorder.path = path
@@ -922,10 +1150,28 @@ def slice_phase(args, storage_jobs, account_jobs):
 
     with recorder:
         for name, committer in committers.items():
-            got[name] = run_path(name, lambda: rebuild(committer))
+            got[name] = run_path(name, lambda: rebuild(committer, f"{name} engine"))
         root_dev, det_dev = run_path("state_root",
                                      lambda: state_root(accounts, storages, committer=fused))
+        n_engines = len(cell.engines)
+        sparse_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
+                       for name in ("sparse", "sparse k=8")}
     wall_sr = walls.pop("state_root")
+    for _ in range(SPARSE_BLOCKS):
+        cell.block("twin")
+    cell.check(f"{SPARSE_BLOCKS} blocks")
+    fused_engines = cell.engines[n_engines:]
+    for name in ("sparse", "sparse k=8"):
+        w = sorted(sparse_walls[name])
+        hashed = [stats["hashed"] for _, stats in sparse_runs[name]]
+        copies = (f"{cell.copies[name]} host-to-device copies (counted by KeccakDevice: "
+                  f"words and counts per launch)" if name == "sparse" else
+                  f"{sum(e.uploads for e in fused_engines)} host-to-device copies over "
+                  f"{len(fused_engines)} SubtrieFusedEngine commits, "
+                  f"{sum(e.levels_staged for e in fused_engines)} levels staged")
+        log(f"sparse finish, {name}: median wall {w[len(w) // 2]:.4f} s over "
+            f"{len(w)} blocks ({', '.join(f'{x:.4f}' for x in sparse_walls[name])}), "
+            f"hashed nodes {hashed}, launches {json.dumps(launches[name])}, {copies}")
     summaries = {name: engine_summary(made) for name, made in engines.items()}
     for made in engines.values():
         del made[:]
@@ -956,12 +1202,11 @@ def slice_phase(args, storage_jobs, account_jobs):
     log(f"state_root ({len(accounts)} accounts, {sum(len(s) for s in storages.values())} slots): "
         f"fused on the card {wall_sr:.3f} s, per-level numpy {wall_sr_np:.3f} s, "
         f"root {root_dev.hex()} equal")
-    paths = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
-             "state_root": ("keccak256_absorb", "packed_level")}
-    for path, kernels in paths.items():
-        for name in kernels:
-            if launches[path][name] <= 0:
-                raise AssertionError(f"{name} was not launched on main path {path}")
+    for path, kernels in PATH_KERNELS.items():
+        for name in KERNELS:
+            if (launches[path][name] > 0) != (name in kernels):
+                raise AssertionError(f"{name} was launched {launches[path][name]} times on main "
+                                     f"path {path}, which launches {kernels} and no other kernel")
     for path in PATHS:
         for name in KERNELS:
             if len(recorder.calls[path][name]) != launches[path][name]:
@@ -978,15 +1223,25 @@ def slice_phase(args, storage_jobs, account_jobs):
     for name, committer in committers.items():
         profile_path(f"rebuild, {name} engine", lambda: rebuild(committer))
     profile_path("state_root", lambda: state_root(accounts, storages, committer=fused))
+    for name in ("sparse", "sparse k=8"):
+        profile_path(f"sparse finish, {name}", lambda: cell.close(name),
+                     prepare=lambda: cell.apply(name),
+                     focus=("_upload", "_engine", "hash_batch", "export_branch_updates"))
+    for _ in range(2):  # each card path's two profiled blocks
+        cell.block("twin")
+    cell.check("with the profiled blocks")
     return launches, recorder
 
 
-def profile_path(label: str, drive) -> None:
+def profile_path(label: str, drive, prepare=None, focus=()) -> None:
     """Two more runs of a main path, after its counters were read (so
     their launches are not counted): one under torch.profiler for the
     card's busy time by kernel and copy, its host-to-device copy time and
     its idle share of the wall, one under cProfile for the host's time by
-    function."""
+    function (and the cumulative time of the functions named in
+    ``focus``). ``prepare``, when given, runs before each, outside both. The
+    profiler's kernel records are counted against the wrappers' launch
+    counts; where it missed some, its device times are a lower bound."""
     import cProfile
     import pstats
 
@@ -994,15 +1249,28 @@ def profile_path(label: str, drive) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops import keccak as ok
+
+    wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    if prepare is not None:
+        prepare()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    before = sum(w.launches for w in wrappers)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = sum(w.launches for w in wrappers) - before
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    seen = sum(r[2] for r in rows if r[0].split("(")[0] in [k + "_kernel" for k in KERNELS])
     busy_us = sum(r[1] for r in rows)
+    if seen < launched:
+        log(f"profiled {label}: the profiler recorded {seen} of {launched} kernel launches; the "
+            f"device times below are a lower bound")
     if busy_us == 0:
         log(f"profiled {label}: {wall:.3f} s wall; device time not measured "
             f"(the profiler recorded no device activity)")
@@ -1013,6 +1281,8 @@ def profile_path(label: str, drive) -> None:
             f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
             log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
+    if prepare is not None:
+        prepare()
     prof_host = cProfile.Profile()
     t0 = time.perf_counter()
     prof_host.runcall(drive)
@@ -1025,6 +1295,10 @@ def profile_path(label: str, drive) -> None:
     for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in top:
         log(f"  host {tottime:8.3f} s own, {cumtime:8.3f} s cum, {ncalls:8d} calls  "
             f"{os.path.basename(fname)}:{line} {func}")
+    for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in stats.stats.items():
+        if func in focus:
+            log(f"  host {cumtime:8.3f} s cum, {ncalls:8d} calls  {os.path.basename(fname)}:{line} "
+                f"{func} (asked for)")
 
 
 def main() -> int:

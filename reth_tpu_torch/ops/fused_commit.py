@@ -389,6 +389,8 @@ class FusedLevelEngine:
     returns the (S, 32) numpy digest array, or ``fetch_slots`` returns just
     the rows asked for. Slot 0 is a reserved dummy."""
 
+    effective_kind = "device"  # the backend a commit's metrics name
+
     def __init__(self, min_tier: int = 1024, device: str | torch.device = "cuda"):
         self.min_tier = min_tier
         self.device = resolve(device)

@@ -186,6 +186,7 @@ class KeccakDevice:
         while cap * 2 <= max_batch_tier:
             cap *= 2
         self.max_batch_tier = cap
+        self.uploads = 0  # host-to-device copies since construction
 
     def hash_batch(self, msgs: list[bytes]) -> list[bytes]:
         cap = self.max_batch_tier
@@ -210,6 +211,7 @@ class KeccakDevice:
         words = pad_batch(sub, counts, pad_to_blocks=key).view("<u4")
         w = torch.from_numpy(words).to(self.device)
         c = torch.from_numpy(counts.astype(np.int32)).to(self.device)
+        self.uploads += 2
         return keccak256_words_masked(w, c).cpu().numpy()
 
     def hash_one(self, msg: bytes) -> bytes:

@@ -1,0 +1,313 @@
+"""Span timing, trace context and the flight recorder of the port.
+
+Port of the part of the JAX package's ``tracing.py`` that the state
+commitment reports through: timed spans (``span``, ``record_span``), instant
+events (``event``), the trace context carried across queue and pool handoffs
+(``TraceContext``, ``current_context``, ``use_context``), and the bounded
+flight recorder that a fault drill snapshots to JSONL (``fault_event``,
+``flight_dump``). Records have the reference's fields and names, so the same
+drill leaves the same record.
+
+Not ported here (they belong to the node): the OTLP and Chrome exporters,
+per-block timelines and wall-budget summaries, and cross-process
+correlation (wire form, fault observers, merged dumps).
+
+Span recording is off unless ``RETH_TPU_TRACE`` is set truthy or
+``set_trace_enabled(True)`` ran; then ``span()`` costs one DEBUG log call.
+Events always land in the flight recorder.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import logging
+import os
+import tempfile
+import threading
+import time
+from collections import deque
+from pathlib import Path
+
+_FALSY = ("", "0", "false", "off", "no")
+
+
+def _env_enabled() -> bool:
+    return os.environ.get("RETH_TPU_TRACE", "").lower() not in _FALSY
+
+
+_TRACE_ON = _env_enabled()
+_tls = threading.local()
+_span_ids = itertools.count(1)
+
+# span ids carry this process's pid in their high bits, as in the
+# reference, so ids from several processes never collide
+_SPAN_PID_SHIFT = 40
+_SPAN_PID_BITS = os.getpid() & 0x3FFFFF
+_ROLE = os.environ.get("RETH_TPU_ROLE", "") or "node"
+
+
+def _new_span_id() -> int:
+    return (_SPAN_PID_BITS << _SPAN_PID_SHIFT) | next(_span_ids)
+
+
+def tracer(target: str) -> logging.Logger:
+    """Logger for a target (``trie::sparse`` style)."""
+    return logging.getLogger(f"reth_tpu_torch.{target}")
+
+
+class TraceContext:
+    """A propagated trace position: ``trace_id`` (block hash hex for block
+    lifecycles) + the current span id (None at the trace root)."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id: str | None, span_id: int | None = None):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"TraceContext({self.trace_id!r}, span={self.span_id})"
+
+
+def set_trace_enabled(on: bool) -> None:
+    """Master switch for span recording (``RETH_TPU_TRACE``)."""
+    global _TRACE_ON
+    _TRACE_ON = bool(on)
+
+
+def trace_enabled() -> bool:
+    return _TRACE_ON
+
+
+def current_context() -> TraceContext | None:
+    """The calling thread's trace position (None outside any span, or with
+    tracing disabled). Capture it before handing work to a queue or pool;
+    the consumer adopts it with :func:`use_context`."""
+    return getattr(_tls, "ctx", None)
+
+
+@contextlib.contextmanager
+def use_context(ctx: TraceContext | None):
+    """Adopt a propagated context in a worker thread for the duration of
+    the block."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _tls.ctx = prev
+
+
+@contextlib.contextmanager
+def span(target: str, name: str, level: int = logging.DEBUG, **fields):
+    """Timed span: logs entry fields and duration; with tracing enabled it
+    joins the current thread's trace (parent/child ids) and records into
+    the flight recorder."""
+    log = tracer(target)
+    t0 = time.time()
+    parent = None
+    ctx = None
+    if _TRACE_ON:
+        parent = getattr(_tls, "ctx", None)
+        ctx = TraceContext(parent.trace_id if parent is not None else None, _new_span_id())
+        _tls.ctx = ctx
+    err = None
+    try:
+        yield ctx
+    except BaseException as e:
+        err = type(e).__name__
+        raise
+    finally:
+        dt = time.time() - t0
+        if ctx is not None:
+            _tls.ctx = parent
+        extra = " ".join(f"{k}={v}" for k, v in fields.items())
+        log.log(level, "%s %s took %.3fms", name, extra, dt * 1e3)
+        if ctx is not None:
+            _record({
+                "kind": "span", "target": target, "name": name,
+                "ts": t0, "dur_ms": round(dt * 1e3, 3),
+                "trace": ctx.trace_id, "span": ctx.span_id,
+                "parent": parent.span_id if parent is not None else None,
+                "thread": threading.current_thread().name,
+                "fields": fields, "error": err,
+            })
+
+
+def record_span(target: str, name: str, start: float, duration: float, *,
+                ctx: TraceContext | None = None, fields: dict | None = None,
+                error: str | None = None) -> None:
+    """Record an already-timed span under ``ctx``: the attribution path for
+    work done on another thread than the one that captured the context."""
+    if not _TRACE_ON:
+        return
+    _record({
+        "kind": "span", "target": target, "name": name,
+        "ts": start, "dur_ms": round(duration * 1e3, 3),
+        "trace": ctx.trace_id if ctx is not None else None,
+        "span": _new_span_id(),
+        "parent": ctx.span_id if ctx is not None else None,
+        "thread": threading.current_thread().name,
+        "fields": fields or {}, "error": error,
+    })
+
+
+def event(target: str, name: str, **fields) -> None:
+    """Instant event (a fault firing). Always lands in the flight
+    recorder."""
+    ctx = getattr(_tls, "ctx", None) if _TRACE_ON else None
+    _record({
+        "kind": "event", "target": target, "name": name,
+        "ts": time.time(), "dur_ms": 0.0,
+        "trace": ctx.trace_id if ctx is not None else None,
+        "span": None,
+        "parent": ctx.span_id if ctx is not None else None,
+        "thread": threading.current_thread().name,
+        "fields": fields, "error": None,
+    }, always=True)
+
+
+def _record(rec: dict, always: bool = False) -> None:
+    if _TRACE_ON or always:
+        _RECORDER.record(rec)
+
+
+# -- flight recorder ----------------------------------------------------------
+
+
+class FlightRecorder:
+    """Bounded ring of recent spans and events, snapshotted to JSONL when a
+    RETH_TPU_FAULT_* drill fires, or on demand. Dumps go to ``directory``,
+    else ``RETH_TPU_FLIGHT_DIR``, else ``reth_tpu_flight`` under the
+    process's temporary directory."""
+
+    def __init__(self, capacity: int = 4096, directory: str | Path | None = None):
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=capacity)
+        self.directory = directory
+        self.dumps: list[str] = []  # paths written, oldest first
+        self.recorded = 0
+
+    def record(self, rec: dict) -> None:
+        with self._lock:
+            self._buf.append(rec)
+            self.recorded += 1
+
+    def snapshot(self, n: int | None = None) -> list[dict]:
+        with self._lock:
+            out = list(self._buf)
+        return out[-n:] if n else out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+
+    def _dir(self) -> Path:
+        d = Path(self.directory or os.environ.get("RETH_TPU_FLIGHT_DIR")
+                 or Path(tempfile.gettempdir()) / "reth_tpu_flight")
+        d.mkdir(parents=True, exist_ok=True)
+        return d
+
+    def dump(self, reason: str, path: str | Path | None = None, *,
+             correlation_id: str | None = None,
+             window: tuple | list | None = None) -> str | None:
+        """Write the ring (oldest first) as JSONL: a header line
+        ``{"kind": "flight_snapshot", "reason", "ts", "records", "pid",
+        "role", "correlation_id", "window"}``, then one line per record;
+        ``window`` ([t0, t1] wall seconds) keeps the records of that period.
+        Returns the path, or None for an empty ring. Never raises: a
+        diagnostics failure must not fail the caller."""
+        try:
+            records = self.snapshot()
+            if window:
+                t0, t1 = float(window[0]), float(window[1])
+                records = [r for r in records if t0 - 1.0 <= r.get("ts", 0.0) <= t1 + 1.0]
+            if not records:
+                return None
+            if path is None:
+                safe = "".join(c if c.isalnum() or c in "-_" else "_" for c in reason)[:60]
+                path = self._dir() / f"flight-{safe}-{int(time.time() * 1e3)}-{os.getpid()}.jsonl"
+            path = Path(path)
+            with open(path, "w") as f:
+                f.write(json.dumps({
+                    "kind": "flight_snapshot", "reason": reason,
+                    "ts": time.time(), "records": len(records),
+                    "pid": os.getpid(), "role": _ROLE,
+                    "correlation_id": correlation_id,
+                    "window": list(window) if window else None}) + "\n")
+                for rec in records:
+                    f.write(json.dumps(rec, default=str) + "\n")
+            self.dumps.append(str(path))
+            return str(path)
+        except Exception:  # noqa: BLE001 — diagnostics only
+            return None
+
+
+_RECORDER = FlightRecorder()
+
+
+def flight_recorder() -> FlightRecorder:
+    return _RECORDER
+
+
+def flight_snapshot(n: int | None = None) -> list[dict]:
+    return _RECORDER.snapshot(n)
+
+
+def flight_dump(reason: str, path: str | Path | None = None, *,
+                correlation_id: str | None = None,
+                window: tuple | list | None = None) -> str | None:
+    """Snapshot the flight recorder to JSONL now."""
+    return _RECORDER.dump(reason, path, correlation_id=correlation_id, window=window)
+
+
+def load_flight_dump(path: str | Path) -> tuple[dict, list[dict]]:
+    """Parse a flight-recorder dump -> (header, records); a torn last line
+    (a process killed mid-write) is dropped."""
+    lines = Path(path).read_text().splitlines()
+    header = json.loads(lines[0])
+    records = []
+    for line in lines[1:]:
+        try:
+            records.append(json.loads(line))
+        except json.JSONDecodeError:
+            break
+    return header, records
+
+
+_corr_counter = itertools.count(1)
+# a fault's dump keeps the records of the CORRELATION_WINDOW_S before it
+CORRELATION_WINDOW_S = 30.0
+_fault_lock = threading.Lock()
+_fault_last_dump: dict[str, float] = {}
+FAULT_DUMP_INTERVAL_S = 5.0
+
+
+def new_correlation_id() -> str:
+    """Incident id stamped on a fault's dump: wall-ms + pid + a counter."""
+    return f"{int(time.time() * 1e3):x}-{os.getpid():x}-{next(_corr_counter):x}"
+
+
+def reset_fault_dump_limits() -> None:
+    """Forget the per-drill dump rate limits."""
+    with _fault_lock:
+        _fault_last_dump.clear()
+
+
+def fault_event(drill: str, target: str = "fault", **fields) -> str | None:
+    """A RETH_TPU_FAULT_* drill (or a real failure) fired: record the event
+    and snapshot the flight recorder, at most once per
+    ``FAULT_DUMP_INTERVAL_S`` per drill name. The dump carries a fresh
+    correlation id and the incident's window. Returns the dump's path when
+    one was written."""
+    event(target, drill, **fields)
+    now = time.monotonic()
+    with _fault_lock:
+        if now - _fault_last_dump.get(drill, 0.0) < FAULT_DUMP_INTERVAL_S:
+            return None
+        _fault_last_dump[drill] = now
+    wall = time.time()
+    return flight_dump(drill, correlation_id=new_correlation_id(),
+                       window=(wall - CORRELATION_WINDOW_S, wall + 5.0))

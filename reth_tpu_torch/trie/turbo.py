@@ -22,13 +22,16 @@ import ctypes
 import os
 import queue as queue_mod
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve
+from ..metrics import pipeline_metrics, trie_metrics
 from ..ops import _build
 from ..ops.fused_commit import MegaFusedEngine, SubtrieFusedEngine
 from ..primitives.keccak import RATE, keccak256, keccak256_words_masked_np
@@ -163,6 +166,8 @@ class _NumpyBackend:
     """CPU twin of the device engine (the JAX package's ``_NumpyBackend``):
     the same array protocol as ``FusedLevelEngine``, with digests in a host
     buffer. It runs only when the caller asks for ``backend="numpy"``."""
+
+    effective_kind = "numpy"
 
     def __init__(self, arena: DigestArena | None = None):
         self._arena = arena
@@ -352,10 +357,10 @@ class _SweepResult:
 
     __slots__ = ("job_ids", "key_arrays", "levels", "root_slots",
                  "root_inlines", "meta_rec", "max_slot", "n_levels",
-                 "hashed_nodes")
+                 "wire_bytes", "hashed_nodes", "sweep_s")
 
     def __init__(self, job_ids, key_arrays, levels, root_slots, root_inlines,
-                 meta_rec, max_slot):
+                 meta_rec, max_slot, wire_bytes, sweep_s):
         self.job_ids = job_ids
         self.key_arrays = key_arrays
         self.levels = levels
@@ -364,12 +369,21 @@ class _SweepResult:
         self.meta_rec = meta_rec
         self.max_slot = max_slot
         self.n_levels = len(levels)
+        self.wire_bytes = wire_bytes
         self.hashed_nodes = sum(len(lv.row_slot) + len(lv.masks) for lv in levels)
+        self.sweep_s = sweep_s
+
+
+def _wire_bytes(lv) -> int:
+    """Bytes of one swept level's arrays, as the reference counts them."""
+    return (lv.flat.nbytes + lv.row_off.nbytes + lv.row_len.nbytes + lv.masks.nbytes
+            + lv.children.nbytes)
 
 
 def _sweep_group(lib, jobs, job_ids, collect_branches, start_depth) -> _SweepResult:
     """Producer body: native sweep of one job group (the ctypes call
     releases the GIL, so groups sweep concurrently) + array extraction."""
+    t0 = time.perf_counter()
     h, key_arrays = _marshal_and_build(lib, jobs, collect_branches, start_depth)
     try:
         n_levels = lib.rtb_num_levels(h)
@@ -394,7 +408,8 @@ def _sweep_group(lib, jobs, job_ids, collect_branches, start_depth) -> _SweepRes
     finally:
         lib.rtb_free(h)
     return _SweepResult(job_ids, key_arrays, levels, root_slots, root_inlines,
-                        meta_rec, max_slot)
+                        meta_rec, max_slot, sum(map(_wire_bytes, levels)),
+                        time.perf_counter() - t0)
 
 
 class _MergedLevel:
@@ -512,7 +527,13 @@ class RebuildPipeline:
 
     A knob left unset (None or 0) is read from the environment as in the
     reference: ``RETH_TPU_PIPELINE_SWEEPERS``, ``RETH_TPU_PIPELINE_HASHERS``,
-    ``RETH_TPU_PIPELINE_WINDOW``, ``RETH_TPU_PIPELINE_SWEEP_LEAVES``."""
+    ``RETH_TPU_PIPELINE_WINDOW``, ``RETH_TPU_PIPELINE_SWEEP_LEAVES``.
+
+    A run reports as the reference's does: ``windows``, ``queue_peak`` and
+    ``wire_bytes`` here, the stage times {sweep, pack, dispatch, fetch}
+    through ``metrics.pipeline_metrics.record_run`` (``.last``), and the
+    ``trie::pipeline`` spans ``rebuild`` and ``rebuild.window``. ``sweep``
+    sums the sweep threads' own times, so it can exceed the wall."""
 
     def __init__(self, backend, lib=None, *, sweep_workers=None, hash_workers=1,
                  pack_window=None, queue_depth=None, leaves_per_sweep=None,
@@ -528,26 +549,41 @@ class RebuildPipeline:
         self.leaves_per_sweep = int(leaves_per_sweep
                                     or env.get("RETH_TPU_PIPELINE_SWEEP_LEAVES", 0) or 32768)
         self.jobs_per_sweep = int(jobs_per_sweep or 64)
+        self.windows = 0
+        self.queue_peak = 0
+        self.wire_bytes = 0
 
     def run(self, jobs, collect_branches: bool = False, start_depth: int = 0):
         if not jobs:
             return []
+        t_wall = time.perf_counter()
+        met = pipeline_metrics
         groups = _group_jobs(jobs, self.leaves_per_sweep, self.jobs_per_sweep)
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.queue_depth)
         stop = threading.Event()
+        busy = [0]
+        busy_lock = threading.Lock()
         lib, backend = self.lib, self.backend
 
         def task(lo: int, hi: int):
             if stop.is_set():
                 return
+            with busy_lock:
+                busy[0] += 1
+                met.set_pool_busy(busy[0])
             try:
                 out = _sweep_group(lib, jobs[lo:hi], range(lo, hi),
                                    collect_branches, start_depth)
             except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
                 out = e
+            finally:
+                with busy_lock:
+                    busy[0] -= 1
+                    met.set_pool_busy(busy[0])
             while not stop.is_set():
                 try:
                     q.put(out, timeout=0.05)
+                    met.set_queue_depth(q.qsize())
                     return
                 except queue_mod.Full:
                     continue
@@ -557,13 +593,16 @@ class RebuildPipeline:
         hash_pool = (ThreadPoolExecutor(max_workers=self.hash_workers,
                                         thread_name_prefix="trie-hash")
                      if self.hash_workers > 1 else None)
+        stages = {"sweep": 0.0, "pack": 0.0, "dispatch": 0.0, "fetch": 0.0}
         results: list = [None] * len(jobs)
         swept: list[tuple[int, _SweepResult]] = []  # (slot_base, sweep)
         pending: list = []
         next_slot = [1]
         ensured = [0]
+        trace_ctx = tracing.current_context()
 
         def flush(window: list[_SweepResult]) -> None:
+            t0 = time.perf_counter()
             parts = []
             for sw in window:
                 base = next_slot[0] - 1  # group slot s -> shared slot base+s
@@ -571,6 +610,7 @@ class RebuildPipeline:
                 parts.append((base, sw))
                 swept.append((base, sw))
             merged = _pack_window(parts)
+            stages["pack"] += time.perf_counter() - t0
             hwm = next_slot[0] - 1
             if hwm > ensured[0]:
                 for f in pending:
@@ -581,16 +621,26 @@ class RebuildPipeline:
                 ensured[0] = want
 
             def dispatch():
+                t1 = time.perf_counter()
+                t1_wall = time.time()
                 for m in merged:
                     backend.dispatch_packed(m.flat, m.row_off, m.row_len,
                                             m.row_slot, m.holes, m.b_tier)
                     backend.dispatch_branch(m.masks, m.bmp_slot, m.children)
                 backend.flush_window()
+                dt = time.perf_counter() - t1
+                stages["dispatch"] += dt
+                # the window may run on the hash pool: attribute it to the
+                # rebuild's trace explicitly
+                tracing.record_span("trie::pipeline", "rebuild.window", t1_wall, dt,
+                                    ctx=trace_ctx,
+                                    fields={"levels": len(merged), "subtries": len(window)})
 
             if hash_pool is not None:
                 pending.append(hash_pool.submit(dispatch))
             else:
                 dispatch()
+            self.windows += 1
 
         try:
             backend.begin(0)
@@ -599,9 +649,13 @@ class RebuildPipeline:
             remaining = len(groups)
             while remaining:
                 sw = q.get()
+                self.queue_peak = max(self.queue_peak, q.qsize() + 1)
+                met.set_queue_depth(q.qsize())
                 if isinstance(sw, BaseException):
                     raise sw
                 remaining -= 1
+                stages["sweep"] += sw.sweep_s
+                self.wire_bytes += sw.wire_bytes
                 window = [sw]
                 # fill the window with whatever has already been swept —
                 # never wait: overlap beats packing width
@@ -613,12 +667,14 @@ class RebuildPipeline:
                     if isinstance(sw2, BaseException):
                         raise sw2
                     remaining -= 1
+                    stages["sweep"] += sw2.sweep_s
+                    self.wire_bytes += sw2.wire_bytes
                     window.append(sw2)
                 flush(window)
             for f in pending:
                 f.result()
             del pending[:]
-            return self._collect(swept, results, collect_branches, start_depth)
+            return self._collect(swept, results, collect_branches, start_depth, stages)
         finally:
             stop.set()
             pool.shutdown(wait=True)
@@ -629,8 +685,19 @@ class RebuildPipeline:
                     q.get_nowait()
                 except queue_mod.Empty:
                     break
+            met.set_queue_depth(0)
+            wall_s = time.perf_counter() - t_wall
+            met.record_run(jobs=len(jobs), groups=len(groups), windows=self.windows,
+                           queue_peak=self.queue_peak, drained_windows=0,
+                           backend=getattr(backend, "effective_kind", None),
+                           wall_s=wall_s, **stages)
+            tracing.record_span("trie::pipeline", "rebuild", time.time() - wall_s, wall_s,
+                                ctx=trace_ctx,
+                                fields={"jobs": len(jobs), "windows": self.windows,
+                                        **{k: round(v, 4) for k, v in stages.items()}})
 
-    def _collect(self, swept, results, collect_branches, start_depth):
+    def _collect(self, swept, results, collect_branches, start_depth, stages):
+        t0 = time.perf_counter()
         backend = self.backend
         if collect_branches:
             digests = backend.finish()
@@ -666,6 +733,7 @@ class RebuildPipeline:
                 _collect_meta_records(sw.meta_rec, sw.key_arrays, job_starts,
                                       digests, group_results, start_depth,
                                       slot_base=base)
+        stages["fetch"] += time.perf_counter() - t0
         return results
 
 
@@ -754,21 +822,31 @@ class TurboCommitter:
         if self.backend_kind == "device" and int(knobs.get("hash_workers", 1)) > 1:
             raise ValueError("hash_workers > 1 is for the numpy backend: the device "
                              "engine launches on one stream into one buffer")
-        pipe = RebuildPipeline(self._make_backend(), self._lib, **knobs)
-        return pipe.run(jobs, collect_branches, start_depth)
+        t_start = time.time()
+        backend = self._make_backend()
+        pipe = RebuildPipeline(backend, self._lib, **knobs)
+        results = pipe.run(jobs, collect_branches, start_depth)
+        trie_metrics.record_commit(
+            backend=backend.effective_kind, nodes=results[-1].hashed_nodes,
+            levels=max(r.levels for r in results), leaves=sum(len(j[1]) for j in jobs),
+            wire_bytes=pipe.wire_bytes, seconds=time.time() - t_start)
+        return results
 
     def _run(self, lib, h, n_jobs, key_arrays, collect_branches, start_depth=0):
+        t_start = time.time()
         backend = self._make_backend()
         max_slot = lib.rtb_max_slot(h)
         backend.begin(max_slot)
         n_levels = lib.rtb_num_levels(h)
         total_hashed = 0
+        wire_bytes = 0
         for i in range(n_levels):
             lv = _Level(lib, h, i)
             backend.dispatch_packed(lv.flat, lv.row_off, lv.row_len, lv.row_slot,
                                     lv.holes, lv.b_tier)
             backend.dispatch_branch(lv.masks, lv.bmp_slot, lv.children)
             total_hashed += len(lv.row_slot) + len(lv.masks)
+            wire_bytes += _wire_bytes(lv)
         root_slots = np.zeros((n_jobs,), dtype=np.int32)
         lib.rtb_roots(h, _ptr(root_slots, _i32p))
         meta_rec = None
@@ -798,6 +876,10 @@ class TurboCommitter:
         if results:
             # the shared hash count is attributed to the batch
             results[-1].hashed_nodes = total_hashed
+        trie_metrics.record_commit(
+            backend=backend.effective_kind, nodes=total_hashed, levels=n_levels,
+            leaves=sum(len(k) for k in key_arrays), wire_bytes=wire_bytes,
+            seconds=time.time() - t_start)
         if collect_branches and meta_rec is not None and len(meta_rec):
             job_starts = np.cumsum([0] + [len(k) for k in key_arrays])
             _collect_meta_records(meta_rec, key_arrays, job_starts, digests,

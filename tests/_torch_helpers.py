@@ -390,3 +390,45 @@ def template_buffer(rng) -> np.ndarray:
     buf = np.zeros((TEMPLATE_BUF_ROWS, 32), dtype=np.uint8)
     buf[1:TEMPLATE_SRC] = rng.integers(0, 256, size=(TEMPLATE_SRC - 1, 32), dtype=np.uint8)
     return buf
+
+
+# -- sparse live-tip states (trie/sparse.py) ------------------------------------
+
+
+def sparse_state(mod, seed: int, tries: int = 10, slots: int = 24):
+    """A fully revealed, not yet hashed ``mod.SparseStateTrie`` (``mod`` is
+    either package's ``trie.sparse``): ``tries`` storage tries of ``slots``
+    random slots (the first deleted again) and their account leaves.
+    Returns (state, owners, slot keys by owner)."""
+    rng = np.random.default_rng(seed)
+    st = mod.SparseStateTrie()
+    owners, slot_keys = [], {}
+    for _ in range(tries):
+        ha = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+        owners.append(ha)
+        t = st.storage_trie(ha)
+        keys = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(slots)]
+        slot_keys[ha] = keys
+        for k in keys:
+            t.update(k, bytes(rng.integers(1, 256, 8, dtype=np.uint8)))
+        t.delete(keys[0])
+        st.update_account(ha, b"account-leaf-" + ha)
+    return st, owners, slot_keys
+
+
+def sparse_block(st, owners, slot_keys, seed: int, dirty: int = 4, wipe_every: int = 4) -> None:
+    """One block's dirty set on ``st``: ``dirty`` writes to random slots and
+    one delete per storage trie, every ``wipe_every``-th trie wiped, a new
+    slot in a few, and every account leaf rewritten."""
+    rng = np.random.default_rng(seed)
+    for i, ha in enumerate(owners):
+        keys = slot_keys[ha]
+        if i % wipe_every == wipe_every - 1:
+            st.storage_tries[ha] = type(st.account_trie)()
+        t = st.storage_trie(ha)
+        for j in rng.integers(0, len(keys), size=dirty):
+            t.update(keys[int(j)], bytes(rng.integers(1, 256, 8, dtype=np.uint8)))
+        t.delete(keys[int(rng.integers(0, len(keys)))])
+        if i % 3 == 0:
+            t.update(bytes(rng.integers(0, 256, 32, dtype=np.uint8)), b"\x07\x08")
+        st.update_account(ha, bytes(rng.integers(1, 256, 40, dtype=np.uint8)))

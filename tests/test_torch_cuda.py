@@ -13,13 +13,14 @@ import torch
 
 from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, edge_chain, edge_digest_buffer,
                             edge_level, level_kernel_args, prefix_jobs, require_card,
-                            staged_chunks, template_bucket, template_buffer, template_levels,
-                            threshold_chain)
+                            sparse_block, sparse_state, staged_chunks, template_bucket,
+                            template_buffer, template_levels, threshold_chain)
 from reth_tpu_torch import convert
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
 from reth_tpu_torch.primitives.types import Account
+from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie import turbo as tturbo
 from reth_tpu_torch.trie.committer import TrieCommitter
@@ -293,3 +294,31 @@ def test_state_root_on_card_matches_cpu():
             assert tk.keccak256_words_masked.launches > k1 and fc.packed_level.launches > k2
     assert out["cuda"][0] == out["cpu"][0]
     assert out["cuda"][1]["branch_nodes"] == out["cpu"][1]["branch_nodes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 8])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_sparse_finish_on_card_matches_cpu(seed, k):
+    """The live-tip finish on the card, classic (k=0: keccak256_absorb
+    through KeccakDevice) and fused (k=8: subtrie_levels), against the same
+    commits on device="cpu": the same roots over a baseline and two blocks,
+    and the same stored branch updates of the account trie."""
+    require_card()
+    out = {}
+    for device in ("cpu", "cuda"):
+        st, owners, keys = sparse_state(tsp, seed, tries=40, slots=32)
+        c = tsp.ParallelSparseCommitter(subtrie_levels=k, device=device)
+        k1, k4 = tk.keccak256_words_masked.launches, fc.subtrie_levels.launches
+        roots = [st.root(committer=c)]
+        stored = {}
+        for block in range(2):
+            sparse_block(st, owners, keys, seed=seed * 10 + block)
+            roots.append(st.root(committer=c))
+            stored[block] = tsp.export_branch_updates(st.account_trie, owners)
+        if device == "cuda":
+            launched = (tk.keccak256_words_masked.launches - k1, fc.subtrie_levels.launches - k4)
+            assert (launched[0] > 0, launched[1] > 0) == (k == 0, k == 8), launched
+        out[device] = roots, stored
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1] == out["cpu"][1]

@@ -18,6 +18,7 @@ from reth_tpu_torch import convert
 from reth_tpu_torch.device import resolve
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
+from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie.committer import TrieCommitter
 from reth_tpu_torch.trie.turbo import TurboCommitter
@@ -45,7 +46,8 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
     assert res["leaked"] == []
     for mod in ("reth_tpu_torch.ops.keccak", "reth_tpu_torch.ops.fused_commit",
                 "reth_tpu_torch.trie.turbo", "reth_tpu_torch.trie.state_root",
-                "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types"):
+                "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types",
+                "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing"):
         assert mod in res["modules"]
 
 
@@ -63,6 +65,8 @@ def test_sources_name_no_jax_import():
     fc.SubtrieFusedEngine.__init__, TrieCommitter.__init__,
     TurboCommitter.__init__, tsr.state_root, tsr.storage_root, tsr.ordered_trie_root,
     convert.jobs_to_device, convert.digest_buffer_from_numpy,
+    tsp.ParallelSparseCommitter.__init__, tsp.SparseTrie.root_hash_compute,
+    tsp.SparseStateTrie.root, tsp.device_hasher,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -79,5 +83,7 @@ def test_cuda_without_a_card_raises():
         TurboCommitter()
     with pytest.raises(RuntimeError):
         TrieCommitter()
+    with pytest.raises(RuntimeError):
+        tsp.ParallelSparseCommitter()
     with pytest.raises(ValueError):
         resolve("meta")
