@@ -27,17 +27,33 @@
    a wide one). One keccak-f[1600] is then timed in isolation by one
    thread and by a five-lane group (a debug entry of fused_level.cu), the
    two final states held equal.
-3. Slice phase, five main paths, the launch counters zeroed just before
-   each and read just after: "default", the full-state rebuild through
+   Before the kernel checks, the device supervisor's startup (the
+   reference's --hasher auto): a DeviceSupervisor runs its real probe, a
+   child process that loads kernel 1 and hashes keccak256(b"") on the card;
+   the run fails unless it is ok and the breaker closed. Its latency is
+   logged.
+3. Slice phase, eight main paths, the launch counters zeroed just before
+   each and read just after (and every watchdog thread joined first):
+   "default", the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
    trie as 256 two-nibble prefix subtries at start_depth=2, both collecting
    branch nodes) on the default engine, MegaFusedEngine; "k=8", the same
    rebuild through TurboCommitter(subtrie_levels=8), SubtrieFusedEngine;
+   "auto" and "auto k=8", the same two rebuilds through
+   TurboCommitter(backend="auto", supervisor=...) (SupervisedBackend: every
+   engine call under the watchdog, journaled); "state_root auto", the
+   state_root() below through TrieCommitter(supervisor=...) (SupervisedHasher
+   over KeccakDevice: kernel 1 only). The supervised paths must end with 0
+   failovers, 0 watchdog timeouts, 0 errors, 0 k-level fallbacks, a closed
+   breaker, every commit hashed by the device (k=8: on the fused rung); their
+   walls are logged beside their unsupervised twins' (state_root auto's twin
+   runs outside the main paths), with the guarded calls (watchdog threads
+   started) and the journal's entries and bytes at its peak per commit;
    "state_root", a whole-state state_root() through TrieCommitter(fused=True,
    hasher=KeccakDevice(...)), held against the per-level numpy committer,
    whose key hashing launches keccak256_absorb and whose template levels
    launch packed_level (kernel 1 may be launched by KeccakDevice only).
-   Both rebuilds' roots and branch nodes are held against one
+   Every rebuild's roots and branch nodes are held against one
    backend="numpy" rebuild, and each rebuild commit's pipeline stage times
    (sweep, pack, dispatch, fetch), windows and queue peak are logged. Then
    the sparse live-tip finish on bench.py's sparse generator (1,024
@@ -93,6 +109,21 @@
    step's ms and one_thread_ms are measured; its floor_bound_ms is the
    step's one-warp floor, computed from this run's inputs like the chunk's,
    not measured.
+6. Drills of the supervised route, at a fixed cut size (DRILL_ACCOUNTS /
+   DRILL_SLOTS, the storage tries' commit), each checking the rung it
+   expects and holding its roots against the numpy twin's, every watchdog
+   thread joined after it: a) a wedge mid-commit on "auto" and "auto k=8"
+   (one failover, the numpy twin); b) a wedge at exactly the terminal
+   finish of a serial commit (the staging engine meets the card only
+   there); c) a delay above a 0.1 s watchdog budget (a real timeout);
+   d) RETH_TPU_FAULT_SUBTRIE_WEDGE (the per-level rung, launched on the
+   card) and _ABORT (the numpy rung) at k=8; e) the breaker forced open
+   (routed to numpy, no failover, no launch), then after its cooldown the
+   real half-open probe closes it and the next commit launches; f)
+   RETH_TPU_FAULT_PIPELINE_ABORT (the rebuild raises, no sweeper thread
+   survives, the next commit is right); g) probe_fail=-1 (startup returns
+   False, the breaker opens); h) TrieCommitter(fused=True, supervisor=...)
+   with one wedge. Each drill's rung, wall and launches are logged.
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; before it, the card's name and power limit
@@ -108,6 +139,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -618,13 +650,22 @@ def kernel_checks(args, account_jobs, bound: Bound) -> dict:
 
 KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 # the main paths, each driven with the launch counts zeroed just before it:
-# the rebuild on either engine, state_root() on the general committer, then
-# the sparse live-tip finish, classic and fused
-PATHS = ("default", "k=8", "state_root", "sparse", "sparse k=8")
+# the rebuild on either engine, then the same two under the device
+# supervisor (backend="auto", the reference's --hasher auto), state_root() on
+# the general committer, fused and then supervised (SupervisedHasher over
+# KeccakDevice), then the sparse live-tip finish, classic and fused
+PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", "sparse",
+         "sparse k=8")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
+                "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
                 "state_root": ("keccak256_absorb", "packed_level"),
+                "state_root auto": ("keccak256_absorb",),
                 "sparse": ("keccak256_absorb",), "sparse k=8": ("subtrie_levels",)}
+# the rebuild paths and their unsupervised twins
+AUTO_TWIN = {"auto": "default", "auto k=8": "k=8"}
+# the drills' state: bench.py's generator at a fixed cut size (no flag)
+DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 # the rows that time a kernel at another main path's launches: row -> kernel
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
               "sparse_subtrie": "subtrie_levels"}
@@ -928,8 +969,8 @@ def track_engines(committer, factory: str = "_make_backend") -> list:
     made = []
     make = getattr(committer, factory)
 
-    def tracked():
-        made.append(make())
+    def tracked(*args, **kwargs):
+        made.append(make(*args, **kwargs))
         return made[-1]
 
     setattr(committer, factory, tracked)
@@ -1082,14 +1123,56 @@ class SparseCell:
         return out
 
 
-def slice_phase(args, storage_jobs, account_jobs):
-    """The three main paths (``PATHS``), each with the launch counts zeroed
-    just before it and read just after. Returns the launch counts of each
+def join_supervised(timeout: float = 120.0) -> int:
+    """Join every watchdog worker thread (``supervised-*``): one the watchdog
+    abandoned may still call into a dropped engine and launch on the card,
+    so no launch counter is read, and the script does not exit, while one
+    runs. Returns how many were found; raises if one outlives ``timeout``."""
+    found = [t for t in threading.enumerate() if t.name.startswith("supervised-")]
+    for t in found:
+        t.join(timeout)
+    alive = [t.name for t in found if t.is_alive()]
+    if alive:
+        raise AssertionError(f"watchdog threads still running after {timeout} s: {alive}")
+    return len(found)
+
+
+def journal_size(backend) -> tuple[int, int]:
+    """A SupervisedBackend's journal: (entries, bytes of the host arrays it
+    holds). It only grows until the commit's terminal call and is kept
+    until the next begin, so after a commit this is its peak."""
+    arrays = [a for _, args in backend._journal for a in args if isinstance(a, np.ndarray)]
+    return len(backend._journal), sum(a.nbytes for a in arrays)
+
+
+def supervisor_startup():
+    """The --hasher auto startup: a DeviceSupervisor (default budgets and
+    breaker, its own registry) runs its real probe, a child process that
+    loads kernel 1 and hashes keccak256(b"") on the card. Fails unless the
+    probe is ok and the breaker closed."""
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops.supervisor import DeviceSupervisor
+
+    sup = DeviceSupervisor(registry=MetricsRegistry())
+    ok = sup.startup()
+    if not ok or sup.breaker.state != "closed":
+        raise AssertionError(f"startup probe failed: {sup.last_probe.diag}; breaker "
+                             f"{sup.breaker.state}")
+    log(f"supervisor startup: probe ok in {sup.last_probe.latency:.3f} s (a child process: "
+        f"torch import, CUDA context, kernel 1 loaded, keccak256(b'') on the card), breaker "
+        f"{sup.breaker.state}, dispatch budget {sup.dispatch_budget} s")
+    return sup
+
+
+def slice_phase(args, storage_jobs, account_jobs, sup):
+    """The main paths (``PATHS``), each with the launch counts zeroed just
+    before it and read just after; the supervised ones ("auto", "auto k=8",
+    "state_root auto") through ``sup``. Returns the launch counts of each
     and the recorder holding each launch's arguments."""
     import torch
 
     from reth_tpu_torch.convert import jobs_to_device
-    from reth_tpu_torch.metrics import pipeline_metrics
+    from reth_tpu_torch.metrics import fused_metrics, pipeline_metrics
     from reth_tpu_torch.ops import fused_commit as fc
     from reth_tpu_torch.ops.keccak import KeccakDevice, keccak256_words_masked
     from reth_tpu_torch.primitives.keccak import keccak256_batch_np
@@ -1104,33 +1187,47 @@ def slice_phase(args, storage_jobs, account_jobs):
         f"({sum(len(j[1]) for j in storage_jobs)} storage slots in {len(storage_jobs)} tries, "
         f"{sum(len(j[1]) for j in account_jobs)} accounts in {len(account_jobs)} prefix subtries)")
 
+    reports: dict[str, list[dict]] = {}
+
     def rebuild(committer, label=None):
         """The rebuild's two commits; with a label, each commit's pipeline
-        report (stage times, windows, queue peak) is logged."""
-        res = committer.commit_hashed_pipelined(storage_jobs, collect_branches=True)
-        stages = [dict(pipeline_metrics.last)]
-        res += committer.commit_hashed_pipelined(account_jobs, collect_branches=True,
-                                                 start_depth=2)
-        stages.append(dict(pipeline_metrics.last))
+        report (stage times, windows, queue peak, the backend that hashed
+        it, and the k-level engine's rung) is logged and kept."""
+        stages = []
+        res = []
+        for jobs, depth in ((storage_jobs, 0), (account_jobs, 2)):
+            fused_metrics.last = None
+            res += committer.commit_hashed_pipelined(jobs, collect_branches=True,
+                                                     start_depth=depth)
+            stages.append(dict(pipeline_metrics.last,
+                               mode=(fused_metrics.last or {}).get("mode")))
         if label:
+            reports[label] = stages
             for what, st in zip(("storage tries", "account trie"), stages):
                 log(f"rebuild stages, {label}, {what}: wall {st['wall_s']} s = sweep "
                     f"{st['sweep_s']} (summed over the sweep threads) / pack {st['pack_s']} / "
                     f"dispatch {st['dispatch_s']} / fetch {st['fetch_s']} s; {st['windows']} "
-                    f"windows of {st['groups']} sweep groups, queue peak {st['queue_peak']}")
+                    f"windows of {st['groups']} sweep groups, queue peak {st['queue_peak']}; "
+                    f"hashed by {st['backend']}, k-level rung {st['mode']}")
         return res
 
     accounts, storages = plain_state(args.state_accounts, args.state_slots, args.seed + 1)
     committers = {"default": TurboCommitter(backend="device", device="cuda"),
-                  "k=8": TurboCommitter(backend="device", device="cuda", subtrie_levels=8)}
-    engines = {name: track_engines(c) for name, c in committers.items()}
+                  "k=8": TurboCommitter(backend="device", device="cuda", subtrie_levels=8),
+                  "auto": TurboCommitter(backend="auto", device="cuda", supervisor=sup),
+                  "auto k=8": TurboCommitter(backend="auto", device="cuda", supervisor=sup,
+                                             subtrie_levels=8)}
+    engines = {name: track_engines(c, "_device_engine") for name, c in committers.items()}
+    backends = {name: track_engines(committers[name]) for name in AUTO_TWIN}
     fused = TrieCommitter(fused=True, device="cuda",
                           hasher=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch)
+    sr_auto = TrieCommitter(supervisor=sup, device="cuda")
     wrappers = {"keccak256_absorb": keccak256_words_masked, "packed_level": fc.packed_level,
                 "branch_level": fc.branch_level, "subtrie_levels": fc.subtrie_levels}
 
     recorder = MainPathRecorder()
-    launches, got, walls = {}, {}, {}
+    launches, got, walls, guarded = {}, {}, {}, {}
+    fallbacks = fused_metrics._fallbacks.value
     cell = SparseCell()
     cell.baseline()
     sparse_walls: dict[str, list] = {}
@@ -1140,11 +1237,14 @@ def slice_phase(args, storage_jobs, account_jobs):
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.synchronize()
+        g0 = sup.guarded_calls
         t0 = time.perf_counter()
         out = drive()
         torch.cuda.synchronize()
         walls[path] = time.perf_counter() - t0
+        join_supervised()
         launches[path] = {k: fn.launches for k, fn in wrappers.items()}
+        guarded[path] = sup.guarded_calls - g0
         log(f"main path {path}: launches {json.dumps(launches[path])}")
         return out
 
@@ -1153,10 +1253,20 @@ def slice_phase(args, storage_jobs, account_jobs):
             got[name] = run_path(name, lambda: rebuild(committer, f"{name} engine"))
         root_dev, det_dev = run_path("state_root",
                                      lambda: state_root(accounts, storages, committer=fused))
+        root_auto, det_auto = run_path("state_root auto",
+                                       lambda: state_root(accounts, storages, committer=sr_auto))
         n_engines = len(cell.engines)
         sparse_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
                        for name in ("sparse", "sparse k=8")}
     wall_sr = walls.pop("state_root")
+    wall_sr_auto = walls.pop("state_root auto")
+    # state_root auto's unsupervised twin (KeccakDevice without the
+    # supervisor), outside the main paths: its launches are not counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root_plain, _ = state_root(accounts, storages, committer=TrieCommitter(device="cuda"))
+    torch.cuda.synchronize()
+    wall_sr_plain = time.perf_counter() - t0
     for _ in range(SPARSE_BLOCKS):
         cell.block("twin")
     cell.check(f"{SPARSE_BLOCKS} blocks")
@@ -1173,8 +1283,33 @@ def slice_phase(args, storage_jobs, account_jobs):
             f"{len(w)} blocks ({', '.join(f'{x:.4f}' for x in sparse_walls[name])}), "
             f"hashed nodes {hashed}, launches {json.dumps(launches[name])}, {copies}")
     summaries = {name: engine_summary(made) for name, made in engines.items()}
+    ladders = {name: {e.ladder for e in engines[name]} for name in ("k=8", "auto k=8")}
+    if ladders != {"k=8": {False}, "auto k=8": {True}}:
+        raise AssertionError(f"the k-level ladder is armed off the supervised route, or not "
+                             f"on it: {ladders}")
     for made in engines.values():
         del made[:]
+    for name, twin in AUTO_TWIN.items():
+        sizes = [journal_size(b) for b in backends[name]]
+        log(f"supervision cost, {name}: {walls[name]:.3f} s wall against {walls[twin]:.3f} s "
+            f"for {twin} (unsupervised, same run); {guarded[name]} guarded calls (watchdog "
+            f"threads started); journal at its peak per commit (storage tries, account trie): "
+            + ", ".join(f"{n} entries holding {b} B" for n, b in sizes))
+        for st in reports[f"{name} engine"]:
+            if st["backend"] != "device" or (name == "auto k=8" and st["mode"] != "fused"):
+                raise AssertionError(f"main path {name} left the device route: {st}")
+        del backends[name][:]
+    log(f"supervision cost, state_root auto: {wall_sr_auto:.3f} s wall against "
+        f"{wall_sr_plain:.3f} s for the same committer without the supervisor (same run, "
+        f"outside the main paths); {guarded['state_root auto']} guarded calls")
+    snap = sup.snapshot()
+    if (snap["failovers"], snap["dispatch_timeouts"], snap["dispatch_errors"], snap["breaker"],
+            fused_metrics._fallbacks.value - fallbacks) != (0, 0, 0, "closed", 0):
+        raise AssertionError(f"a failover, timeout, error or fallback on the main paths, which "
+                             f"armed no fault: {snap}, k-level fallbacks "
+                             f"{fused_metrics._fallbacks.value - fallbacks}")
+    log(f"supervised main paths: breaker {snap['breaker']}, 0 failovers, 0 watchdog timeouts, "
+        f"0 errors, 0 k-level fallbacks; every commit hashed on the device route")
 
     t0 = time.perf_counter()
     want = rebuild(TurboCommitter(backend="numpy"))
@@ -1202,6 +1337,11 @@ def slice_phase(args, storage_jobs, account_jobs):
     log(f"state_root ({len(accounts)} accounts, {sum(len(s) for s in storages.values())} slots): "
         f"fused on the card {wall_sr:.3f} s, per-level numpy {wall_sr_np:.3f} s, "
         f"root {root_dev.hex()} equal")
+    if root_auto != root_np or det_auto["branch_nodes"] != det_np["branch_nodes"] \
+            or det_auto["storage_roots"] != det_np["storage_roots"] or root_plain != root_np:
+        raise AssertionError("state_root differs between the supervised card committer and numpy")
+    log(f"state_root auto (TrieCommitter(supervisor=...), kernel 1 through SupervisedHasher): "
+        f"{wall_sr_auto:.3f} s, root, branch nodes and storage roots equal numpy's")
     for path, kernels in PATH_KERNELS.items():
         for name in KERNELS:
             if (launches[path][name] > 0) != (name in kernels):
@@ -1220,8 +1360,8 @@ def slice_phase(args, storage_jobs, account_jobs):
                              f"only {KECCAK_DEVICE} launches it")
     log(f"keccak256_absorb launched only by {KECCAK_DEVICE}; state_root's template levels "
         f"went through packed_level ({launches['state_root']['packed_level']} launches)")
-    for name, committer in committers.items():
-        profile_path(f"rebuild, {name} engine", lambda: rebuild(committer))
+    for name in ("default", "k=8"):
+        profile_path(f"rebuild, {name} engine", lambda: rebuild(committers[name]))
     profile_path("state_root", lambda: state_root(accounts, storages, committer=fused))
     for name in ("sparse", "sparse k=8"):
         profile_path(f"sparse finish, {name}", lambda: cell.close(name),
@@ -1231,6 +1371,219 @@ def slice_phase(args, storage_jobs, account_jobs):
         cell.block("twin")
     cell.check("with the profiled blocks")
     return launches, recorder
+
+
+def drills(device: str = "cuda", probe_fn=None, seed: int = 49) -> list[dict]:
+    """The supervised route's fault drills, after the main paths, on
+    bench.py's generator at DRILL_ACCOUNTS / DRILL_SLOTS (the storage
+    tries' commit; h: a trie of account leaves). Each arms one fault, checks
+    the rung it expects and its counters, holds its roots and branch nodes
+    against the numpy twin's, and joins every watchdog thread before its
+    launches are read. ``device`` and ``probe_fn`` exist for a rehearsal on
+    the CPU (device="cpu", a stand-in probe); the smoke runs them on the
+    card with the real probe. Returns one record per drill."""
+    import torch
+
+    from reth_tpu_torch.metrics import MetricsRegistry, fused_metrics, pipeline_metrics, trie_metrics
+    from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops import keccak as ok
+    from reth_tpu_torch.ops.supervisor import (CircuitBreaker, DeviceSupervisor, FaultInjector,
+                                               InjectedPipelineAbort)
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.primitives.nibbles import unpack_nibbles
+    from reth_tpu_torch.trie.committer import TrieCommitter
+    from reth_tpu_torch.trie.turbo import TurboCommitter
+
+    storage_jobs, account_jobs = build_state(DRILL_ACCOUNTS, DRILL_SLOTS, seed)
+    want = TurboCommitter(backend="numpy").commit_hashed_pipelined(storage_jobs, True)
+    leaves = [(unpack_nibbles(bytes(key)), val)
+              for keys, vals in account_jobs[:16] for key, val in zip(keys, vals)]
+    want_h = TrieCommitter(hasher=keccak256_batch_np).commit(leaves)
+    wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    records = []
+
+    def supervisor(**kw):
+        kw.setdefault("registry", MetricsRegistry())
+        if probe_fn is not None:
+            kw.setdefault("probe_fn", probe_fn)
+        return DeviceSupervisor(**kw)
+
+    def commit(committer, serial=False) -> str:
+        """The storage tries' commit, held against the twin; returns the
+        backend that hashed it."""
+        if serial:
+            res = committer.commit_hashed_many(storage_jobs, True)
+        else:
+            res = committer.commit_hashed_pipelined(storage_jobs, True)
+        if [r.root for r in res] != [r.root for r in want] or \
+                [r.branch_nodes for r in res] != [r.branch_nodes for r in want]:
+            raise AssertionError("a drill's roots or branch nodes differ from the numpy twin's")
+        return trie_metrics.last["backend"]
+
+    def drill(name: str, expect: str, run, launch: bool | None = None, fallbacks_: int = 0):
+        """Run one drill: ``run`` returns (rung, detail). It must take rung
+        ``expect`` with ``fallbacks_`` k-level fallbacks; on the card,
+        ``launch`` True / False asks for kernel launches / none."""
+        before = sum(w.launches for w in wrappers)
+        fallbacks = fused_metrics._fallbacks.value
+        t0 = time.perf_counter()
+        rung, detail = run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        threads = join_supervised()
+        launched = sum(w.launches for w in wrappers) - before
+        fell = int(fused_metrics._fallbacks.value - fallbacks)
+        if rung != expect or fell != fallbacks_:
+            raise AssertionError(f"drill {name} took rung {rung!r} with {fell} k-level fallbacks, "
+                                 f"expected {expect!r} with {fallbacks_} ({detail})")
+        if device == "cuda" and launch is not None and (launched > 0) != launch:
+            raise AssertionError(f"drill {name}: {launched} kernel launches, expected "
+                                 f"{'some' if launch else 'none'}")
+        rec = {"drill": name, "rung": rung, "wall_s": round(wall, 4), "launches": launched,
+               "k_level_fallbacks": fell, "watchdog_threads": threads}
+        log(f"drill {name}: rung {rung} as expected, {wall:.3f} s wall, {launched} kernel "
+            f"launches, {rec['k_level_fallbacks']} k-level fallbacks, {threads} watchdog threads "
+            f"joined; {detail}")
+        records.append(rec)
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            raise AssertionError(what)
+
+    def guarded_calls(serial=False, k=0) -> int:
+        """Guarded calls of a clean supervised commit (a counting injector)."""
+        counting = supervisor(injector=FaultInjector())
+        commit(TurboCommitter(backend="auto", supervisor=counting, subtrie_levels=k,
+                              device=device), serial)
+        return counting.injector.dispatch_count
+
+    # a) a wedge mid-commit (half its guarded calls; a pipelined commit's
+    # windows vary from run to run): the journal replays on the numpy twin
+    for k in (0, 8):
+        mid = guarded_calls(k=k) // 2
+        sup = supervisor(injector=FaultInjector(wedge_every=mid))
+        c = TurboCommitter(backend="auto", supervisor=sup, subtrie_levels=k, device=device)
+
+        def run_a():
+            kind = commit(c)
+            expect((sup.failovers, sup.injector.wedged, sup.breaker.state) == (1, 1, "closed"),
+                   f"a): {sup.snapshot()}")
+            last = pipeline_metrics.last
+            return kind, (f"1 failover at guarded call {mid}, {last['drained_windows']} of "
+                          f"{last['windows']} windows drained onto the twin")
+
+        drill(f"a) wedge mid-commit, auto{' k=8' if k else ''}", "numpy", run_a)
+
+    # b) the wedge at the terminal finish, where the staging engine first
+    # meets the card (serial: its guarded calls are deterministic)
+    calls = guarded_calls(serial=True)
+    sup = supervisor(injector=FaultInjector(wedge_every=calls))
+    c = TurboCommitter(backend="auto", supervisor=sup, device=device)
+    made = track_engines(c)
+
+    def run_b():
+        kind = commit(c, serial=True)
+        expect((sup.failovers, sup.injector.wedged) == (1, 1), f"b): {sup.snapshot()}")
+        n, nbytes = journal_size(made[-1])
+        return kind, (f"wedged at guarded call {calls} of {calls} (finish); the journal "
+                      f"replayed {n} entries holding {nbytes} B")
+
+    drill("b) wedge at the terminal finish, auto", "numpy", run_b)
+
+    # c) a real watchdog timeout: every call delayed past the budget
+    sup = supervisor(injector=FaultInjector(delay=0.5), dispatch_budget=0.1)
+    c = TurboCommitter(backend="auto", supervisor=sup, device=device)
+
+    def run_c():
+        kind = commit(c)
+        expect((sup.dispatch_timeouts, sup.failovers) == (1, 1), f"c): {sup.snapshot()}")
+        return kind, "1 watchdog timeout (delay 0.5 s, budget 0.1 s), 1 failover"
+
+    drill("c) delay above the watchdog budget, auto", "numpy", run_c)
+
+    # d) the k-level engine's own ladder, armed through its env knobs
+    for knob, rung, fell in (("RETH_TPU_FAULT_SUBTRIE_WEDGE", "perlevel", 1),
+                             ("RETH_TPU_FAULT_SUBTRIE_ABORT", "cpu", 2)):
+        sup = supervisor()
+        c = TurboCommitter(backend="auto", supervisor=sup, subtrie_levels=8, device=device)
+
+        def run_d():
+            os.environ[knob] = "2"
+            try:
+                fused_metrics.last = None
+                kind = commit(c)
+            finally:
+                del os.environ[knob]
+            expect(kind == "device" and sup.failovers == 0, f"d): {kind}, {sup.snapshot()}")
+            return fused_metrics.last["mode"], f"{knob}=2, {fused_metrics.last}"
+
+        drill(f"d) {knob}=2, auto k=8", rung, run_d, launch=True, fallbacks_=fell)
+
+    # e) the breaker forced open routes to numpy; after its cooldown the
+    # half-open probe (a child) closes it and the device route returns
+    sup = supervisor(breaker=CircuitBreaker(failure_threshold=3, reset_timeout=2.0))
+    c = TurboCommitter(backend="auto", supervisor=sup, device=device)
+    sup.breaker.force_open()
+
+    def run_e1():
+        kind = commit(c)
+        expect(sup.failovers == 0, f"e): {sup.snapshot()}")
+        return kind, "routed on the open breaker, 0 failovers"
+
+    drill("e) breaker forced open, auto", "numpy", run_e1, launch=False)
+    time.sleep(2.5)
+
+    def run_e2():
+        kind = commit(c)
+        expect(sup.breaker.transitions[-3:] == ["open", "half_open", "closed"]
+               and sup.last_probe.ok, f"e): {sup.breaker.transitions}, {sup.snapshot()}")
+        return kind, f"half-open probe ok in {sup.last_probe.latency:.3f} s, breaker closed"
+
+    drill("e) half-open probe after the cooldown, auto", "device", run_e2, launch=True)
+
+    # f) the pipeline killed at a window boundary
+    sup = supervisor(injector=FaultInjector(pipeline_abort=3))
+    c = TurboCommitter(backend="auto", supervisor=sup, device=device)
+
+    def run_f():
+        try:
+            commit(c)
+        except InjectedPipelineAbort:
+            pass
+        else:
+            raise AssertionError("f): the pipeline abort did not raise")
+        left = [t.name for t in threading.enumerate() if t.name.startswith(("trie-sweep",
+                                                                              "trie-hash"))]
+        expect(not left and sup.failovers == 0, f"f): threads {left}, {sup.snapshot()}")
+        return "abort, then " + commit(c), "window 3 raised, no sweeper thread left"
+
+    drill("f) RETH_TPU_FAULT_PIPELINE_ABORT=3, auto", "abort, then device", run_f)
+
+    # g) every probe failing: startup leaves the breaker open
+    sup = supervisor(injector=FaultInjector(probe_fail=-1))
+
+    def run_g():
+        ok_ = sup.startup()
+        expect(not ok_ and "injected" in sup.last_probe.diag, f"g): {sup.last_probe.diag}")
+        return sup.breaker.state, sup.last_probe.diag
+
+    drill("g) probe_fail=-1, startup", "open", run_g)
+
+    # h) the general committer's fused levels (B5) through SupervisedBackend
+    sup = supervisor(injector=FaultInjector(wedge_every=6))
+    c = TrieCommitter(fused=True, supervisor=sup, device=device)
+
+    def run_h():
+        got = c.commit(leaves)
+        expect((got.root, got.branch_nodes) == (want_h.root, want_h.branch_nodes),
+               "h): the fused committer's root or branch nodes differ from the twin's")
+        expect(sup.failovers == 1, f"h): {sup.snapshot()}")
+        return c._engine.effective_kind, (f"{len(leaves)} leaves, wedged at guarded call 6, "
+                                          f"1 failover, root equal")
+
+    drill("h) wedge_every=6, TrieCommitter(fused=True, supervisor=...)", "numpy", run_h)
+    return records
 
 
 def profile_path(label: str, drive, prepare=None, focus=()) -> None:
@@ -1342,14 +1695,17 @@ def main() -> int:
     storage_jobs, account_jobs = build_state(args.accounts, args.slots, args.seed)
     log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
+    sup = supervisor_startup()
     probe, check1 = kernel_checks(args, account_jobs, bound)
-    launches, recorder = slice_phase(args, storage_jobs, account_jobs)
+    launches, recorder = slice_phase(args, storage_jobs, account_jobs, sup)
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         if r["name"] == "subtrie_levels":
             r.update(probe)
         elif r["name"] == "keccak256_absorb":
             r.update(check1)
+    log(f"drills: {json.dumps(drills())}")
+    join_supervised()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

@@ -1,12 +1,16 @@
 """Metrics registry of the port: counters, gauges and histograms with a
 Prometheus text rendering, and the state commitment's three metric groups.
 
-Port of the part of the JAX package's ``metrics.py`` that the rebuild and
-the sparse finish report through, under the same metric names:
-``TrieMetrics`` (one record per commit), ``PipelineMetrics`` (the pipelined
-rebuild's stage times, windows and queue) and ``SparseCommitMetrics`` (the
-live-tip finish). Each records into the process-wide ``REGISTRY``, as in the
-reference. The node's process and build-identity gauges are not ported.
+Port of the part of the JAX package's ``metrics.py`` that the rebuild, the
+sparse finish and the device supervisor report through, under the same
+metric names: ``TrieMetrics`` (one record per commit), ``PipelineMetrics``
+(the pipelined rebuild's stage times, windows and queue),
+``SparseCommitMetrics`` (the live-tip finish), ``FusedCommitMetrics`` (the
+fused engines' launches and the k-level engine's fault ladder) and
+``SupervisorMetrics`` (the breaker, failovers, watchdog timeouts and
+probes). The module-level instances record into the process-wide
+``REGISTRY``, as in the reference. The node's process and build-identity
+gauges are not ported.
 """
 
 from __future__ import annotations
@@ -185,7 +189,7 @@ class PipelineMetrics:
     """The pipelined rebuild (``trie/turbo.py RebuildPipeline``): per-stage
     walls (sweep, pack, dispatch, fetch), the bounded queue's depth, the
     sweep pool's occupancy, windows, and windows drained onto the CPU twin
-    after a failover (none yet in the port: it has no failover)."""
+    after a supervised backend failed over."""
 
     def __init__(self, registry: MetricsRegistry | None = None):
         reg = registry or REGISTRY
@@ -278,3 +282,86 @@ class SparseCommitMetrics:
 
 
 sparse_commit_metrics = SparseCommitMetrics()
+
+
+class FusedCommitMetrics:
+    """Fused-engine launch accounting (``ops/fused_commit.py``): launches
+    issued, the trie levels each carried, launches per k-level commit, and
+    the k-level engine's fallbacks down its fault ladder. ``last`` holds the
+    most recent k-level commit, with the rung (``mode``: fused, perlevel or
+    cpu) that produced its digests."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._dispatches = reg.counter("fused_dispatches_total",
+                                       "fused committer device dispatches issued")
+        self._levels = reg.counter("fused_levels_total", "trie levels carried by fused dispatches")
+        self._levels_per = reg.histogram("fused_levels_per_dispatch",
+                                         "trie levels fused into one device dispatch",
+                                         buckets=(1, 2, 4, 8, 16, 32, 64))
+        self._per_block = reg.histogram("fused_dispatches_per_block",
+                                        "device dispatches one k-level fused commit issued",
+                                        buckets=(1, 2, 4, 8, 16, 24, 32, 64, 128))
+        self._fallbacks = reg.counter("fused_subtrie_fallbacks_total",
+                                      "k-level chunks degraded to the per-level or CPU path")
+        self.last: dict | None = None  # the most recent k-level commit
+
+    def record_dispatch(self, levels: int) -> None:
+        self._dispatches.increment()
+        self._levels.increment(levels)
+        self._levels_per.record(levels)
+
+    def record_fallback(self) -> None:
+        self._fallbacks.increment()
+
+    def record_commit(self, *, dispatches: int, levels: int, k: int, mode: str) -> None:
+        """One k-level commit finished: ``dispatches`` launches carried
+        ``levels`` staged levels on rung ``mode``."""
+        self._per_block.record(dispatches)
+        self.last = {"k": k, "dispatches": dispatches, "levels": levels, "mode": mode}
+
+
+fused_metrics = FusedCommitMetrics()
+
+
+class SupervisorMetrics:
+    """The device supervisor (``ops/supervisor.py``): breaker state and
+    trips, mid-commit failovers, watchdog timeouts, and the health probes'
+    outcomes and latency. Each ``DeviceSupervisor`` makes its own, on the
+    registry it is given (``REGISTRY`` by default)."""
+
+    # breaker state encoding for the gauge (alerting-friendly ordering)
+    _STATES = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._state = reg.gauge("hasher_supervisor_breaker_state",
+                                "circuit breaker state: 0 closed, 1 half-open, 2 open")
+        self._trips = reg.counter("hasher_supervisor_breaker_trips_total",
+                                  "times the breaker opened (device route disabled)")
+        self._failovers = reg.counter("hasher_supervisor_failovers_total",
+                                      "mid-commit failovers replayed onto the CPU backend")
+        self._timeouts = reg.counter("hasher_supervisor_dispatch_timeouts_total",
+                                     "device dispatches that exceeded the watchdog budget")
+        self._probes = reg.counter("hasher_supervisor_probes_total")
+        self._probe_failures = reg.counter("hasher_supervisor_probe_failures_total")
+        self._probe_seconds = reg.histogram("hasher_supervisor_probe_duration_seconds",
+                                            buckets=(0.1, 0.5, 1, 2, 5, 15, 60, 120))
+
+    def set_state(self, state: str) -> None:
+        self._state.set(self._STATES.get(state, 2.0))
+
+    def record_trip(self) -> None:
+        self._trips.increment()
+
+    def record_failover(self) -> None:
+        self._failovers.increment()
+
+    def record_timeout(self) -> None:
+        self._timeouts.increment()
+
+    def record_probe(self, ok: bool, latency: float) -> None:
+        self._probes.increment()
+        if not ok:
+            self._probe_failures.increment()
+        self._probe_seconds.record(latency)

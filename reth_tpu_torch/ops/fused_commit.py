@@ -31,18 +31,26 @@ default) stages every level of a commit and, at the end, uploads all of them
 in two host-to-device copies (bytes and indices) and launches kernels 2 and
 3 on views into those two buffers. ``SubtrieFusedEngine`` stages the same
 way, but at every window runs each chunk of up to k levels as one launch of
-kernel 4, ``csrc/fused_level.cu subtrie_levels``.
+kernel 4, ``csrc/fused_level.cu subtrie_levels``. Built for the supervised
+route (``ladder=True``) it keeps the reference's fault ladder: a failed
+chunk replays the commit's journal one level per launch, then on the numpy
+twin (``SubtrieFaultInjector`` drills both rungs); elsewhere a failed launch
+raises, as in the other engines.
+Every launch is counted in ``metrics.fused_metrics``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve, stream_handle
+from ..metrics import fused_metrics
 from ..primitives.keccak import RATE
 from . import _build
 from .keccak import _next_tier, keccak256_words_masked_ref
@@ -397,6 +405,7 @@ class FusedLevelEngine:
         self._buf: torch.Tensor | None = None
         self._n_slots = 0
         self.uploads = 0  # host-to-device copies since begin()
+        self.dispatches = 0  # launches since begin()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -405,6 +414,7 @@ class FusedLevelEngine:
         self._buf = torch.zeros((s_tier, 32), dtype=torch.uint8, device=self.device)
         self._n_slots = 1  # slot 0 = dummy
         self.uploads = 0
+        self.dispatches = 0
 
     def begin_from(self, buf: torch.Tensor) -> None:
         """Continue committing against ``buf`` (an (S, 32) u8 tensor on this
@@ -449,6 +459,11 @@ class FusedLevelEngine:
     def flush_window(self) -> None:
         """Window-boundary hook of the pipelined rebuild; this engine
         launches eagerly, so there is nothing to flush."""
+
+    def _count_dispatch(self, levels: int = 1) -> None:
+        """One launch ran, carrying ``levels`` staged levels."""
+        self.dispatches += 1
+        fused_metrics.record_dispatch(levels)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """``arr`` on this engine's device, 16-byte aligned as the level
@@ -499,6 +514,7 @@ class FusedLevelEngine:
             self._put(row_len.astype(np.int32)), self._put(slots.astype(np.int64)),
             self._put(start), self._put(holes[1][order].astype(np.int32)),
             self._put(holes[2][order].astype(np.int64)), self._buf)
+        self._count_dispatch()
 
     def dispatch_branch(self, masks: np.ndarray, slots: np.ndarray,
                         children: np.ndarray) -> None:
@@ -512,6 +528,7 @@ class FusedLevelEngine:
             self._put(masks.astype(np.int32)), self._put(slots.astype(np.int64)),
             self._put(start), self._put(children[1][order].astype(np.int32)),
             self._put(children[2][order].astype(np.int64)), self._buf)
+        self._count_dispatch()
 
 
 class _Staging:
@@ -626,19 +643,28 @@ class MegaFusedEngine(FusedLevelEngine):
 
     # -- execution ---------------------------------------------------------
 
-    def _upload(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The two staged buffers on the engine's device: each filled in
-        pinned host memory and copied without blocking. The pinned buffers
-        are kept until the terminal fetch, which waits for the stream."""
+    def _stage_host(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The two staged buffers filled in pinned host memory, kept until
+        the terminal fetch (which waits for the stream)."""
         out = []
         for stage in (self._u8, self._idx):
             host = torch.empty(max(stage.size, 16), dtype=torch.uint8,
                                pin_memory=self.device.type == "cuda")
             stage.fill(host.numpy())
-            out.append(host.to(self.device, non_blocking=True))
             self._pinned.append(host)
-            self.uploads += 1
+            out.append(host)
         return out[0], out[1]
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """A filled pinned buffer on the engine's device, copied without
+        blocking."""
+        self.uploads += 1
+        return host.to(self.device, non_blocking=True)
+
+    def _upload(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The two staged buffers on the engine's device."""
+        u8, idx = self._stage_host()
+        return self._to_device(u8), self._to_device(idx)
 
     def _materialize(self) -> None:
         if self._buf is None:
@@ -654,7 +680,7 @@ class MegaFusedEngine(FusedLevelEngine):
         for _b_tier, n_entries, p in self._plan:
             args = _step_args(u8, idx, p, n_entries)
             (packed_level if p[_KIND] == 0 else branch_level)(*args, self._buf)
-            self.dispatches += 1
+            self._count_dispatch()
         self._reset_staging()
 
     def finish(self) -> np.ndarray:
@@ -668,6 +694,80 @@ class MegaFusedEngine(FusedLevelEngine):
         out = super().fetch_slots(slots)
         self._pinned = []
         return out
+
+
+class InjectedSubtrieWedge(RuntimeError):
+    """Fault injection wedged a k-level chunk launch
+    (RETH_TPU_FAULT_SUBTRIE_WEDGE): the engine replays its journal one level
+    per launch."""
+
+
+class InjectedSubtrieAbort(RuntimeError):
+    """Fault injection poisoned the engine's whole device path
+    (RETH_TPU_FAULT_SUBTRIE_ABORT): the chunk and its per-level replay both
+    fail, so the commit lands on the numpy twin."""
+
+
+class SubtrieFaultInjector:
+    """Fault policies of the k-level engine (the reference's).
+
+    ``wedge_at``: the Nth multi-level chunk launch of this injector raises
+    :class:`InjectedSubtrieWedge` once; an engine with its ladder armed
+    replays its journal on the per-level rung. ``abort_at``: the Nth chunk
+    launch raises and so does every later per-level launch; the journal
+    replays on the numpy twin. Without the ladder either fault raises out
+    of the engine. Env form (:meth:`from_env`): ``RETH_TPU_FAULT_SUBTRIE_WEDGE`` /
+    ``RETH_TPU_FAULT_SUBTRIE_ABORT``."""
+
+    def __init__(self, wedge_at: int = 0, abort_at: int = 0):
+        self.wedge_at = wedge_at
+        self.abort_at = abort_at
+        self.chunks = 0
+        self.wedges = 0
+        self.aborts = 0
+        self._abort_armed = False
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_env(cls, env=None) -> "SubtrieFaultInjector | None":
+        env = os.environ if env is None else env
+        wedge = int(env.get("RETH_TPU_FAULT_SUBTRIE_WEDGE", "0") or 0)
+        abort = int(env.get("RETH_TPU_FAULT_SUBTRIE_ABORT", "0") or 0)
+        if not (wedge or abort):
+            return None
+        return cls(wedge_at=wedge, abort_at=abort)
+
+    def on_chunk(self, mode: str, levels: int) -> None:
+        """Called before every ``subtrie_levels`` launch: ``mode`` is "fused"
+        for a launch of a k-level plan, "perlevel" for a one-level replay."""
+        if mode == "perlevel":
+            with self._lock:
+                armed = self._abort_armed
+            if armed:
+                tracing.fault_event("RETH_TPU_FAULT_SUBTRIE_ABORT", target="ops::fused_commit",
+                                    rung="perlevel")
+                raise InjectedSubtrieAbort(
+                    "injected subtrie abort: per-level replay poisoned "
+                    f"(RETH_TPU_FAULT_SUBTRIE_ABORT={self.abort_at})")
+            return
+        with self._lock:
+            self.chunks += 1
+            n = self.chunks
+        if self.wedge_at and n == self.wedge_at:
+            with self._lock:
+                self.wedges += 1
+            tracing.fault_event("RETH_TPU_FAULT_SUBTRIE_WEDGE", target="ops::fused_commit",
+                                chunk=n, levels=levels)
+            raise InjectedSubtrieWedge(f"injected subtrie wedge on chunk #{n} "
+                                       f"(RETH_TPU_FAULT_SUBTRIE_WEDGE={self.wedge_at})")
+        if self.abort_at and n == self.abort_at:
+            with self._lock:
+                self.aborts += 1
+                self._abort_armed = True
+            tracing.fault_event("RETH_TPU_FAULT_SUBTRIE_ABORT", target="ops::fused_commit",
+                                chunk=n, levels=levels)
+            raise InjectedSubtrieAbort(f"injected subtrie abort on chunk #{n} "
+                                       f"(RETH_TPU_FAULT_SUBTRIE_ABORT={self.abort_at})")
 
 
 class SubtrieFusedEngine(MegaFusedEngine):
@@ -684,27 +784,66 @@ class SubtrieFusedEngine(MegaFusedEngine):
     A level of more than ``_CHUNK_BTIER_CAP`` block tier runs in a chunk of
     its own, and a chunk of one level launches kernel 4 too, as in the
     reference, so ``dispatches`` and ``levels_staged`` equal the
-    reference engine's on the same staged plan. A failed launch raises: the
-    reference's journal ladder (per-level replay, CPU twin), ``warmup=``,
-    ``begin_delta`` / ``peek_slots`` and the mesh variant are not ported."""
+    reference engine's on the same staged plan.
+
+    ``ladder=True`` (the supervised route, ``TurboCommitter(backend="auto")``,
+    builds its engines so) arms the reference's fault ladder: fused chunks
+    → per level → numpy twin. Each flush's staged host buffers and plan are
+    journaled until the terminal fetch. A failed launch
+    (``SubtrieFaultInjector``'s wedge, or a real fault) replays every
+    journaled flush through ``subtrie_levels`` one level per launch on a
+    fresh zeroed digest buffer; if that fails too (the injector's abort),
+    the journal replays on the numpy twin, which decodes the port's staged
+    plan and touches no CUDA tensor. Later flushes stay on the rung
+    reached; ``fused_metrics.last["mode"]`` names it at the terminal fetch.
+    Without ``ladder`` nothing is journaled and a failed launch, an
+    injected fault included, raises out of ``flush_window`` / the terminal
+    fetch after one attempt. A failed build raises either way: it is not a
+    device fault. ``warmup=``, ``begin_delta`` / ``peek_slots`` (the
+    hot-state arena) and the mesh variant are not ported."""
 
     _CHUNK_BTIER_CAP = 8
 
-    def __init__(self, min_tier: int = 1024, k: int | None = None, warmup=None,
-                 device: str | torch.device = "cuda"):
+    def __init__(self, min_tier: int = 1024, k: int | None = None, warmup=None, injector=None,
+                 ladder: bool = False, device: str | torch.device = "cuda"):
         if warmup is not None:
             raise NotImplementedError("SubtrieFusedEngine(warmup=...) is not ported yet")
         super().__init__(min_tier=min_tier, device=device)
         if k is None:
             k = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 8)
         self.k = max(1, int(k))
+        self.injector = injector if injector is not None else SubtrieFaultInjector.from_env()
+        self.ladder = ladder
         self.levels_staged = 0  # levels run since begin(), in `dispatches` launches
+        self._mode = "fused"
+        # per flush: (staged bytes, staged indices, plan, step table's offset
+        # in the indices), host buffers kept until the terminal fetch
+        self._journal: list[tuple[torch.Tensor, torch.Tensor, list, int]] = []
+        self._buf_np: np.ndarray | None = None
+
+    @property
+    def mode(self) -> str:
+        """The rung this commit runs on: "fused", "perlevel" or "cpu"."""
+        return self._mode
 
     def begin(self, max_slots: int) -> None:
         super().begin(max_slots)
         self.levels_staged = 0
+        self._mode = "fused"
+        self._journal = []
+        self._buf_np = None
 
-    def _chunk_plan(self, plan: list) -> list[tuple[int, int]]:
+    def ensure(self, max_slots: int) -> None:
+        if self._mode != "cpu":
+            super().ensure(max_slots)
+            return
+        need, cur = max_slots + 1, self._buf_np.shape[0]
+        if need > cur:
+            grown = np.zeros((_next_tier(need, max(self.min_tier, 2, cur)), 32), dtype=np.uint8)
+            grown[:cur] = self._buf_np
+            self._buf_np = grown
+
+    def _chunk_plan(self, plan: list, k: int) -> list[tuple[int, int]]:
         """[(first step, steps)]: consecutive staged levels, up to ``k`` per
         chunk; a level above ``_CHUNK_BTIER_CAP`` (a branch level's block
         tier is 4) takes a chunk alone. The staging order is the dependency
@@ -714,7 +853,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
         cur_big = False
         for i, (b_tier, _, _) in enumerate(plan):
             big = b_tier > self._CHUNK_BTIER_CAP
-            if chunks and len(chunks[-1]) < self.k and not big and not cur_big:
+            if chunks and len(chunks[-1]) < k and not big and not cur_big:
                 chunks[-1].append(i)
             else:
                 chunks.append([i])
@@ -727,29 +866,148 @@ class SubtrieFusedEngine(MegaFusedEngine):
         self._execute()
 
     def _execute(self) -> None:
-        self._materialize()
-        self._run_chunks(self._upload_chunks())
-
-    def _upload_chunks(self) -> list[tuple]:
-        """Upload everything staged since the last execution in two copies
-        (the step table rides with the indices) and return each chunk's
-        ``subtrie_levels`` arguments, all but the digest buffer: the staged
-        buffers, the chunk's rows of the step table on the device and its
-        steps' row counts on the host (the launch's grid and each step's
-        path follow from them)."""
         plan = self._plan
         if not plan:
-            return []
-        table = np.array([p for _, _, p in plan], dtype=np.int64)
-        t_off = self._idx.add(table)
-        u8, idx = self._upload()
+            if self._mode != "cpu":
+                self._materialize()
+            return
+        if self._mode != "cpu" and self.device.type == "cuda":
+            _fused_lib()  # a failed build raises here, outside the ladder
+        u8, idx, plan, t_off = self._stage_flush()
+        if self._mode == "cpu":
+            self._run_plan_numpy(u8.numpy(), idx.numpy(), plan)
+            return
+        chunks = self._chunk_plan(plan, 1 if self._mode == "perlevel" else self.k)
+        # the reference's rule: a plan whose chunks are all single levels
+        # counts as per-level for the injector
+        mode = "perlevel" if self._mode == "perlevel" or len(chunks) >= len(plan) else "fused"
+        try:
+            self._materialize()
+            self._run_chunks(self._to_device(u8), self._to_device(idx), t_off, plan, chunks, mode)
+        except Exception as e:  # noqa: BLE001 — every launch fault takes the ladder
+            if not self.ladder:
+                raise
+            self._degrade(e)
+
+    def _stage_flush(self) -> tuple[torch.Tensor, torch.Tensor, list, int]:
+        """Everything staged since the last flush, with the step table
+        staged among the indices, in two host buffers, returned as a journal
+        entry (bytes, indices, plan, the step table's offset in the
+        indices) and journaled when the ladder is armed."""
+        plan = self._plan
+        t_off = self._idx.add(np.array([p for _, _, p in plan], dtype=np.int64))
+        u8, idx = self._stage_host()
         self._reset_staging()
         self.levels_staged += len(plan)
-        steps = idx[t_off:t_off + table.nbytes].view(torch.int64).view(-1, _PARAM_W)
-        return [(u8, idx, steps[lo:lo + count], table[lo:lo + count, _ROWS].copy())
-                for lo, count in self._chunk_plan(plan)]
+        if self.ladder:
+            self._journal.append((u8, idx, plan, t_off))
+        return u8, idx, plan, t_off
 
-    def _run_chunks(self, chunks: list[tuple]) -> None:
-        for args in chunks:
+    def _chunk_args(self, u8: torch.Tensor, idx: torch.Tensor, t_off: int, plan: list,
+                    chunks: list[tuple[int, int]]) -> list[tuple]:
+        """Each chunk's ``subtrie_levels`` arguments but the digest buffer:
+        the uploaded buffers, the chunk's rows of the step table on the
+        device and its steps' row counts on the host (the launch's grid and
+        each step's path follow from them)."""
+        steps = idx[t_off:t_off + len(plan) * _PARAM_W * 8].view(torch.int64).view(-1, _PARAM_W)
+        return [(u8, idx, steps[lo:lo + count],
+                 np.array([p[_ROWS] for _, _, p in plan[lo:lo + count]], dtype=np.int64))
+                for lo, count in chunks]
+
+    def _run_chunks(self, u8: torch.Tensor, idx: torch.Tensor, t_off: int, plan: list,
+                    chunks: list[tuple[int, int]], mode: str) -> None:
+        """One launch of kernel 4 per chunk, each announced to the injector."""
+        for args in self._chunk_args(u8, idx, t_off, plan, chunks):
+            levels = args[2].shape[0]
+            if self.injector is not None:
+                self.injector.on_chunk(mode, levels)
             subtrie_levels(*args, self._buf)
-            self.dispatches += 1
+            self._count_dispatch(levels)
+
+    # -- fault ladder ---------------------------------------------------------
+
+    def _degrade(self, err: Exception) -> None:
+        fused_metrics.record_fallback()
+        if self._mode == "fused":
+            tracing.fault_event("subtrie_fallback", target="ops::fused_commit", rung="perlevel",
+                                error=f"{type(err).__name__}: {err}"[:200])
+            self._mode = "perlevel"
+            try:
+                self._replay_journal_device()
+                return
+            except Exception as e2:  # noqa: BLE001 — the numpy rung below
+                fused_metrics.record_fallback()
+                err = e2
+        tracing.fault_event("subtrie_fallback", target="ops::fused_commit", rung="cpu",
+                            error=f"{type(err).__name__}: {err}"[:200])
+        slots = self._buf.shape[0] if self._buf is not None else self._s_tier
+        self._mode = "cpu"
+        self._buf = None
+        self._buf_np = np.zeros((slots, 32), dtype=np.uint8)
+        for u8, idx, plan, _ in self._journal:
+            self._run_plan_numpy(u8.numpy(), idx.numpy(), plan)
+
+    def _replay_journal_device(self) -> None:
+        """Per-level rung: every journaled flush again, re-uploaded from its
+        host buffers, through ``subtrie_levels`` one level per launch on a
+        fresh zeroed digest buffer (hashing is deterministic, so the
+        rebuilt buffer is bit-identical)."""
+        slots = self._buf.shape[0] if self._buf is not None else self._s_tier
+        self._buf = torch.zeros((slots, 32), dtype=torch.uint8, device=self.device)
+        for u8, idx, plan, t_off in self._journal:
+            self._run_chunks(self._to_device(u8), self._to_device(idx), t_off, plan,
+                             self._chunk_plan(plan, 1), "perlevel")
+
+    def _run_plan_numpy(self, u8: np.ndarray, idx: np.ndarray, plan: list) -> None:
+        """Numpy-twin rung: decode the staged plan (the port's layout: row
+        offsets, lengths and slots per row, holes or children by row
+        through a CSR start index) into the twin's dispatch arguments."""
+        from ..trie.turbo import _NumpyBackend
+
+        nb = _NumpyBackend()
+        nb._buf = self._buf_np
+
+        def ix(off: int, count: int, dtype) -> np.ndarray:
+            return idx[off:off + count * np.dtype(dtype).itemsize].view(dtype)
+
+        for b_tier, n_entries, p in plan:
+            n = p[_ROWS]
+            start = ix(p[_START], n + 1, np.int64)
+            triples = np.stack([np.repeat(np.arange(n, dtype=np.int64), np.diff(start)),
+                                ix(p[_TAG], n_entries, np.int32),
+                                ix(p[_SRC], n_entries, np.int64)])
+            slots = ix(p[_SLOTS], n, np.int64)
+            if p[_KIND] == 0:
+                nb.dispatch_packed(u8[p[_BYTES]:p[_BYTES] + p[_BYTES_LEN]],
+                                   ix(p[_ROW_OFF], n, np.int64), ix(p[_ROW_LEN], n, np.int32),
+                                   slots, triples if n_entries else None, b_tier)
+            else:
+                nb.dispatch_branch(u8[p[_BYTES]:p[_BYTES] + 4 * n].view(np.int32), slots,
+                                   triples)
+
+    # -- terminal fetches -------------------------------------------------------
+
+    def _end(self) -> None:
+        """Run what is left and record the commit (launches, levels, rung)."""
+        self._execute()
+        fused_metrics.record_commit(dispatches=self.dispatches, levels=self.levels_staged,
+                                    k=self.k, mode=self._mode)
+        self._journal = []
+
+    def finish(self) -> np.ndarray:
+        self._end()
+        if self._mode == "cpu":
+            buf, self._buf_np = self._buf_np, None
+        else:
+            buf = FusedLevelEngine.finish(self)
+        self._pinned = []
+        return buf
+
+    def fetch_slots(self, slots: np.ndarray) -> np.ndarray:
+        self._end()
+        if self._mode == "cpu":
+            out, self._buf_np = self._buf_np[np.asarray(slots, dtype=np.int64)], None
+        else:
+            out = FusedLevelEngine.fetch_slots(self, slots)
+        self._pinned = []
+        return out

@@ -24,8 +24,10 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..device import resolve
 from ..ops.fused_commit import FusedLevelEngine, _Bucket
 from ..ops.keccak import KeccakDevice
+from ..ops.supervisor import SupervisedBackend, SupervisedHasher
 from ..primitives.keccak import RATE, keccak256
 from ..primitives.nibbles import Nibbles, common_prefix_len, encode_path
 from ..primitives.rlp import _encode_length, rlp_encode
@@ -119,20 +121,34 @@ class TrieCommitter:
         at the end resolves every node hash. ``hasher`` is ignored when
         fused, and left unset as the reference leaves it. A missing
         ``hasher`` without ``fused`` builds ``KeccakDevice(min_tier,
-        block_tier=4)`` on ``device``. ``mesh``, ``supervisor`` and
-        ``warmup`` are the reference's seams for later slices of the port
-        and raise ``NotImplementedError``."""
-        for name, value in (("mesh", mesh), ("supervisor", supervisor), ("warmup", warmup)):
+        block_tier=4)`` on ``device``. ``supervisor`` (an
+        ``ops/supervisor.py DeviceSupervisor``) puts every device call
+        behind the watchdog and the breaker with failover to the numpy twin
+        (the reference's ``--hasher auto``): the fused engine runs as a
+        ``SupervisedBackend``, a missing ``hasher`` becomes a
+        ``SupervisedHasher``. ``mesh`` and ``warmup`` are the reference's
+        seams for later slices of the port (the mesh, warm-up) and raise
+        ``NotImplementedError``."""
+        for name, value in (("mesh", mesh), ("warmup", warmup)):
             if value is not None:
                 raise NotImplementedError(f"TrieCommitter({name}=...) is not ported yet")
         self.fused = fused
+        self.supervisor = supervisor
         self._engine = None
         if fused:
-            self._engine = FusedLevelEngine(min_tier=min_tier, device=device)
+            dev = resolve(device)
+            if supervisor is not None:
+                self._engine = SupervisedBackend(
+                    supervisor, lambda: FusedLevelEngine(min_tier=min_tier, device=dev), device=dev)
+            else:
+                self._engine = FusedLevelEngine(min_tier=min_tier, device=dev)
         elif hasher is None:
-            # Trie nodes are <= 4 rate blocks (branch max ~533 B): one
-            # shared block-tier bucket per batch
-            hasher = KeccakDevice(min_tier=min_tier, block_tier=4, device=device).hash_batch
+            if supervisor is not None:
+                hasher = SupervisedHasher(supervisor, min_tier=min_tier, device=device)
+            else:
+                # Trie nodes are <= 4 rate blocks (branch max ~533 B): one
+                # shared block-tier bucket per batch
+                hasher = KeccakDevice(min_tier=min_tier, block_tier=4, device=device).hash_batch
         self.hasher = hasher
 
     def commit(

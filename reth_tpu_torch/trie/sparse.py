@@ -23,9 +23,9 @@ encode. Entry points run on the card unless the caller passes
 
 Not ported yet: the hot-state plane (reveal-ref stamping, the device
 ``DigestArena`` delta finish and its hooks ``node_at`` / ``reveal_at`` /
-``harvest_spine``), which waits for the supervisor, and the hash service's
-streaming and window lanes. ``arena=`` and a hasher with ``submit`` or
-``commit_window`` raise ``NotImplementedError``.
+``harvest_spine``) and the hash service's streaming and window lanes.
+``arena=`` and a hasher with ``submit`` or ``commit_window`` raise
+``NotImplementedError``.
 
 Blinded nodes are paths the proofs never revealed. Reading through or
 collapsing into one raises ``BlindedNodeError`` carrying the nibble path, so

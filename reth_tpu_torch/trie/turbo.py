@@ -11,7 +11,8 @@ no per-node Python:
            BITMAP rows  → dispatch_branch   (kernel 3)
            (SubtrieFusedEngine: k levels per launch of kernel 4)
            ... or the numpy twin (``_NumpyBackend``), which the caller picks
-           explicitly with ``backend="numpy"``
+           explicitly with ``backend="numpy"``, or which ``backend="auto"``
+           (``ops/supervisor.py SupervisedBackend``) fails over to
             └─ ONE digest read-back: roots (+ branch-node hashes when
                TrieUpdates collection is requested)
 """
@@ -19,6 +20,7 @@ no per-node Python:
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import queue as queue_mod
 import threading
@@ -34,6 +36,7 @@ from ..device import resolve
 from ..metrics import pipeline_metrics, trie_metrics
 from ..ops import _build
 from ..ops.fused_commit import MegaFusedEngine, SubtrieFusedEngine
+from ..ops.supervisor import DeviceSupervisor, FaultInjector, SupervisedBackend
 from ..primitives.keccak import RATE, keccak256, keccak256_words_masked_np
 from ..primitives.types import EMPTY_ROOT_HASH
 from .committer import BranchNode, TrieBuildResult
@@ -165,7 +168,9 @@ class DigestArena:
 class _NumpyBackend:
     """CPU twin of the device engine (the JAX package's ``_NumpyBackend``):
     the same array protocol as ``FusedLevelEngine``, with digests in a host
-    buffer. It runs only when the caller asks for ``backend="numpy"``."""
+    buffer. It runs when the caller asks for ``backend="numpy"``, and under
+    ``backend="auto"`` when the supervisor routes a commit to the CPU or
+    fails it over; it touches no CUDA tensor."""
 
     effective_kind = "numpy"
 
@@ -529,6 +534,13 @@ class RebuildPipeline:
     reference: ``RETH_TPU_PIPELINE_SWEEPERS``, ``RETH_TPU_PIPELINE_HASHERS``,
     ``RETH_TPU_PIPELINE_WINDOW``, ``RETH_TPU_PIPELINE_SWEEP_LEAVES``.
 
+    Faults, as in the reference: a supervised backend ("auto") that fails
+    over mid-rebuild replays its journal on the numpy twin, and the
+    pipeline goes on feeding it, inline from then on (``drained_windows``
+    counts those windows); ``injector.on_pipeline_window()`` runs before
+    each window, so ``RETH_TPU_FAULT_PIPELINE_ABORT`` kills the rebuild at
+    a window boundary.
+
     A run reports as the reference's does: ``windows``, ``queue_peak`` and
     ``wire_bytes`` here, the stage times {sweep, pack, dispatch, fetch}
     through ``metrics.pipeline_metrics.record_run`` (``.last``), and the
@@ -537,7 +549,7 @@ class RebuildPipeline:
 
     def __init__(self, backend, lib=None, *, sweep_workers=None, hash_workers=1,
                  pack_window=None, queue_depth=None, leaves_per_sweep=None,
-                 jobs_per_sweep=None):
+                 jobs_per_sweep=None, injector=None):
         env = os.environ
         self.backend = backend
         self.lib = lib or load_library()
@@ -549,6 +561,7 @@ class RebuildPipeline:
         self.leaves_per_sweep = int(leaves_per_sweep
                                     or env.get("RETH_TPU_PIPELINE_SWEEP_LEAVES", 0) or 32768)
         self.jobs_per_sweep = int(jobs_per_sweep or 64)
+        self.injector = injector
         self.windows = 0
         self.queue_peak = 0
         self.wire_bytes = 0
@@ -599,6 +612,7 @@ class RebuildPipeline:
         pending: list = []
         next_slot = [1]
         ensured = [0]
+        drained = [0]
         trace_ctx = tracing.current_context()
 
         def flush(window: list[_SweepResult]) -> None:
@@ -619,6 +633,9 @@ class RebuildPipeline:
                 want = max(hwm, 2 * ensured[0])
                 backend.ensure(want)
                 ensured[0] = want
+            if self.injector is not None:
+                self.injector.on_pipeline_window()
+            failed_over = getattr(backend, "failed_over", False)
 
             def dispatch():
                 t1 = time.perf_counter()
@@ -636,10 +653,12 @@ class RebuildPipeline:
                                     ctx=trace_ctx,
                                     fields={"levels": len(merged), "subtries": len(window)})
 
-            if hash_pool is not None:
+            if hash_pool is not None and not failed_over:
                 pending.append(hash_pool.submit(dispatch))
             else:
                 dispatch()
+            if getattr(backend, "failed_over", False):
+                drained[0] += 1
             self.windows += 1
 
         try:
@@ -688,7 +707,7 @@ class RebuildPipeline:
             met.set_queue_depth(0)
             wall_s = time.perf_counter() - t_wall
             met.record_run(jobs=len(jobs), groups=len(groups), windows=self.windows,
-                           queue_peak=self.queue_peak, drained_windows=0,
+                           queue_peak=self.queue_peak, drained_windows=drained[0],
                            backend=getattr(backend, "effective_kind", None),
                            wall_s=wall_s, **stages)
             tracing.record_span("trie::pipeline", "rebuild", time.time() - wall_s, wall_s,
@@ -741,46 +760,54 @@ class TurboCommitter:
     """Full-rebuild state committer over 32-byte hashed keys.
 
     ``backend``: "device" (the fused engines of ``ops.fused_commit`` on
-    ``device``, the card by default) or "numpy" (the CPU twin). The caller
-    picks one; the twin never stands in for a failed device. The device
-    engine is, as in the reference on one device, ``MegaFusedEngine``
-    (each commit staged and uploaded in two copies, one launch per level),
-    or ``SubtrieFusedEngine(k)`` for ``subtrie_levels`` k > 1 (one launch per
+    ``device``, the card by default), "numpy" (the CPU twin) or "auto" (the
+    device engine under ``supervisor``, else ``DeviceSupervisor.shared()``:
+    the watchdog, the breaker and the journaled mid-commit failover onto
+    the twin, ``ops/supervisor.py SupervisedBackend``; its k-level engines
+    arm their own ladder too). On "device" the twin never stands in for a
+    failed device: a failed launch raises. The device engine is, as in the
+    reference on one device, ``MegaFusedEngine`` (each commit staged and
+    uploaded in two copies, one launch per level), or
+    ``SubtrieFusedEngine(k)`` for ``subtrie_levels`` k > 1 (one launch per
     chunk of k levels). ``subtrie_levels=None`` reads
-    ``RETH_TPU_SUBTRIE_LEVELS`` (unset: 0). The reference's "auto" backend,
-    ``supervisor``, ``hash_service`` and ``mesh`` are seams for later slices
-    of the port and raise ``NotImplementedError``."""
+    ``RETH_TPU_SUBTRIE_LEVELS`` (unset: 0). ``hash_service`` and ``mesh``
+    are seams for later slices of the port (the hash service, the mesh)
+    and raise ``NotImplementedError``."""
 
     def __init__(self, backend: str = "device", min_tier: int = 1024, mesh=None,
                  supervisor=None, hash_service=None, subtrie_levels: int | None = None,
                  device: str | torch.device = "cuda"):
-        if backend not in ("device", "numpy"):
-            if backend == "auto":
-                raise NotImplementedError('TurboCommitter(backend="auto") is not ported yet')
+        if backend not in ("device", "numpy", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
-        for name, value in (("mesh", mesh), ("supervisor", supervisor),
-                            ("hash_service", hash_service)):
+        for name, value in (("mesh", mesh), ("hash_service", hash_service)):
             if value is not None:
                 raise NotImplementedError(f"TurboCommitter({name}=...) is not ported yet")
+        self.supervisor = supervisor
         if subtrie_levels is None:
             subtrie_levels = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 0)
         self.subtrie_levels = max(0, int(subtrie_levels))
         self.backend_kind = backend
         self.min_tier = min_tier
-        # the numpy twin needs no card; the device backend checks for one now
-        self.device = resolve(device) if backend == "device" else None
+        # the numpy twin needs no card; the device backends check for one now
+        self.device = resolve(device) if backend != "numpy" else None
         self.arena = DigestArena()  # resident across this committer's commits
         self._lib = load_library()
 
-    def _device_engine(self) -> MegaFusedEngine:
+    def _device_engine(self, ladder: bool = False) -> MegaFusedEngine:
+        """A commit's device engine; ``ladder`` arms the k-level engine's
+        fault ladder, which only the supervised route asks for."""
         if self.subtrie_levels > 1:
             return SubtrieFusedEngine(min_tier=self.min_tier, k=self.subtrie_levels,
-                                      device=self.device)
+                                      ladder=ladder, device=self.device)
         return MegaFusedEngine(min_tier=self.min_tier, device=self.device)
 
     def _make_backend(self):
         if self.backend_kind == "numpy":
             return _NumpyBackend(arena=self.arena)
+        if self.backend_kind == "auto":
+            return SupervisedBackend(self.supervisor or DeviceSupervisor.shared(),
+                                     functools.partial(self._device_engine, ladder=True),
+                                     arena=self.arena, device=self.device)
         return self._device_engine()
 
     def commit_hashed_many(
@@ -814,17 +841,25 @@ class TurboCommitter:
         bit for bit): sweep groups of subtries on a thread pool, pack
         same-depth levels across subtries into one dispatch, hash into one
         growing digest buffer. ``knobs`` are ``RebuildPipeline``'s.
-        ``RETH_TPU_PIPELINE=0`` takes the serial path, as in the reference."""
+        ``RETH_TPU_PIPELINE=0`` takes the serial path, as in the reference.
+        The pipeline's fault injector is the supervisor's, else
+        ``FaultInjector.from_env()``."""
         if not jobs:
             return []
         if len(jobs) == 1 or os.environ.get("RETH_TPU_PIPELINE", "1") == "0":
             return self.commit_hashed_many(jobs, collect_branches, start_depth)
-        if self.backend_kind == "device" and int(knobs.get("hash_workers", 1)) > 1:
-            raise ValueError("hash_workers > 1 is for the numpy backend: the device "
-                             "engine launches on one stream into one buffer")
+        if self.backend_kind != "numpy":
+            if int(knobs.get("hash_workers") or 1) > 1:
+                raise ValueError("hash_workers > 1 is for the numpy backend: the device "
+                                 "engine launches on one stream into one buffer, and the "
+                                 "supervised journal is serial")
+            knobs["hash_workers"] = 1
         t_start = time.time()
         backend = self._make_backend()
-        pipe = RebuildPipeline(backend, self._lib, **knobs)
+        injector = getattr(self.supervisor, "injector", None)
+        if injector is None:
+            injector = FaultInjector.from_env()
+        pipe = RebuildPipeline(backend, self._lib, injector=injector, **knobs)
         results = pipe.run(jobs, collect_branches, start_depth)
         trie_metrics.record_commit(
             backend=backend.effective_kind, nodes=results[-1].hashed_nodes,

@@ -250,7 +250,9 @@ def staged_chunks(levels, k: int, device) -> list[tuple]:
             eng.dispatch_packed(*args, b_tier=level_b_tier(kind, args))
         else:
             eng.dispatch_branch(*args)
-    return eng._upload_chunks()
+    u8, idx, plan, t_off = eng._stage_flush()
+    return eng._chunk_args(eng._to_device(u8), eng._to_device(idx), t_off, plan,
+                           eng._chunk_plan(plan, k))
 
 
 # -- chunks around kernel 4's path split (five lanes a row on narrow steps) ----

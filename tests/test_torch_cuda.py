@@ -16,8 +16,10 @@ from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, edge_chain, edge_digest_
                             sparse_block, sparse_state, staged_chunks, template_bucket,
                             template_buffer, template_levels, threshold_chain)
 from reth_tpu_torch import convert
+from reth_tpu_torch.metrics import MetricsRegistry, fused_metrics
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
+from reth_tpu_torch.ops.supervisor import DeviceSupervisor
 from reth_tpu_torch.primitives.keccak import keccak256, num_blocks_for, pad_batch
 from reth_tpu_torch.primitives.types import Account
 from reth_tpu_torch.trie import sparse as tsp
@@ -322,3 +324,38 @@ def test_sparse_finish_on_card_matches_cpu(seed, k):
         out[device] = roots, stored
     assert out["cuda"][0] == out["cpu"][0]
     assert out["cuda"][1] == out["cpu"][1]
+
+
+@pytest.mark.cuda
+def test_startup_probe_is_healthy_on_card():
+    """The real startup probe: the kernels built in this process, then a
+    child that loads kernel 1 and hashes keccak256(b"") on the card."""
+    require_card()
+    sup = DeviceSupervisor(registry=MetricsRegistry(), probe_budget=300)
+    assert sup.startup(), sup.last_probe.diag
+    assert sup.breaker.state == "closed" and sup.last_probe.latency > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 8])
+def test_supervised_rebuild_on_card_matches_twin(monkeypatch, k):
+    """TurboCommitter(backend="auto") on the card: clean, the device route
+    launches its kernels with no failover; with the first chunk wedged at
+    k=8, the per-level rung launches kernel 4 once a level. Roots equal the
+    numpy twin's either way."""
+    require_card()
+    jobs = prefix_jobs(3000, seed=6)
+    want = [r.root for r in tturbo.TurboCommitter(backend="numpy").commit_hashed_many(jobs, True, 2)]
+    for wedge in ((0, 1) if k else (0,)):
+        sup = DeviceSupervisor(registry=MetricsRegistry(), probe_fn=lambda b, injector=None: None)
+        committer = tturbo.TurboCommitter(backend="auto", supervisor=sup, subtrie_levels=k)
+        if wedge:
+            monkeypatch.setenv("RETH_TPU_FAULT_SUBTRIE_WEDGE", "1")
+        before = fc.subtrie_levels.launches + fc.packed_level.launches
+        got = committer.commit_hashed_many(jobs, True, 2)
+        torch.cuda.synchronize()
+        assert [r.root for r in got] == want
+        assert sup.failovers == 0 and sup.breaker.state == "closed"
+        assert fc.subtrie_levels.launches + fc.packed_level.launches > before
+        if k:
+            assert fused_metrics.last["mode"] == ("perlevel" if wedge else "fused")

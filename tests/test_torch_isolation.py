@@ -18,6 +18,7 @@ from reth_tpu_torch import convert
 from reth_tpu_torch.device import resolve
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import keccak as tk
+from reth_tpu_torch.ops import supervisor as tsup
 from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie.committer import TrieCommitter
@@ -47,8 +48,16 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
     for mod in ("reth_tpu_torch.ops.keccak", "reth_tpu_torch.ops.fused_commit",
                 "reth_tpu_torch.trie.turbo", "reth_tpu_torch.trie.state_root",
                 "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types",
-                "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing"):
+                "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing",
+                "reth_tpu_torch.ops.supervisor"):
         assert mod in res["modules"]
+
+
+def test_probe_code_names_no_jax_and_nothing_of_reth_tpu():
+    """The supervisor's probe child imports torch and the port only."""
+    code = tsup.PROBE_CODE
+    assert "jax" not in code and "reth_tpu." not in code
+    assert "import torch" in code and "reth_tpu_torch" in code
 
 
 def test_sources_name_no_jax_import():
@@ -66,7 +75,8 @@ def test_sources_name_no_jax_import():
     TurboCommitter.__init__, tsr.state_root, tsr.storage_root, tsr.ordered_trie_root,
     convert.jobs_to_device, convert.digest_buffer_from_numpy,
     tsp.ParallelSparseCommitter.__init__, tsp.SparseTrie.root_hash_compute,
-    tsp.SparseStateTrie.root, tsp.device_hasher,
+    tsp.SparseStateTrie.root, tsp.device_hasher, tsup.SupervisedBackend.__init__,
+    tsup.SupervisedHasher.__init__,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -85,5 +95,10 @@ def test_cuda_without_a_card_raises():
         TrieCommitter()
     with pytest.raises(RuntimeError):
         tsp.ParallelSparseCommitter()
+    sup = tsup.DeviceSupervisor(probe_fn=lambda budget, injector=None: None)
+    with pytest.raises(RuntimeError):
+        TurboCommitter(backend="auto", supervisor=sup)
+    with pytest.raises(RuntimeError):
+        TrieCommitter(supervisor=sup)
     with pytest.raises(ValueError):
         resolve("meta")

@@ -104,9 +104,11 @@ def test_rejects_like_reference(port):
         port.commit_hashed_pipelined([dup, job(5, seed=2)])
 
 
-@pytest.mark.parametrize("kw", [dict(backend="auto"), dict(mesh=object()),
+# "auto" and supervisor= are ported; the hash service and the mesh are not,
+# with or without them
+@pytest.mark.parametrize("kw", [dict(backend="auto", hash_service=object()), dict(mesh=object()),
                                 dict(hash_service=object()), dict(subtrie_levels=4, mesh=object()),
-                                dict(supervisor=object())])
+                                dict(supervisor=object(), mesh=object())])
 def test_unported_seams_raise(kw):
     with pytest.raises(NotImplementedError):
         TurboCommitter(device="cpu", **kw)
