@@ -32,7 +32,7 @@
    child process that loads kernel 1 and hashes keccak256(b"") on the card;
    the run fails unless it is ok and the breaker closed. Its latency is
    logged.
-3. Slice phase, eight main paths, the launch counters zeroed just before
+3. Slice phase, ten main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
@@ -64,13 +64,36 @@
    leaf rewritten) finished by ParallelSparseCommitter's classic path
    (kernel 1, launched by KeccakDevice only), and "sparse k=8", the same
    blocks on a second copy of the state through subtrie_levels=8 (kernel
-   4, SubtrieFusedEngine); every root and the account trie's stored branch
-   updates (export_branch_updates) are held against a third copy finished
-   on the CPU with the numpy hasher. Each finish is timed (median of the
-   blocks). Each path must launch its kernels and no other. The
+   4, SubtrieFusedEngine), and "sparse arena", the same blocks on a third
+   copy through ParallelSparseCommitter(arena=DigestArena()): the hot-state
+   plane's delta finish, kernel 4 on one engine whose digest buffer stays on
+   the card across blocks (the baseline is its full epoch, each block a
+   delta epoch that splices rows earlier epochs wrote; it must end with
+   SPARSE_BLOCKS delta epochs, resident hits, and after every epoch no
+   fault, no leaked row and no pinned staging; its finish wall, launches,
+   staged rows, bytes staged, resident rows, buffer growths and pinned
+   bytes are logged beside "sparse k=8"'s, block by block); every root and
+   the account trie's stored branch updates (export_branch_updates) are
+   held against a fourth copy finished on the CPU with the numpy hasher.
+   Then "hot tip": one account trie of HOT_ACCOUNTS (262,144) seeded keys,
+   two sibling forks imported interleaved, HOT_BLOCKS (8) blocks a fork of
+   2,048 writes (half of them keys of the fork's previous block) and 128
+   deletes; each block starts from a blind SparseTrie at its fork's root
+   with reveal stamping, reveals its keys through a shared TrieNodeCache
+   (reveal_through) and otherwise by a "proof fetch" from the fork's fully
+   revealed CPU twin (node_at + reveal_at), commits through an arena on the
+   card, is held against the twin's root, and is absorbed into the cache
+   (invalidate_key + harvest). Its cold lineage (no cache, no arena, no
+   stamping: subtrie_levels=8 on the card) runs the same stream before the
+   main paths; each block's root must equal on both lineages, and both
+   lineages' proof fetches, cache hits / misses / entries, stamped rows,
+   delta fraction, bytes staged and walls are logged per block. Each
+   finish is timed (median of the blocks). Each path must launch its
+   kernels and no other. The
    arguments of every kernel launch of each path are kept; each engine's
    host-to-device copies, launches and staged levels are logged.
-4. For each main path, two more runs after the launch counts were read:
+4. For each main path, two more runs after the launch counts were read
+   (the hot tip: two more blocks of its cached lineage):
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
@@ -79,7 +102,10 @@
    template levels, the "template_levels" row, whose plain version is
    splice_level on the reference's padded layout; keccak256_absorb once more
    at the sparse finish's launches, the "sparse_absorb" row, and
-   subtrie_levels at the fused finish's, the "sparse_subtrie" row), its
+   subtrie_levels at the fused finish's, the "sparse_subtrie" row, and at
+   the arena's, the "arena_subtrie" row, each chunk replayed on a copy of
+   the digest buffer as its launch found it, rows of earlier epochs
+   resident), its
    launch with the most rows and its launch at the median row count (for
    subtrie_levels, the chunk with the most rows over its levels and the
    median one), replayed on a random digest buffer, bit for bit against the
@@ -124,6 +150,14 @@
    survives, the next commit is right); g) probe_fail=-1 (startup returns
    False, the breaker opens); h) TrieCommitter(fused=True, supervisor=...)
    with one wedge. Each drill's rung, wall and launches are logged.
+   Then the hot-state plane's drills (hot_drills), each checking the rungs
+   it expects: a) a launch fault inside a delta epoch (one fault, one
+   eviction, the commit's root from the classic finish on the card, then a
+   full epoch and a delta one); b) RETH_TPU_FAULT_HOTSTATE_EVICT_STORM=1
+   (every epoch full); c) RETH_TPU_FAULT_HOTSTATE_POISON=3 on the hot tip
+   (every poisoned serve caught, none revealed); d) max_rows shrunk so that
+   begin_epoch evicts (no leaked row); e) a second thread holding the arena
+   (the classic finish, contended 1).
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; before it, the card's name and power limit
@@ -463,12 +497,15 @@ def _put(a, dtype):
     return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to("cuda")
 
 
-def _same_buffer(kernel, ref, args, buf_rows: int, rng) -> int:
-    """Run a level kernel and its plain version from the same random digest
-    buffer; returns the max abs difference of the two buffers after."""
+def _same_buffer(kernel, ref, args, buf_rows: int, rng, base=None) -> int:
+    """Run a level kernel and its plain version from the same digest buffer,
+    ``base`` or a random one; returns the max abs difference of the two
+    buffers after."""
     import torch
 
-    base = torch.from_numpy(rng.integers(0, 256, size=(buf_rows, 32), dtype=np.uint8)).to("cuda")
+    if base is None:
+        base = torch.from_numpy(rng.integers(0, 256, size=(buf_rows, 32),
+                                             dtype=np.uint8)).to("cuda")
     b_k, b_r = base.clone(), base.clone()
     kernel(*args, b_k)
     ref(*args, b_r)
@@ -655,20 +692,25 @@ KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 # the general committer, fused and then supervised (SupervisedHasher over
 # KeccakDevice), then the sparse live-tip finish, classic and fused
 PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", "sparse",
-         "sparse k=8")
+         "sparse k=8", "sparse arena", "hot tip")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
                 "state_root": ("keccak256_absorb", "packed_level"),
                 "state_root auto": ("keccak256_absorb",),
-                "sparse": ("keccak256_absorb",), "sparse k=8": ("subtrie_levels",)}
+                "sparse": ("keccak256_absorb",), "sparse k=8": ("subtrie_levels",),
+                "sparse arena": ("subtrie_levels",), "hot tip": ("subtrie_levels",)}
 # the rebuild paths and their unsupervised twins
 AUTO_TWIN = {"auto": "default", "auto k=8": "k=8"}
 # the drills' state: bench.py's generator at a fixed cut size (no flag)
 DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 # the rows that time a kernel at another main path's launches: row -> kernel
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
-              "sparse_subtrie": "subtrie_levels"}
+              "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels"}
+# the main paths whose kernel 4 launches keep a copy of the digest buffer as
+# it was before the launch (the arena's: rows of earlier epochs), so that the
+# timed replay starts from it
+KEEP_BUFFER_PATHS = ("sparse arena",)
 # the one place the port may launch kernel 1 from
 KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
 
@@ -691,16 +733,19 @@ class _Recorded:
 
     def __call__(self, *args):
         before = self.fn.launches
+        rec = self.recorder
+        keep = self.name == "subtrie_levels" and rec.path in KEEP_BUFFER_PATHS
+        base = args[-1].clone() if keep else None
         out = self.fn(*args)
         if self.fn.launches != before:
-            rec = self.recorder
             if self.name == "keccak256_absorb":
                 rec.calls[rec.path][self.name].append(args)
                 caller = sys._getframe(1).f_code
                 rec.callers.add(f"{os.path.relpath(caller.co_filename, HERE)}:"
                                 f"{caller.co_qualname}")
             else:
-                rec.calls[rec.path][self.name].append(args[:-1] + (args[-1].shape[0],))
+                last = base if keep else args[-1].shape[0]
+                rec.calls[rec.path][self.name].append(args[:-1] + (last,))
         return out
 
 
@@ -709,8 +754,9 @@ class MainPathRecorder:
     while it is entered, by main path (``path``, set by the caller), and
     the callers of kernel 1's wrapper. It wraps the module attributes the
     port calls through; each wrapper still launches and counts as it does
-    unwrapped. The level kernels' digest buffer is kept as its row count
-    only."""
+    unwrapped. The level kernels' digest buffer is kept as its row count,
+    except on ``KEEP_BUFFER_PATHS``, where kernel 4's is kept as it was
+    before the launch."""
 
     def __init__(self):
         from reth_tpu_torch.ops import fused_commit as fc
@@ -897,6 +943,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "sparse_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
                            lambda *a: subtrie_cost(bound, *a), level_src,
                            "reth_tpu/ops/fused_commit.py:1046", "sparse k=8"),
+        "arena_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
+                          lambda *a: subtrie_cost(bound, *a), level_src,
+                          "reth_tpu/ops/fused_commit.py:1046", "sparse arena"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -924,9 +973,17 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                                       keccak256_words_masked_unstaged(*rec).view(torch.uint8)))
                 call, plain = (lambda: kernel(*fargs)), (lambda: ref(*fargs))
             else:
-                fargs, buf_rows = rec[:-1], rec[-1]
-                err = _same_buffer(kernel, ref, fargs, buf_rows, rng)
-                b_k = torch.zeros((buf_rows, 32), dtype=torch.uint8, device="cuda")
+                # an arena launch's buffer as the launch found it (rows of
+                # earlier epochs resident), else its row count
+                fargs, base = rec[:-1], rec[-1]
+                if isinstance(base, torch.Tensor):
+                    buf_rows = base.shape[0]
+                    extra = f", replayed on the buffer as the launch found it ({buf_rows} rows)"
+                else:
+                    buf_rows, base = base, None
+                err = _same_buffer(kernel, ref, fargs, buf_rows, rng, base)
+                b_k = (base.clone() if base is not None else
+                       torch.zeros((buf_rows, 32), dtype=torch.uint8, device="cuda"))
                 # the template levels' plain version is timed on rows padded beforehand
                 plain_fn, plain_args = ((fc.splice_level, fc.padded_level(*fargs))
                                         if name == "template_levels" else (ref, fargs))
@@ -991,29 +1048,65 @@ def engine_summary(engines: list) -> str:
     return out
 
 
+# the sparse finish's card paths
+SPARSE_PATHS = ("sparse", "sparse k=8", "sparse arena")
+
+
+class GcPauses:
+    """The interpreter's garbage-collection pauses while entered: ``stats()``
+    gives their summed seconds (``gc_s``) and count (``gc_runs``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses: list[float] = []
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+    def _on_gc(self, phase, _info) -> None:
+        if phase == "start":
+            self.pauses.append(-time.perf_counter())
+        elif self.pauses:
+            self.pauses[-1] += time.perf_counter()
+
+    def stats(self) -> dict:
+        return {"gc_s": round(sum(self.pauses), 4), "gc_runs": len(self.pauses)}
+
+
 class SparseCell:
     """The sparse live-tip finish at one size: the same generated state
-    three times, committed by the card's classic finish ("sparse":
+    four times, committed by the card's classic finish ("sparse":
     ParallelSparseCommitter hashing each depth through KeccakDevice, kernel
     1), by the card's fused finish ("sparse k=8": subtrie_levels=8, kernel
-    4) and by the CPU twin (the classic finish on device="cpu" with the
-    numpy hasher). Each block applies the same seeded dirty set to all
-    three; every root and the account trie's stored branch updates are held
+    4), by the hot-state arena's delta finish on the card ("sparse arena":
+    arena=DigestArena(), kernel 4 on one engine whose digest buffer outlives
+    the block) and by the CPU twin (the classic finish on device="cpu" with
+    the numpy hasher). Each block applies the same seeded dirty set to all
+    four; every root and the account trie's stored branch updates are held
     against the twin's."""
 
     def __init__(self):
+        from reth_tpu_torch.ops.fused_commit import DigestArena
         from reth_tpu_torch.primitives.keccak import keccak256_batch_np
         from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
 
         self.hash_np = keccak256_batch_np
         t0 = time.perf_counter()
         self.states = {name: sparse_base(SPARSE_TRIES, SPARSE_SLOTS)
-                       for name in ("sparse", "sparse k=8", "twin")}
+                       for name in SPARSE_PATHS + ("twin",)}
         self.owners = self.states["twin"][1]
-        log(f"sparse state generated 3 times in {time.perf_counter() - t0:.1f} s "
+        log(f"sparse state generated {len(self.states)} times in {time.perf_counter() - t0:.1f} s "
             f"({SPARSE_TRIES} storage tries x {SPARSE_SLOTS} slots, {SPARSE_TRIES} accounts)")
+        self.arena = DigestArena()
         self.committers = {"sparse": ParallelSparseCommitter(device="cuda"),
                            "sparse k=8": ParallelSparseCommitter(subtrie_levels=8, device="cuda"),
+                           "sparse arena": ParallelSparseCommitter(arena=self.arena,
+                                                                   device="cuda"),
                            "twin": ParallelSparseCommitter(device="cpu")}
         # the fused finish's engines, one per commit
         self.engines = track_engines(self.committers["sparse k=8"], "_engine")
@@ -1025,33 +1118,19 @@ class SparseCell:
 
     def finish(self, name: str):
         """One finish of ``name``'s state; returns (root, wall s, stats).
-        The stats gain ``gc_s``, the interpreter's garbage-collection pauses
-        inside the finish, and ``gc_runs``, their count."""
-        import gc
-
+        The stats gain ``gc_s`` and ``gc_runs`` (``GcPauses``)."""
         import torch
 
         st, _, _ = self.states[name]
         c = self.committers[name]
         hasher = self.hash_np if name == "twin" else None
-        pauses = []
-
-        def on_gc(phase, _info):
-            if phase == "start":
-                pauses.append(-time.perf_counter())
-            elif pauses:
-                pauses[-1] += time.perf_counter()
-
-        gc.callbacks.append(on_gc)
-        try:
+        with GcPauses() as gcp:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             root = st.root(hasher, committer=c)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            gc.callbacks.remove(on_gc)
-        return root, wall, dict(c.last, gc_s=round(sum(pauses), 4), gc_runs=len(pauses))
+        return root, wall, dict(c.last, **gcp.stats())
 
     def baseline(self) -> None:
         """The clean state hashed once by each committer (outside the main
@@ -1059,11 +1138,13 @@ class SparseCell:
         of kernel 1 (classic) and kernel 4 (fused) on all of its nodes."""
         from reth_tpu_torch.trie.sparse import export_branch_updates
 
-        for name in ("twin", "sparse", "sparse k=8"):
+        for name in ("twin",) + SPARSE_PATHS:
             root, wall, stats = self.finish(name)
             self.roots[name].append(root)
             self.stored[name] = export_branch_updates(self.states[name][0].account_trie,
                                                       self.owners)
+            if name == "sparse arena":
+                stats.update(self.check_arena("baseline"))
             log(f"sparse baseline, {name}: {wall:.3f} s, root {root.hex()}, stats {stats}")
         self.check("baseline")
 
@@ -1096,7 +1177,7 @@ class SparseCell:
 
     def check(self, what: str) -> None:
         """Every root and branch export so far equal to the twin's."""
-        for name in ("sparse", "sparse k=8"):
+        for name in SPARSE_PATHS:
             n = len(self.roots[name])
             if self.roots[name] != self.roots["twin"][:n]:
                 raise AssertionError(f"{name}: a sparse root differs from the CPU twin's ({what})")
@@ -1107,20 +1188,356 @@ class SparseCell:
             f"{len(self.exports['sparse'])} account-trie branch exports "
             f"({sum(len(e) for e in self.exports['sparse'])} updates) equal the CPU twin's")
 
+    def arena_state(self) -> dict:
+        """The arena's engine after an epoch: resident rows, buffer rows,
+        copy-growths (and their bytes and card time), pinned staging held."""
+        eng = self.arena.engine
+        return {"resident_rows": self.arena.snapshot()["resident_rows"],
+                "buffer_rows": int(eng._buf.shape[0]) if eng._buf is not None else 0,
+                "growths": eng.growths, "grown_bytes": eng.grown_bytes,
+                "grow_ms": round(eng.grow_ms(), 4), "pinned_bytes": eng.pinned_bytes()}
+
+    def check_arena(self, what: str) -> dict:
+        """After each arena epoch: no fault, no leaked row, no pinned staging
+        left; returns ``arena_state``."""
+        snap, state = self.arena.snapshot(), self.arena_state()
+        if snap["faults"] or snap["leaked_rows"] or state["pinned_bytes"]:
+            raise AssertionError(f"sparse arena, {what}: a fault, a leaked row or pinned "
+                                 f"staging left on a clean path: {snap}, {state}")
+        return state
+
     def drive(self, name: str, walls: dict):
         """A main path: ``SPARSE_BLOCKS`` blocks of ``name``, each finish
-        timed; logs the median wall, hashed nodes and stats. The classic
-        path's host-to-device copies, counted by its KeccakDevice (built by
-        the baseline), go to ``self.copies``."""
+        timed, with its launches (all four wrappers); logs each block and
+        the median wall. The classic path's host-to-device copies, counted by
+        its KeccakDevice (built by the baseline), go to ``self.copies``; the
+        arena path's state after each epoch (``arena_state``) goes into the
+        block's stats, and it must end with SPARSE_BLOCKS delta epochs after
+        the baseline's full one, resident hits, no fault and no leaked row."""
+        from reth_tpu_torch.ops import fused_commit as fc
+        from reth_tpu_torch.ops import keccak as ok
+
+        def launched() -> int:
+            return sum(w.launches for w in (ok.keccak256_words_masked, fc.packed_level,
+                                            fc.branch_level, fc.subtrie_levels))
+
         hasher = self.committers[name]._hasher
         before = hasher.__self__.uploads if hasher is not None else 0
-        out = [self.block(name) for _ in range(SPARSE_BLOCKS)]
+        out = []
+        for b in range(SPARSE_BLOCKS):
+            n0 = launched()
+            w, stats = self.block(name)
+            stats["launches"] = launched() - n0
+            if name == "sparse arena":
+                stats.update(self.check_arena(f"block {b}"))
+            out.append((w, stats))
         if hasher is not None:
             self.copies[name] = hasher.__self__.uploads - before
         walls[name] = [w for w, _ in out]
         for i, (w, stats) in enumerate(out):
             log(f"sparse finish, {name}, block {i}: {w:.4f} s, stats {stats}")
+        if name == "sparse arena":
+            snap = self.arena.snapshot()
+            if (snap["delta_epochs"], snap["full_epochs"], snap["faults"],
+                    snap["leaked_rows"]) != (SPARSE_BLOCKS, 1, 0, 0) or not snap["resident_hits"]:
+                raise AssertionError(f"sparse arena: expected {SPARSE_BLOCKS} delta epochs after "
+                                     f"one full epoch, resident hits, no fault and no leaked "
+                                     f"row: {snap}")
+            log(f"sparse arena: {json.dumps(snap)}")
         return out
+
+
+# the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
+# forks imported interleaved (A1 B1 A2 B2 ...), HOT_BLOCKS blocks a fork,
+# each of HOT_WRITES writes (half of them keys of the fork's previous block)
+# and HOT_DELETES deletes (the shape of bench.py's hotstate mode, at the trie
+# level)
+HOT_ACCOUNTS, HOT_BLOCKS, HOT_WRITES, HOT_DELETES = 262_144, 8, 2048, 128
+HOT_NEW = 128  # of each block's writes, keys new to the fork (inserts)
+
+
+def clone_trie(trie):
+    """A structural copy of a fully revealed, hashed SparseTrie (refs
+    included); blinds are shared, as nothing mutates one."""
+    from reth_tpu_torch.trie import sparse as sp
+
+    def cp(n):
+        if n is None or isinstance(n, sp._Blind):
+            return n
+        if isinstance(n, sp._Leaf):
+            c = sp._Leaf(n.path, n.value)
+        elif isinstance(n, sp._Ext):
+            c = sp._Ext(n.path, cp(n.child))
+        else:
+            c = sp._Branch([cp(x) for x in n.children], n.value)
+        c._ref = n._ref
+        return c
+
+    out = sp.SparseTrie()
+    out.root, out.root_hash = cp(trie.root), trie.root_hash
+    return out
+
+
+class HotStream:
+    """The hot tip's block stream, made from (seed, block): blocks alternate
+    between forks A and B; each writes HOT_WRITES keys of its fork (half
+    from the fork's previous block, HOT_NEW new, the rest drawn from the
+    fork's keys) and deletes HOT_DELETES others. Blocks are made on demand
+    and kept, so two lineages replay the same stream."""
+
+    def __init__(self, keys: list[bytes], seed: int = 17):
+        self.seed = seed
+        self.keys = {f: list(keys) for f in "AB"}  # each fork's live keys
+        self.prev = {f: [] for f in "AB"}
+        self.blocks: list[tuple[str, list, list]] = []  # (fork, writes, deletes)
+
+    def block(self, i: int):
+        while len(self.blocks) <= i:
+            self._make(len(self.blocks))
+        return self.blocks[i]
+
+    def _make(self, i: int) -> None:
+        from reth_tpu_torch.primitives.types import Account, encode_account
+
+        fork = "AB"[i % 2]
+        rng = np.random.default_rng([self.seed, i])
+        live = self.keys[fork]
+        prev = self.prev[fork]
+        n_prev = min(len(prev), HOT_WRITES // 2)
+        chosen = ([prev[int(j)] for j in rng.choice(len(prev), n_prev, replace=False)]
+                  if prev else [])
+        taken = set(chosen)
+        while len(chosen) < HOT_WRITES - HOT_NEW:
+            k = live[int(rng.integers(0, len(live)))]
+            if k not in taken:
+                taken.add(k)
+                chosen.append(k)
+        chosen += [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(HOT_NEW)]
+        writes = [(k, encode_account(Account(nonce=int(rng.integers(0, 1000)),
+                                             balance=int(rng.integers(1, 1 << 60)))))
+                  for k in chosen]
+        deletes = []
+        while len(deletes) < HOT_DELETES:
+            k = live[int(rng.integers(0, len(live)))]
+            if k not in taken:
+                taken.add(k)
+                deletes.append(k)
+        gone = set(deletes)
+        self.keys[fork] = [k for k in live if k not in gone] + chosen[-HOT_NEW:]
+        self.prev[fork] = [k for k, _ in writes]
+        self.blocks.append((fork, writes, deletes))
+
+
+class HotTip:
+    """One lineage of the hot tip: per block a blind SparseTrie at the
+    fork's root, revealed along the block's keys (through the shared
+    TrieNodeCache when ``cached``, else, and for what the cache misses, by a
+    "proof fetch": ``node_at`` on the fork's fully revealed CPU twin and
+    ``reveal_at``), the block applied, the root committed by ``committer``
+    on the card and held against the twin's (the twin: the same block
+    applied and committed on the CPU with the numpy hasher), and, when
+    cached, the block absorbed into the cache (``invalidate_key`` +
+    ``harvest``). The cached lineage stamps its reveals and commits through
+    a DigestArena; the cold one does neither."""
+
+    def __init__(self, stream: HotStream, genesis, committer, cached: bool):
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.trie.hot_cache import TrieNodeCache
+        from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
+
+        self.stream, self.committer, self.cached = stream, committer, cached
+        self.twins = {f: clone_trie(genesis) for f in "AB"}
+        self.roots = {f: genesis.root_hash for f in "AB"}
+        self.cache = TrieNodeCache() if cached else None
+        self.twin_committer = ParallelSparseCommitter(device="cpu")
+        self.hash_np = keccak256_batch_np
+        self.next = 0
+        self.records: list[dict] = []
+
+    def block(self) -> dict:
+        """The next block of the stream on this lineage; returns its record."""
+        import torch
+
+        from reth_tpu_torch.trie.hot_cache import ACCOUNT_OWNER
+        from reth_tpu_torch.trie.sparse import BlindedNodeError, SparseTrie, _encode_rlp
+
+        fork, writes, deletes = self.stream.block(self.next)
+        twin, cache = self.twins[fork], self.cache
+        blind = SparseTrie(root_hash=self.roots[fork])
+        blind.stamp_reveals = self.cached
+        n = {"fetches": 0, "cache_unblinds": 0}
+        c0 = dict(cache.stats()) if cache is not None else {}
+
+        def fetch(path) -> None:
+            node = twin.node_at(bytes(path))
+            if node is None or not blind.reveal_at(bytes(path), _encode_rlp(node)):
+                raise AssertionError(f"hot tip: the twin cannot reveal {bytes(path).hex()}")
+            n["fetches"] += 1
+
+        def apply(op) -> None:
+            for _ in range(400):
+                try:
+                    return op()
+                except BlindedNodeError as e:
+                    path = bytes(e.path)
+                    h = blind.blind_hash_at(path)
+                    rlp = cache.lookup(ACCOUNT_OWNER, path, h) if cache and h else None
+                    if rlp is not None and blind.reveal_at(path, rlp):
+                        n["cache_unblinds"] += 1
+                        continue
+                    fetch(path)
+            raise AssertionError("hot tip: the reveal loop did not converge")
+
+        t0 = time.perf_counter()
+        for k, _ in writes + [(k, None) for k in deletes]:
+            if cache is not None and cache.reveal_through(blind, ACCOUNT_OWNER, k):
+                continue
+            apply(lambda k=k: blind.get(k))
+        for k, v in writes:
+            apply(lambda k=k, v=v: blind.update(k, v))
+        for k in deletes:
+            apply(lambda k=k: blind.delete(k))
+        reveal_s = time.perf_counter() - t0
+        if blind.root is not None and torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with GcPauses() as gcp:
+            t0 = time.perf_counter()
+            (root,) = self.committer.commit([blind])
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stats = dict(self.committer.last)
+        for k, v in writes:
+            twin.update(k, v)
+        for k in deletes:
+            twin.delete(k)
+        (want,) = self.twin_committer.commit([twin], self.hash_np)
+        if root != want:
+            raise AssertionError(f"hot tip: block {self.next} ({fork}) root differs from the "
+                                 f"CPU twin's")
+        arena = getattr(self.committer, "arena", None)
+        if arena is not None:
+            snap = arena.snapshot()
+            pinned = arena.engine.pinned_bytes() if arena.engine is not None else 0
+            if snap["faults"] or snap["leaked_rows"] or pinned:
+                raise AssertionError(f"hot tip: a fault, a leaked row or pinned staging left "
+                                     f"after block {self.next}: {snap}, {pinned} B pinned")
+        absorb_s = 0.0
+        if cache is not None:
+            t0 = time.perf_counter()
+            changed = [k for k, _ in writes] + deletes
+            for k in changed:
+                cache.invalidate_key(ACCOUNT_OWNER, k)
+            cache.harvest(blind, ACCOUNT_OWNER, changed)
+            cache.record_block()
+            absorb_s = time.perf_counter() - t0
+        self.roots[fork] = root
+        c1 = cache.stats() if cache is not None else {}
+        rec = {"block": self.next, "fork": fork, "root": root.hex()[:16],
+               "finish_s": round(wall, 4), "finish_gc_s": gcp.stats()["gc_s"],
+               "reveal_s": round(reveal_s, 4), "absorb_s": round(absorb_s, 4),
+               "proof_fetches": n["fetches"], "cache_unblinds": n["cache_unblinds"],
+               "cache_hits": c1.get("hits", 0) - c0.get("hits", 0),
+               "cache_misses": c1.get("misses", 0) - c0.get("misses", 0),
+               "cache_entries": c1.get("entries", 0),
+               "poison_caught": c1.get("poison_caught", 0) - c0.get("poison_caught", 0),
+               "hashed": stats.get("hashed"), "h2d_bytes": stats.get("h2d_bytes"),
+               "stamped_rows": stats.get("stamped_rows"),
+               "delta_fraction": stats.get("delta_fraction"),
+               "arena_fresh": stats.get("arena_fresh"), "root_bytes": root}
+        self.records.append(rec)
+        self.next += 1
+        return rec
+
+
+def hot_genesis(seed: int = 19):
+    """The hot tip's genesis account trie: HOT_ACCOUNTS seeded hashed keys
+    with account values, built and hashed on the CPU (numpy hasher).
+    Returns (trie, keys)."""
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.primitives.types import Account, encode_account
+    from reth_tpu_torch.trie.sparse import ParallelSparseCommitter, SparseTrie
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 256, size=(HOT_ACCOUNTS, 32), dtype=np.uint8)
+    keys = [bytes(k) for k in np.unique(keys.view("S32").ravel()).view(np.uint8).reshape(-1, 32)]
+    balances = rng.integers(1, 1 << 60, size=len(keys))
+    t = SparseTrie()
+    for i, k in enumerate(keys):
+        t.update(k, encode_account(Account(nonce=i % 300, balance=int(balances[i]))))
+    ParallelSparseCommitter(device="cpu").commit([t], keccak256_batch_np)
+    return t, keys
+
+
+def hot_tip_setup():
+    """The hot tip's genesis and stream, and its two lineages: the cold one
+    (no cache, no arena, no stamping; the classic fused finish on the card,
+    subtrie_levels=8) driven over the whole stream here, outside the main
+    paths, and the cached one (stamped reveals through a TrieNodeCache, the
+    arena's delta finish on the card) returned for the main path "hot tip"."""
+    from reth_tpu_torch.ops.fused_commit import DigestArena
+    from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
+
+    t0 = time.perf_counter()
+    genesis, keys = hot_genesis()
+    log(f"hot tip: genesis account trie of {len(keys)} keys built and hashed on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s, root {genesis.root_hash.hex()}")
+    stream = HotStream(keys)
+    cold = HotTip(stream, genesis, ParallelSparseCommitter(subtrie_levels=8, device="cuda"),
+                  cached=False)
+    hot = HotTip(stream, genesis, ParallelSparseCommitter(arena=DigestArena(), device="cuda"),
+                 cached=True)
+    t0 = time.perf_counter()
+    for _ in range(2 * HOT_BLOCKS):
+        cold.block()
+    log(f"hot tip, cold lineage: {len(cold.records)} blocks ({HOT_WRITES} writes, "
+        f"{HOT_DELETES} deletes each) in {time.perf_counter() - t0:.1f} s, outside the main "
+        f"paths, every root equal to its fork's CPU twin")
+    return hot, cold
+
+
+def hot_tip_report(hot: HotTip, cold: HotTip) -> None:
+    """Each hot-tip block on both lineages: the same root (each already held
+    against its fork's twin), and, cached / cold, proof fetches, the
+    cache's hits, misses and entries, stamped rows and delta fraction,
+    bytes staged to the card and the finish wall."""
+    arena = hot.committer.arena
+    for h, c in zip(hot.records, cold.records):
+        if h["root_bytes"] != c["root_bytes"]:
+            raise AssertionError(f"hot tip: block {h['block']} root differs between the cached "
+                                 f"and the cold lineage")
+        log(f"hot tip, block {h['block']} ({h['fork']}), cached / cold: proof fetches "
+            f"{h['proof_fetches']} / {c['proof_fetches']}, cache hits {h['cache_hits']}, misses "
+            f"{h['cache_misses']}, entries {h['cache_entries']}, cache unblinds "
+            f"{h['cache_unblinds']}, hashed {h['hashed']} / {c['hashed']}, stamped rows "
+            f"{h['stamped_rows']}, delta fraction {h['delta_fraction']}, h2d bytes "
+            f"{h['h2d_bytes']} / {c['h2d_bytes']}, finish {h['finish_s']} / {c['finish_s']} s "
+            f"(collector {h['finish_gc_s']} / {c['finish_gc_s']} s), "
+            f"reveal {h['reveal_s']} / {c['reveal_s']} s, absorb {h['absorb_s']} s, full epoch "
+            f"{h['arena_fresh']}")
+    n = len(cold.records)
+    recs = hot.records[:n]
+
+    def total(rs, key):
+        return sum(r[key] for r in rs)
+
+    def median(rs, key):
+        v = sorted(r[key] for r in rs)
+        return v[len(v) // 2]
+
+    snap = arena.snapshot()
+    log(f"hot tip: {n} blocks, every root equal on both lineages and to the twins; proof "
+        f"fetches {total(recs, 'proof_fetches')} cached / {total(cold.records, 'proof_fetches')} "
+        f"cold; cache {json.dumps(hot.cache.stats())}; stamped rows "
+        f"{total(recs, 'stamped_rows')}, mean delta fraction "
+        f"{total(recs, 'delta_fraction') / n:.4f}; h2d bytes {total(recs, 'h2d_bytes')} / "
+        f"{total(cold.records, 'h2d_bytes')}; median finish {median(recs, 'finish_s')} / "
+        f"{median(cold.records, 'finish_s')} s, median reveal {median(recs, 'reveal_s')} / "
+        f"{median(cold.records, 'reveal_s')} s, median absorb {median(recs, 'absorb_s')} s; "
+        f"arena {json.dumps(snap)}")
+    if snap["faults"] or snap["leaked_rows"] or snap["full_epochs"] != 1:
+        raise AssertionError(f"hot tip: the arena faulted, leaked or left its delta epochs "
+                             f"on a clean path: {snap}")
 
 
 def join_supervised(timeout: float = 120.0) -> int:
@@ -1231,6 +1648,7 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     cell = SparseCell()
     cell.baseline()
     sparse_walls: dict[str, list] = {}
+    hot, cold = hot_tip_setup()
 
     def run_path(path: str, drive):
         recorder.path = path
@@ -1257,7 +1675,8 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
                                        lambda: state_root(accounts, storages, committer=sr_auto))
         n_engines = len(cell.engines)
         sparse_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
-                       for name in ("sparse", "sparse k=8")}
+                       for name in SPARSE_PATHS}
+        run_path("hot tip", lambda: [hot.block() for _ in range(2 * HOT_BLOCKS)])
     wall_sr = walls.pop("state_root")
     wall_sr_auto = walls.pop("state_root auto")
     # state_root auto's unsupervised twin (KeccakDevice without the
@@ -1271,17 +1690,30 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
         cell.block("twin")
     cell.check(f"{SPARSE_BLOCKS} blocks")
     fused_engines = cell.engines[n_engines:]
-    for name in ("sparse", "sparse k=8"):
+    for name in SPARSE_PATHS:
         w = sorted(sparse_walls[name])
         hashed = [stats["hashed"] for _, stats in sparse_runs[name]]
-        copies = (f"{cell.copies[name]} host-to-device copies (counted by KeccakDevice: "
-                  f"words and counts per launch)" if name == "sparse" else
-                  f"{sum(e.uploads for e in fused_engines)} host-to-device copies over "
-                  f"{len(fused_engines)} SubtrieFusedEngine commits, "
-                  f"{sum(e.levels_staged for e in fused_engines)} levels staged")
+        if name == "sparse":
+            copies = (f"{cell.copies[name]} host-to-device copies (counted by KeccakDevice: "
+                      f"words and counts per launch)")
+        elif name == "sparse k=8":
+            copies = (f"{sum(e.uploads for e in fused_engines)} host-to-device copies over "
+                      f"{len(fused_engines)} SubtrieFusedEngine commits, "
+                      f"{sum(e.levels_staged for e in fused_engines)} levels staged")
+        else:
+            copies = "one SubtrieFusedEngine (the arena's) across the blocks"
         log(f"sparse finish, {name}: median wall {w[len(w) // 2]:.4f} s over "
             f"{len(w)} blocks ({', '.join(f'{x:.4f}' for x in sparse_walls[name])}), "
             f"hashed nodes {hashed}, launches {json.dumps(launches[name])}, {copies}")
+    for b, ((wk, sk), (wa, sa)) in enumerate(zip(sparse_runs["sparse k=8"],
+                                                 sparse_runs["sparse arena"])):
+        log(f"sparse arena beside sparse k=8, block {b}: finish {wa:.4f} / {wk:.4f} s, "
+            f"launches {sa['launches']} / {sk['launches']}, staged rows {sa['staged_rows']} / "
+            f"{sk['hashed']}, h2d bytes {sa['h2d_bytes']} / {sk['h2d_bytes']}; arena: resident "
+            f"rows {sa['resident_rows']}, buffer {sa['buffer_rows']} rows, growths "
+            f"{sa['growths']} ({sa['grown_bytes']} B, {sa['grow_ms']} ms on the card), pinned "
+            f"{sa['pinned_bytes']} B after the epoch")
+    hot_tip_report(hot, cold)
     summaries = {name: engine_summary(made) for name, made in engines.items()}
     ladders = {name: {e.ladder for e in engines[name]} for name in ("k=8", "auto k=8")}
     if ladders != {"k=8": {False}, "auto k=8": {True}}:
@@ -1363,14 +1795,19 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     for name in ("default", "k=8"):
         profile_path(f"rebuild, {name} engine", lambda: rebuild(committers[name]))
     profile_path("state_root", lambda: state_root(accounts, storages, committer=fused))
-    for name in ("sparse", "sparse k=8"):
+    for name in SPARSE_PATHS:
         profile_path(f"sparse finish, {name}", lambda: cell.close(name),
                      prepare=lambda: cell.apply(name),
-                     focus=("_upload", "_engine", "hash_batch", "export_branch_updates"))
+                     focus=("_upload", "_engine", "hash_batch", "export_branch_updates",
+                            "peek_slots", "begin_delta"))
     for _ in range(2):  # each card path's two profiled blocks
         cell.block("twin")
     cell.check("with the profiled blocks")
-    return launches, recorder
+    cell.check_arena("the profiled blocks")
+    profile_path("hot tip block", hot.block,
+                 focus=("reveal_through", "harvest", "reveal_at", "lookup", "commit",
+                        "keccak256"))
+    return launches, recorder, hot
 
 
 def drills(device: str = "cuda", probe_fn=None, seed: int = 49) -> list[dict]:
@@ -1586,6 +2023,189 @@ def drills(device: str = "cuda", probe_fn=None, seed: int = 49) -> list[dict]:
     return records
 
 
+def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
+    """The hot-state plane's drills, after the main paths: a), b), d) and e)
+    on a state of the "sparse arena" size (bench.py's sparse generator,
+    SPARSE_TRIES x SPARSE_SLOTS, seed 7) and its CPU twin, one seeded block
+    per commit on both, every root held against the twin's; c) on two more
+    blocks of the hot tip's cached lineage. Each checks the rungs it expects
+    ("full" and "delta": the arena's epochs; "classic": the finish without
+    the arena):
+
+    a) a launch that raises inside a delta epoch: one fault, one eviction,
+       the same commit's root from the classic finish on the card (kernel 1),
+       then a full epoch, then a delta one;
+    b) RETH_TPU_FAULT_HOTSTATE_EVICT_STORM=1: every epoch full;
+    c) RETH_TPU_FAULT_HOTSTATE_POISON=3: every poisoned serve counted in
+       poison_caught and none revealed (each root still the twin's);
+    d) max_rows shrunk (after the first epoch, to 1.5 times its rows) so
+       that begin_epoch evicts: a delta epoch, then a full one after the
+       eviction, no leaked row;
+    e) a second thread holds the arena: the classic finish, contended 1."""
+    import torch
+
+    from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops import keccak as ok
+    from reth_tpu_torch.ops.fused_commit import DigestArena
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.trie.hot_cache import HotStateFaultInjector
+    from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
+
+    wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    t0 = time.perf_counter()
+    card, owners, keys = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)
+    twin = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)[0]
+    twin_c = ParallelSparseCommitter(device="cpu")
+    if card.root(committer=ParallelSparseCommitter(subtrie_levels=8, device=device)) != \
+            twin.root(keccak256_batch_np, committer=twin_c):
+        raise AssertionError("hot drills: the baseline root differs from the CPU twin's")
+    log(f"hot drills: state and twin generated and hashed in {time.perf_counter() - t0:.1f} s")
+    block = [0]
+    records = []
+
+    def commit(c) -> tuple[str, dict]:
+        """One more seeded block on both states, the card's committed through
+        ``c``; returns its rung and the launches by kernel."""
+        for st in (card, twin):
+            sparse_block(st, owners, keys, SPARSE_DIRTY, block[0], seed=7)
+        block[0] += 1
+        before = [w.launches for w in wrappers]
+        root = card.root(committer=c)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launched = {k: w.launches - b for k, w, b in zip(KERNELS, wrappers, before) if
+                    w.launches > b}
+        if root != twin.root(keccak256_batch_np, committer=twin_c):
+            raise AssertionError(f"hot drills: block {block[0] - 1}'s root differs from the "
+                                 f"CPU twin's")
+        fresh = c.last.get("arena_fresh")
+        return ("classic" if fresh is None else "full" if fresh else "delta"), launched
+
+    def drill(name: str, expect: list, run) -> None:
+        t1 = time.perf_counter()
+        rungs, detail = run()
+        wall = time.perf_counter() - t1
+        if rungs != expect:
+            raise AssertionError(f"hot drill {name} took rungs {rungs}, expected {expect} "
+                                 f"({detail})")
+        records.append({"drill": name, "rungs": rungs, "wall_s": round(wall, 4)})
+        log(f"hot drill {name}: rungs {rungs} as expected, {wall:.3f} s wall; {detail}")
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            raise AssertionError(what)
+
+    # a) a failed launch inside a delta epoch
+    arena = DigestArena()
+    c = ParallelSparseCommitter(arena=arena, device=device)
+
+    def run_a():
+        rungs = [commit(c)[0], commit(c)[0]]
+        real = fc.subtrie_levels
+
+        def failing(*_a):
+            raise RuntimeError("injected launch fault (hot drill a)")
+
+        fc.subtrie_levels = failing
+        try:
+            rung, launched = commit(c)
+        finally:
+            fc.subtrie_levels = real
+        snap = arena.snapshot()
+        check((snap["faults"], snap["evictions"], arena.engine) == (1, 1, None)
+              and (device != "cuda" or launched.get("keccak256_absorb", 0) > 0),
+              f"a): {snap}, {launched}")
+        rungs += [rung, commit(c)[0], commit(c)[0]]
+        check(arena.snapshot()["faults"] == 1 and arena.leaked_rows() == 0, f"a): {snap}")
+        return rungs, f"the faulted commit on the classic finish launched {launched}; {snap}"
+
+    drill("a) a launch fault in a delta epoch", ["full", "delta", "classic", "full", "delta"],
+          run_a)
+
+    # b) the evict storm
+    os.environ["RETH_TPU_FAULT_HOTSTATE_EVICT_STORM"] = "1"
+    try:
+        arena = DigestArena()
+        c = ParallelSparseCommitter(arena=arena, device=device)
+    finally:
+        del os.environ["RETH_TPU_FAULT_HOTSTATE_EVICT_STORM"]
+
+    def run_b():
+        rungs = [commit(c)[0] for _ in range(3)]
+        snap = arena.snapshot()
+        check((snap["delta_epochs"], snap["full_epochs"], snap["evictions"], snap["faults"],
+               snap["leaked_rows"]) == (0, 3, 3, 0, 0), f"b): {snap}")
+        return rungs, json.dumps(snap)
+
+    drill("b) RETH_TPU_FAULT_HOTSTATE_EVICT_STORM=1", ["full"] * 3, run_b)
+
+    # c) poisoned cache serves on the hot tip
+    def run_c():
+        os.environ["RETH_TPU_FAULT_HOTSTATE_POISON"] = "3"
+        try:
+            hot.cache.injector = HotStateFaultInjector.from_env()
+        finally:
+            del os.environ["RETH_TPU_FAULT_HOTSTATE_POISON"]
+        caught0 = hot.cache.poison_caught
+        try:
+            recs = [hot.block() for _ in range(2)]
+        finally:
+            inj, hot.cache.injector = hot.cache.injector, None
+        caught = hot.cache.poison_caught - caught0
+        check(caught == inj.poisons > 0, f"c): {caught} caught of {inj.poisons} poisoned serves")
+        return (["caught"] * 2,
+                f"{inj.poisons} poisoned serves of {inj.lookups} lookups that found an entry, "
+                f"all caught; blocks "
+                + "; ".join(f"{r['block']}: {r['proof_fetches']} proof fetches, "
+                            f"{r['cache_hits']} hits" for r in recs))
+
+    drill("c) RETH_TPU_FAULT_HOTSTATE_POISON=3, hot tip", ["caught"] * 2, run_c)
+
+    # d) a row budget that begin_epoch evicts at: set after the first epoch
+    # to 1.5 times its rows, so the second epoch fits and the third evicts
+    arena = DigestArena()
+    c = ParallelSparseCommitter(arena=arena, device=device)
+
+    def run_d():
+        rungs = [commit(c)[0]]
+        arena.max_rows = arena.next_slot * 3 // 2  # the constructor floors at 1024
+        rungs += [commit(c)[0] for _ in range(2)]
+        snap = arena.snapshot()
+        check(snap["evictions"] == 1 and snap["leaked_rows"] == 0 and not snap["faults"],
+              f"d): {snap}")
+        return rungs, f"max_rows {arena.max_rows}; {json.dumps(snap)}"
+
+    drill("d) max_rows at 1.5 epochs' rows", ["full", "delta", "full"], run_d)
+
+    # e) a second finish holds the arena
+    arena = DigestArena()
+    c = ParallelSparseCommitter(arena=arena, device=device)
+
+    def run_e():
+        held, done = threading.Event(), threading.Event()
+
+        def holder():
+            if arena.try_acquire():
+                held.set()
+                done.wait(120)
+                arena.release()
+
+        t = threading.Thread(target=holder, name="arena-holder")
+        t.start()
+        check(held.wait(60), "e): the holder did not take the arena")
+        try:
+            rung, launched = commit(c)
+        finally:
+            done.set()
+            t.join()
+        snap = arena.snapshot()
+        check(snap["contended"] == 1 and snap["epoch"] == 0, f"e): {snap}")
+        return [rung, commit(c)[0]], f"contended {snap['contended']}, launched {launched}"
+
+    drill("e) the arena held by a second thread", ["classic", "full"], run_e)
+    return records
+
+
 def profile_path(label: str, drive, prepare=None, focus=()) -> None:
     """Two more runs of a main path, after its counters were read (so
     their launches are not counted): one under torch.profiler for the
@@ -1697,7 +2317,7 @@ def main() -> int:
 
     sup = supervisor_startup()
     probe, check1 = kernel_checks(args, account_jobs, bound)
-    launches, recorder = slice_phase(args, storage_jobs, account_jobs, sup)
+    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup)
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         if r["name"] == "subtrie_levels":
@@ -1705,6 +2325,7 @@ def main() -> int:
         elif r["name"] == "keccak256_absorb":
             r.update(check1)
     log(f"drills: {json.dumps(drills())}")
+    log(f"hot drills: {json.dumps(hot_drills(hot))}")
     join_supervised()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

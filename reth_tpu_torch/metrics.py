@@ -6,9 +6,10 @@ sparse finish and the device supervisor report through, under the same
 metric names: ``TrieMetrics`` (one record per commit), ``PipelineMetrics``
 (the pipelined rebuild's stage times, windows and queue),
 ``SparseCommitMetrics`` (the live-tip finish), ``FusedCommitMetrics`` (the
-fused engines' launches and the k-level engine's fault ladder) and
+fused engines' launches and the k-level engine's fault ladder),
 ``SupervisorMetrics`` (the breaker, failovers, watchdog timeouts and
-probes). The module-level instances record into the process-wide
+probes) and ``HotStateMetrics`` (the hot-state plane's node cache and
+device digest arena). The module-level instances record into the process-wide
 ``REGISTRY``, as in the reference. The node's process and build-identity
 gauges are not ported.
 """
@@ -365,3 +366,97 @@ class SupervisorMetrics:
         if not ok:
             self._probe_failures.increment()
         self._probe_seconds.record(latency)
+
+
+class HotStateMetrics:
+    """The hot-state plane (``trie/hot_cache.py TrieNodeCache`` and
+    ``ops/fused_commit.py DigestArena``), in two families:
+
+    - ``hotstate_cache_*``: the node cache's hits, misses and evictions, and
+      the stale and poison drops of its node-hash validation; the hit rate
+      is what the reference's health rule watches.
+    - ``hotstate_arena_*``: resident digest rows, delta and full-upload
+      epochs, evictions, faults, and per commit the delta-upload fraction
+      (staged rows over staged plus reveal-stamped rows) and the bytes
+      staged to the device.
+
+    The cache and the arena report lifetime totals; the counters move by
+    the increments."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._hits = reg.counter("hotstate_cache_hits_total",
+                                 "node-cache lookups served (hash-validated)")
+        self._misses = reg.counter("hotstate_cache_misses_total",
+                                   "node-cache lookups that paid a proof fetch")
+        self._stale = reg.counter("hotstate_cache_stale_drops_total",
+                                  "entries dropped because keccak(rlp) != expected hash")
+        self._poison = reg.counter("hotstate_cache_poison_caught_total",
+                                   "injected poisons caught by node-hash validation")
+        self._cache_evictions = reg.counter("hotstate_cache_evictions_total",
+                                            "LRU bound evictions")
+        self._clears = reg.counter("hotstate_cache_clears_total",
+                                   "wholesale invalidations (deep reorg / storm / injector)")
+        self._entries = reg.gauge("hotstate_cache_entries", "node-cache resident entries")
+        self._hit_rate = reg.gauge("hotstate_cache_hit_rate",
+                                   "rolling lifetime hit rate (health SLO floor input)")
+        self._rows = reg.gauge("hotstate_arena_resident_rows",
+                               "digest rows resident in the cross-block device arena")
+        self._leaked = reg.gauge("hotstate_arena_leaked_rows",
+                                 "allocated-but-unaccounted rows (invariant: 0)")
+        self._delta_epochs = reg.counter("hotstate_arena_delta_epochs_total",
+                                         "commits that delta-uploaded against resident rows")
+        self._full_epochs = reg.counter("hotstate_arena_full_epochs_total",
+                                        "commits that took the full-upload rung")
+        self._arena_evictions = reg.counter("hotstate_arena_evictions_total",
+                                            "wholesale arena evictions (bound / fault / reorg)")
+        self._faults = reg.counter("hotstate_arena_faults_total",
+                                   "delta epochs that died and fell back to full upload")
+        self._delta_fraction = reg.histogram(
+            "hotstate_delta_upload_fraction", "staged rows / (staged + reveal-stamped) per commit",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
+        self._h2d = reg.histogram(
+            "hotstate_h2d_bytes_per_commit", "bytes staged to the device per sparse finish",
+            buckets=(1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24))
+        self.last: dict | None = None  # the most recent snapshots
+        self._cache_prev: dict = {}
+        self._arena_prev: dict = {}
+
+    @staticmethod
+    def _delta(prev: dict, cur: dict, key: str) -> int:
+        d = cur.get(key, 0) - prev.get(key, 0)
+        return d if d > 0 else 0
+
+    def record_cache(self, stats: dict) -> None:
+        p = self._cache_prev
+        self._hits.increment(self._delta(p, stats, "hits"))
+        self._misses.increment(self._delta(p, stats, "misses"))
+        self._stale.increment(self._delta(p, stats, "stale_drops"))
+        self._poison.increment(self._delta(p, stats, "poison_caught"))
+        self._cache_evictions.increment(self._delta(p, stats, "evictions"))
+        self._clears.increment(self._delta(p, stats, "clears"))
+        self._entries.set(stats.get("entries", 0))
+        total = stats.get("hits", 0) + stats.get("misses", 0)
+        rate = (stats.get("hits", 0) / total) if total else 0.0
+        self._hit_rate.set(round(rate, 4))
+        self._cache_prev = dict(stats)
+        self.last = {**(self.last or {}), "cache": dict(stats), "hit_rate": round(rate, 4)}
+
+    def record_arena(self, snap: dict, *, delta_fraction: float, staged_rows: int,
+                     stamped_rows: int, h2d_bytes: int, fresh: bool) -> None:
+        p = self._arena_prev
+        self._arena_evictions.increment(self._delta(p, snap, "evictions"))
+        self._faults.increment(self._delta(p, snap, "faults"))
+        self._delta_epochs.increment(self._delta(p, snap, "delta_epochs"))
+        self._full_epochs.increment(self._delta(p, snap, "full_epochs"))
+        self._rows.set(snap.get("resident_rows", 0))
+        self._leaked.set(snap.get("leaked_rows", 0))
+        self._delta_fraction.record(delta_fraction)
+        self._h2d.record(h2d_bytes)
+        self._arena_prev = dict(snap)
+        self.last = {**(self.last or {}), "arena": dict(snap),
+                     "delta_fraction": round(delta_fraction, 4), "staged_rows": staged_rows,
+                     "stamped_rows": stamped_rows, "h2d_bytes": h2d_bytes, "fresh": fresh}
+
+
+hotstate_metrics = HotStateMetrics()

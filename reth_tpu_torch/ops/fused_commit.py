@@ -37,6 +37,11 @@ chunk replays the commit's journal one level per launch, then on the numpy
 twin (``SubtrieFaultInjector`` drills both rungs); elsewhere a failed launch
 raises, as in the other engines.
 Every launch is counted in ``metrics.fused_metrics``.
+
+``DigestArena`` is the hot-state plane's device half: one
+``SubtrieFusedEngine`` whose digest buffer stays on the card across blocks,
+so that each block stages only its dirty rows (``begin_delta``) and splices
+the digests earlier blocks wrote (``trie/sparse.py``'s arena finish).
 """
 
 from __future__ import annotations
@@ -406,6 +411,12 @@ class FusedLevelEngine:
         self._n_slots = 0
         self.uploads = 0  # host-to-device copies since begin()
         self.dispatches = 0  # launches since begin()
+        # copy-growths of a resident buffer over the engine's life: how
+        # many, the bytes they copied, and (on the card) each one's start
+        # and end events, read by grow_ms()
+        self.growths = 0
+        self.grown_bytes = 0
+        self._grow_events: list = []
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -439,11 +450,27 @@ class FusedLevelEngine:
         cur = 0 if self._buf is None else self._buf.shape[0]
         if need <= cur:
             return
+        events = None
+        if cur and self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
         grown = torch.zeros((_next_tier(need, max(self.min_tier, 2, cur)), 32),
                             dtype=torch.uint8, device=self.device)
         if cur:
             grown[:cur] = self._buf
+            self.growths += 1
+            self.grown_bytes += cur * 32
+            if events is not None:
+                events[1].record()
+                self._grow_events.append(events)
         self._buf = grown
+
+    def grow_ms(self) -> float:
+        """The card's time of every copy-growth so far (allocation and copy,
+        by CUDA events; waits for the last one); 0 on the CPU."""
+        if self._grow_events:
+            self._grow_events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in self._grow_events)
 
     def finish(self) -> np.ndarray:
         buf, self._buf = self._buf, None
@@ -587,6 +614,10 @@ class MegaFusedEngine(FusedLevelEngine):
         self._s_tier = _next_tier(max_slots + 1, max(self.min_tier, 2))
         self._n_slots = 1
         self._buf = None
+        self._new_commit()
+
+    def _new_commit(self) -> None:
+        """Empty staging and zeroed per-commit counters."""
         self._reset_staging()
         self._pinned = []
         self.dispatches = 0
@@ -682,6 +713,10 @@ class MegaFusedEngine(FusedLevelEngine):
             (packed_level if p[_KIND] == 0 else branch_level)(*args, self._buf)
             self._count_dispatch()
         self._reset_staging()
+
+    def pinned_bytes(self) -> int:
+        """Bytes of pinned host staging the engine still holds."""
+        return sum(t.numel() for t in self._pinned)
 
     def finish(self) -> np.ndarray:
         self._execute()
@@ -799,8 +834,16 @@ class SubtrieFusedEngine(MegaFusedEngine):
     Without ``ladder`` nothing is journaled and a failed launch, an
     injected fault included, raises out of ``flush_window`` / the terminal
     fetch after one attempt. A failed build raises either way: it is not a
-    device fault. ``warmup=``, ``begin_delta`` / ``peek_slots`` (the
-    hot-state arena) and the mesh variant are not ported."""
+    device fault.
+
+    The hot-state arena (:class:`DigestArena`) keeps one engine, and its
+    digest buffer on the card, across blocks: ``begin_delta`` opens a commit
+    that keeps the buffer (holes may splice rows earlier commits wrote) and
+    ``peek_slots`` reads back this commit's rows and keeps it. A delta commit
+    never takes the ladder: its journal covers only the current commit, so a
+    replay from a zeroed buffer would lose the resident rows; a failed launch
+    raises to the arena's owner. ``warmup=`` and the mesh variant are not
+    ported."""
 
     _CHUNK_BTIER_CAP = 8
 
@@ -820,6 +863,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
         # in the indices), host buffers kept until the terminal fetch
         self._journal: list[tuple[torch.Tensor, torch.Tensor, list, int]] = []
         self._buf_np: np.ndarray | None = None
+        self._delta = False  # a begin_delta commit: launch faults raise, whatever the ladder
 
     @property
     def mode(self) -> str:
@@ -828,10 +872,29 @@ class SubtrieFusedEngine(MegaFusedEngine):
 
     def begin(self, max_slots: int) -> None:
         super().begin(max_slots)
-        self.levels_staged = 0
         self._mode = "fused"
+
+    def _new_commit(self) -> None:
+        super()._new_commit()
+        self.levels_staged = 0
         self._journal = []
         self._buf_np = None
+        self._delta = False
+
+    def begin_delta(self, max_slots: int) -> None:
+        """Open a delta commit: keep the resident digest buffer of the
+        previous commit and stage only this commit's rows, whose holes may
+        splice slots earlier commits wrote; the buffer copy-grows to
+        ``max_slots`` slots if it must. The engine must still be on the
+        fused rung with a buffer on its device; anything else raises
+        :class:`ArenaFault`, which the arena's owner answers with a full
+        upload."""
+        if self._mode != "fused" or self._buf is None:
+            raise ArenaFault(f"delta precondition lost (mode={self._mode}, "
+                             f"resident={self._buf is not None})")
+        self._new_commit()
+        self._delta = True
+        self.ensure(max_slots)
 
     def ensure(self, max_slots: int) -> None:
         if self._mode != "cpu":
@@ -885,7 +948,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
             self._materialize()
             self._run_chunks(self._to_device(u8), self._to_device(idx), t_off, plan, chunks, mode)
         except Exception as e:  # noqa: BLE001 — every launch fault takes the ladder
-            if not self.ladder:
+            if not self.ladder or self._delta:
                 raise
             self._degrade(e)
 
@@ -1011,3 +1074,184 @@ class SubtrieFusedEngine(MegaFusedEngine):
             out = FusedLevelEngine.fetch_slots(self, slots)
         self._pinned = []
         return out
+
+    def peek_slots(self, slots: np.ndarray) -> np.ndarray:
+        """Run what is staged and read back exactly ``slots``, as
+        ``fetch_slots`` does, but keep the digest buffer on the card: the
+        terminal fetch of an arena commit, whose rows later commits splice.
+        The read-back waits for the stream, so the commit's pinned staging
+        is released."""
+        self._end()
+        if self._mode == "cpu":  # an arena engine never takes the ladder
+            return self._buf_np[np.asarray(slots, dtype=np.int64)].copy()
+        ids = self._put(np.asarray(slots, dtype=np.int64))
+        out = self._buf.index_select(0, ids).cpu().numpy()
+        self._pinned = []
+        return out
+
+
+# -- hot-state plane, device half: the persistent digest arena -----------------
+
+
+class ArenaFault(RuntimeError):
+    """A delta commit's precondition is lost, or a device fault hit it,
+    under the hot-state arena. The engine never handles it (its journal
+    covers only the current commit, so its replay cannot rebuild resident
+    rows): the arena's owner catches it, evicts, and reruns the commit on
+    the classic finish."""
+
+
+class DigestArena:
+    """Epoch-tagged registry of the digest rows resident in one
+    :class:`SubtrieFusedEngine` that outlives the block: the hot-state
+    plane's device half (the reference's ``DigestArena``).
+
+    The classic sparse finish builds an engine per commit, stages its whole
+    dirty set, and the buffer dies with the read-back. Under the arena the
+    engine and its buffer on the card survive: slots are allocated
+    monotonically across epochs, ``_slot_of`` maps a node digest to (slot,
+    last live epoch), and a new epoch's templates hole-splice resident
+    slots for unchanged children instead of carrying their digests as
+    literal bytes. The terminal fetch is :meth:`SubtrieFusedEngine
+    .peek_slots` (this epoch's rows only), which keeps the buffer.
+
+    Safety (roots are bit-identical on every rung):
+
+    - ``begin_delta`` refuses unless the engine is still on the fused rung
+      with a buffer (:class:`ArenaFault`);
+    - a fault in any epoch raises out of the engine; :meth:`on_fault`
+      evicts and the owner reruns the commit on the classic finish, on the
+      same device;
+    - rows idle for ``max_epoch_age`` epochs retire at lookup, and the
+      whole arena evicts once ``next_slot`` reaches ``max_rows``, so the
+      buffer is bounded and ``leaked_rows() == 0`` (every allocated row is
+      registered or retired) holds after every epoch.
+
+    Single writer: concurrent finishes contend through :meth:`try_acquire`;
+    the loser takes the classic finish for that block.
+    """
+
+    def __init__(self, max_rows: int = 1 << 20, max_epoch_age: int = 64):
+        self.max_rows = max(1024, int(max_rows))
+        self.max_epoch_age = max(1, int(max_epoch_age))
+        self.engine: SubtrieFusedEngine | None = None
+        self.epoch = 0
+        self.next_slot = 1  # slot 0 = the engines' dummy slot
+        self._slot_of: dict[bytes, tuple[int, int]] = {}
+        self.retired = 0
+        self._commit_lock = threading.Lock()
+        # counters (mirrored into the hotstate_* metrics by the committer)
+        self.resident_hits = 0
+        self.lookup_misses = 0
+        self.evictions = 0
+        self.faults = 0
+        self.delta_epochs = 0
+        self.full_epochs = 0
+        self.contended = 0
+
+    @classmethod
+    def from_env(cls, env=None) -> "DigestArena":
+        env = os.environ if env is None else env
+        return cls(max_rows=int(env.get("RETH_TPU_HOT_ARENA_ROWS", "0") or (1 << 20)),
+                   max_epoch_age=int(env.get("RETH_TPU_HOT_ARENA_EPOCHS", "0") or 64))
+
+    # -- single writer --------------------------------------------------------
+
+    def try_acquire(self) -> bool:
+        if self._commit_lock.acquire(blocking=False):
+            return True
+        self.contended += 1
+        return False
+
+    def release(self) -> None:
+        self._commit_lock.release()
+
+    # -- epochs ---------------------------------------------------------------
+
+    def begin_epoch(self, evict_storm: bool = False) -> bool:
+        """Open a commit epoch; True: the arena is empty and this epoch is a
+        full upload (``engine.begin``), False: a delta."""
+        self.epoch += 1
+        if evict_storm:
+            self.evict("evict_storm")
+        elif self.next_slot >= self.max_rows:
+            self.evict("max_rows")
+        fresh = self.next_slot == 1 or self.engine is None
+        if fresh:
+            self.full_epochs += 1
+        else:
+            self.delta_epochs += 1
+        return fresh
+
+    def evict(self, reason: str = "") -> None:
+        """Drop the engine (and its buffer on the card) and forget every
+        registered row; the next epoch is a full upload."""
+        self.engine = None
+        self._slot_of.clear()
+        self.next_slot = 1
+        self.retired = 0
+        self.evictions += 1
+        if reason:
+            tracing.fault_event("hotstate_arena_evict", target="ops::fused_commit",
+                                reason=reason, epoch=self.epoch)
+
+    def invalidate(self, reason: str = "") -> None:
+        """Wholesale invalidation from the tree (a deep reorg): waits out
+        any commit in flight, then evicts."""
+        with self._commit_lock:
+            self.evict(reason)
+
+    def on_fault(self, err: BaseException) -> None:
+        """An epoch died in flight (a device fault, ``ArenaFault``, any
+        exception of the committer's arena finish): count it and evict; the
+        caller reruns the same commit on the classic finish."""
+        self.faults += 1
+        fused_metrics.record_fallback()
+        tracing.fault_event("hotstate_arena_fault", target="ops::fused_commit",
+                            error=f"{type(err).__name__}: {err}"[:200], epoch=self.epoch)
+        self.evict("fault")
+
+    # -- rows -----------------------------------------------------------------
+
+    def alloc(self) -> int:
+        slot = self.next_slot
+        self.next_slot += 1
+        return slot
+
+    def lookup(self, digest: bytes) -> int:
+        """Resident slot of ``digest`` (0: not resident). Rows idle for
+        ``max_epoch_age`` epochs retire here; a hit refreshes the tag."""
+        ent = self._slot_of.get(digest)
+        if ent is None:
+            self.lookup_misses += 1
+            return 0
+        slot, last = ent
+        if self.epoch - last > self.max_epoch_age:
+            del self._slot_of[digest]
+            self.retired += 1
+            self.lookup_misses += 1
+            return 0
+        self._slot_of[digest] = (slot, self.epoch)
+        self.resident_hits += 1
+        return slot
+
+    def note(self, digest: bytes, slot: int) -> None:
+        """Register a row this epoch hashed; a digest already registered at
+        another slot retires that slot."""
+        old = self._slot_of.get(digest)
+        if old is not None and old[0] != slot:
+            self.retired += 1
+        self._slot_of[digest] = (slot, self.epoch)
+
+    def leaked_rows(self) -> int:
+        """Allocated rows neither registered nor retired; 0 is an
+        invariant."""
+        return self.next_slot - 1 - len(self._slot_of) - self.retired
+
+    def snapshot(self) -> dict:
+        return {"epoch": self.epoch, "resident_rows": len(self._slot_of),
+                "next_slot": self.next_slot, "retired": self.retired,
+                "leaked_rows": self.leaked_rows(), "resident_hits": self.resident_hits,
+                "lookup_misses": self.lookup_misses, "evictions": self.evictions,
+                "faults": self.faults, "delta_epochs": self.delta_epochs,
+                "full_epochs": self.full_epochs, "contended": self.contended}

@@ -561,7 +561,9 @@ class SupervisedBackend:
     ``device_factory`` makes the engine on ``device``; that device's kernel
     libraries are loaded before the first guarded call (see
     :func:`load_kernels`). ``arena`` is the twin's host ``DigestArena``
-    (``trie/turbo.py``); the device hot-state arena is not ported."""
+    (``trie/turbo.py``), as in the reference; the device hot-state arena
+    (``ops/fused_commit.py DigestArena``) belongs to the sparse finish's
+    ``ParallelSparseCommitter(arena=...)``, not here."""
 
     def __init__(self, supervisor: DeviceSupervisor, device_factory, arena=None,
                  device="cuda"):
@@ -569,8 +571,9 @@ class SupervisedBackend:
 
         if arena is not None and not isinstance(arena, DigestArena):
             raise NotImplementedError("SupervisedBackend(arena=...) takes the numpy twin's "
-                                      "host DigestArena; the device hot-state arena is not "
-                                      "ported yet")
+                                      "host DigestArena (trie/turbo.py); the device hot-state "
+                                      "arena (ops/fused_commit.py) goes to "
+                                      "ParallelSparseCommitter(arena=...)")
         self.sup = supervisor
         self._factory = device_factory
         self._arena = arena

@@ -1,5 +1,6 @@
 """Keccak-256 — CPU reference implementations (a copy of the JAX package's
-``primitives/keccak.py``; the port imports nothing of that package).
+``primitives/keccak.py``, with the pure-Python permutation unrolled; the
+port imports nothing of that package).
 
 Ethereum's Keccak-256 (original Keccak padding 0x01, NOT NIST SHA3's 0x06):
 
@@ -43,32 +44,103 @@ ROT = [
 _MASK = (1 << 64) - 1
 
 
-def _rotl(v: int, r: int) -> int:
-    return ((v << r) | (v >> (64 - r))) & _MASK
-
-
 def keccak_f1600(state: list[int]) -> list[int]:
-    """One keccak-f[1600] permutation over 25 python-int lanes (pure ref)."""
-    a = list(state)
+    """One keccak-f[1600] permutation over 25 python-int lanes (pure ref).
+    Each round is written out lane by lane (theta; rho and pi into b; chi;
+    iota) rather than as loops over lists: the host validates nodes one at
+    a time with it (``keccak256``), on the hot-state plane's reveal and
+    cache paths."""
+    (a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11, a12,
+     a13, a14, a15, a16, a17, a18, a19, a20, a21, a22, a23, a24) = state
+    m = _MASK
     for rc in RC:
-        # theta
-        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
-        d = [c[(x - 1) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
-        for x in range(5):
-            for y in range(5):
-                a[x + 5 * y] ^= d[x]
-        # rho + pi
-        b = [0] * 25
-        for x in range(5):
-            for y in range(5):
-                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(a[x + 5 * y], ROT[x][y])
-        # chi
-        for x in range(5):
-            for y in range(5):
-                a[x + 5 * y] = b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y] & _MASK)
-        # iota
-        a[0] ^= rc
-    return a
+        c0 = a0 ^ a5 ^ a10 ^ a15 ^ a20
+        c1 = a1 ^ a6 ^ a11 ^ a16 ^ a21
+        c2 = a2 ^ a7 ^ a12 ^ a17 ^ a22
+        c3 = a3 ^ a8 ^ a13 ^ a18 ^ a23
+        c4 = a4 ^ a9 ^ a14 ^ a19 ^ a24
+        d0 = c4 ^ (((c1 << 1) | (c1 >> 63)) & m)
+        d1 = c0 ^ (((c2 << 1) | (c2 >> 63)) & m)
+        d2 = c1 ^ (((c3 << 1) | (c3 >> 63)) & m)
+        d3 = c2 ^ (((c4 << 1) | (c4 >> 63)) & m)
+        d4 = c3 ^ (((c0 << 1) | (c0 >> 63)) & m)
+        b0 = a0 ^ d0
+        t = a5 ^ d0
+        b16 = ((t << 36) | (t >> 28)) & m
+        t = a10 ^ d0
+        b7 = ((t << 3) | (t >> 61)) & m
+        t = a15 ^ d0
+        b23 = ((t << 41) | (t >> 23)) & m
+        t = a20 ^ d0
+        b14 = ((t << 18) | (t >> 46)) & m
+        t = a1 ^ d1
+        b10 = ((t << 1) | (t >> 63)) & m
+        t = a6 ^ d1
+        b1 = ((t << 44) | (t >> 20)) & m
+        t = a11 ^ d1
+        b17 = ((t << 10) | (t >> 54)) & m
+        t = a16 ^ d1
+        b8 = ((t << 45) | (t >> 19)) & m
+        t = a21 ^ d1
+        b24 = ((t << 2) | (t >> 62)) & m
+        t = a2 ^ d2
+        b20 = ((t << 62) | (t >> 2)) & m
+        t = a7 ^ d2
+        b11 = ((t << 6) | (t >> 58)) & m
+        t = a12 ^ d2
+        b2 = ((t << 43) | (t >> 21)) & m
+        t = a17 ^ d2
+        b18 = ((t << 15) | (t >> 49)) & m
+        t = a22 ^ d2
+        b9 = ((t << 61) | (t >> 3)) & m
+        t = a3 ^ d3
+        b5 = ((t << 28) | (t >> 36)) & m
+        t = a8 ^ d3
+        b21 = ((t << 55) | (t >> 9)) & m
+        t = a13 ^ d3
+        b12 = ((t << 25) | (t >> 39)) & m
+        t = a18 ^ d3
+        b3 = ((t << 21) | (t >> 43)) & m
+        t = a23 ^ d3
+        b19 = ((t << 56) | (t >> 8)) & m
+        t = a4 ^ d4
+        b15 = ((t << 27) | (t >> 37)) & m
+        t = a9 ^ d4
+        b6 = ((t << 20) | (t >> 44)) & m
+        t = a14 ^ d4
+        b22 = ((t << 39) | (t >> 25)) & m
+        t = a19 ^ d4
+        b13 = ((t << 8) | (t >> 56)) & m
+        t = a24 ^ d4
+        b4 = ((t << 14) | (t >> 50)) & m
+        a0 = b0 ^ (~b1 & b2)
+        a1 = b1 ^ (~b2 & b3)
+        a2 = b2 ^ (~b3 & b4)
+        a3 = b3 ^ (~b4 & b0)
+        a4 = b4 ^ (~b0 & b1)
+        a5 = b5 ^ (~b6 & b7)
+        a6 = b6 ^ (~b7 & b8)
+        a7 = b7 ^ (~b8 & b9)
+        a8 = b8 ^ (~b9 & b5)
+        a9 = b9 ^ (~b5 & b6)
+        a10 = b10 ^ (~b11 & b12)
+        a11 = b11 ^ (~b12 & b13)
+        a12 = b12 ^ (~b13 & b14)
+        a13 = b13 ^ (~b14 & b10)
+        a14 = b14 ^ (~b10 & b11)
+        a15 = b15 ^ (~b16 & b17)
+        a16 = b16 ^ (~b17 & b18)
+        a17 = b17 ^ (~b18 & b19)
+        a18 = b18 ^ (~b19 & b15)
+        a19 = b19 ^ (~b15 & b16)
+        a20 = b20 ^ (~b21 & b22)
+        a21 = b21 ^ (~b22 & b23)
+        a22 = b22 ^ (~b23 & b24)
+        a23 = b23 ^ (~b24 & b20)
+        a24 = b24 ^ (~b20 & b21)
+        a0 ^= rc
+    return [a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11, a12,
+            a13, a14, a15, a16, a17, a18, a19, a20, a21, a22, a23, a24]
 
 
 def _pad(data: bytes) -> bytes:

@@ -21,11 +21,17 @@ either path: the templates come from the same RLP functions as the serial
 encode. Entry points run on the card unless the caller passes
 ``device="cpu"`` or a hasher of its own.
 
-Not ported yet: the hot-state plane (reveal-ref stamping, the device
-``DigestArena`` delta finish and its hooks ``node_at`` / ``reveal_at`` /
-``harvest_spine``) and the hash service's streaming and window lanes.
-``arena=`` and a hasher with ``submit`` or ``commit_window`` raise
-``NotImplementedError``.
+With ``arena=`` (the hot-state plane's device half,
+``ops/fused_commit.py DigestArena``) the fused finish runs against one
+engine whose digest buffer outlives the block: each commit stages only its
+dirty rows, and a child whose digest is still resident from an earlier
+commit is spliced from its slot on the card (the delta finish). The plane's
+host half, reveal-ref stamping and the hooks ``node_at`` / ``blind_hash_at``
+/ ``reveal_at`` / ``harvest_spine``, serves ``trie/hot_cache.py
+TrieNodeCache``.
+
+Not ported yet: the hash service's streaming and window lanes; a hasher
+with ``submit`` or ``commit_window`` raises ``NotImplementedError``.
 
 Blinded nodes are paths the proofs never revealed. Reading through or
 collapsing into one raises ``BlindedNodeError`` carrying the nibble path, so
@@ -34,6 +40,7 @@ a caller holding a proof source can reveal that path and retry.
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -45,7 +52,7 @@ import torch
 
 from .. import tracing
 from ..device import resolve
-from ..metrics import sparse_commit_metrics
+from ..metrics import hotstate_metrics, sparse_commit_metrics
 from ..ops.fused_commit import SubtrieFusedEngine
 from ..ops.keccak import KeccakDevice
 from ..primitives.keccak import RATE, keccak256
@@ -53,6 +60,7 @@ from ..primitives.nibbles import Nibbles, common_prefix_len, decode_path, unpack
 from ..primitives.rlp import rlp_decode, rlp_encode
 from ..primitives.types import EMPTY_ROOT_HASH
 from .committer import BranchNode
+from .hot_cache import HotStateFaultInjector
 from .node import (
     EMPTY_STRING_RLP,
     HASH_REF_HOLE,
@@ -119,9 +127,16 @@ class _Branch:
         self._ref = None
 
 
-def _decode_node(rlp: bytes, by_hash: dict[bytes, bytes]):
+def _decode_node(rlp: bytes, by_hash: dict[bytes, bytes], stamp: bool = False):
     """Materialize one RLP node, descending into children found in
-    ``by_hash`` (the proof set); absent hashed children stay blinded."""
+    ``by_hash`` (the proof set); absent hashed children stay blinded.
+
+    ``stamp`` (the hot-state plane): a revealed node's hash is known, since
+    the proof addressed it by hash, so its ``_ref`` is stamped at decode
+    time. A revealed node that is never mutated then stays clean through
+    the next commit instead of being re-encoded, staged and hashed again;
+    a mutation clears the refs along its path as before, so roots are
+    bit-identical."""
     items = rlp_decode(rlp)
     if len(items) == 2:
         prefix, payload = items
@@ -129,24 +144,33 @@ def _decode_node(rlp: bytes, by_hash: dict[bytes, bytes]):
         if is_leaf:
             return _Leaf(nib, payload)
         # extension: payload is a child ref (raw RLP list when inline)
-        return _Ext(nib, _decode_ref(payload, by_hash))
+        return _Ext(nib, _decode_ref(payload, by_hash, stamp))
     if len(items) != 17:
         raise ValueError("malformed MPT node")
     br = _Branch(value=items[16])
     for i in range(16):
         if items[i] != b"":
-            br.children[i] = _decode_ref(items[i], by_hash)
+            br.children[i] = _decode_ref(items[i], by_hash, stamp)
     return br
 
 
-def _decode_ref(ref, by_hash: dict[bytes, bytes]):
+def _decode_ref(ref, by_hash: dict[bytes, bytes], stamp: bool = False):
     """A child as it appears inside a parent's decoded RLP: a 32-byte hash
     string, or an inline (already decoded) list for <32-byte nodes."""
     if isinstance(ref, list):  # inline child: re-encode to reuse _decode_node
-        return _decode_node(rlp_encode(ref), by_hash)
+        inline = rlp_encode(ref)
+        node = _decode_node(inline, by_hash, stamp)
+        if stamp:
+            node._ref = inline  # an inline ref is the node's RLP
+        return node
     if len(ref) == 32:
         sub = by_hash.get(ref)
-        return _decode_node(sub, by_hash) if sub is not None else _Blind(ref)
+        if sub is None:
+            return _Blind(ref)
+        node = _decode_node(sub, by_hash, stamp)
+        if stamp:
+            node._ref = encode_hash_ref(ref)
+        return node
     raise ValueError("unexpected short child reference")
 
 
@@ -157,6 +181,12 @@ class SparseTrie:
         self.root_hash = root_hash
         self.root = None if root_hash == EMPTY_ROOT_HASH else _Blind(root_hash)
         self.updates = 0  # mutations since last root()
+        # hot-state plane: when set, reveals stamp the (known) node hashes
+        # as clean refs, so unmutated revealed nodes never stage again;
+        # ``stamped`` counts them since the last arena commit (the
+        # denominator of its delta-upload fraction)
+        self.stamp_reveals = False
+        self.stamped = 0
 
     # -- reveal ---------------------------------------------------------------
 
@@ -165,25 +195,131 @@ class SparseTrie:
         given proof nodes (spine nodes of one or more proofs)."""
         if not proof_nodes:
             return
+        stamp = self.stamp_reveals
         by_hash = {keccak256(n): n for n in proof_nodes}
         if self.root is None or isinstance(self.root, _Blind):
             top = by_hash.get(self.root_hash)
-            if top is not None:  # else: a proof for a different root
-                self.root = _decode_node(top, by_hash)
+            if top is None:
+                return  # a proof for a different root
+            self.root = _decode_node(top, by_hash, stamp)
+            if stamp:
+                self.root._ref = encode_hash_ref(self.root_hash)
+                self.stamped += len(by_hash)
             return
-        self.root = self._merge(self.root, by_hash)
+        self.root = self._merge(self.root, by_hash, stamp)
+        if stamp:
+            self.stamped += len(by_hash)
 
-    def _merge(self, node, by_hash):
+    def _merge(self, node, by_hash, stamp: bool = False):
         if isinstance(node, _Blind):
             rlp = by_hash.get(node.hash)
-            return node if rlp is None else _decode_node(rlp, by_hash)
+            if rlp is None:
+                return node
+            revealed = _decode_node(rlp, by_hash, stamp)
+            if stamp:
+                revealed._ref = encode_hash_ref(node.hash)
+            return revealed
         if isinstance(node, _Ext):
-            node.child = self._merge(node.child, by_hash)
+            node.child = self._merge(node.child, by_hash, stamp)
         elif isinstance(node, _Branch):
             for i, c in enumerate(node.children):
                 if c is not None:
-                    node.children[i] = self._merge(c, by_hash)
+                    node.children[i] = self._merge(c, by_hash, stamp)
         return node
+
+    # -- hot-state plane hooks (trie/hot_cache.py) ----------------------------
+
+    def node_at(self, path: bytes):
+        """The node reached after consuming exactly ``path``'s nibbles (the
+        key-nibble positions ``BlindedNodeError.path`` uses); None when the
+        walk diverges, ends early, or an earlier blind blocks it."""
+        node, depth = self.root, 0
+        while node is not None:
+            if depth == len(path):
+                return node
+            if isinstance(node, (_Blind, _Leaf)):
+                return None
+            if isinstance(node, _Ext):
+                np_ = node.path
+                if depth + len(np_) > len(path) or path[depth:depth + len(np_)] != np_:
+                    return None
+                depth += len(np_)
+                node = node.child
+                continue
+            node = node.children[path[depth]]
+            depth += 1
+        return None
+
+    def blind_hash_at(self, path: bytes) -> bytes | None:
+        """Hash of the blinded node at ``path``, or None when the position
+        is not a blind: the hot cache's lookup key and validator."""
+        node = self.node_at(path)
+        return node.hash if isinstance(node, _Blind) else None
+
+    def reveal_at(self, path: bytes, rlp: bytes) -> bool:
+        """Reveal one blinded node in place from an RLP (a cache hit, or a
+        proof fetch). Validates ``keccak(rlp)`` against the blind's hash, so
+        a poisoned or stale entry never splices in, and stamps the revealed
+        node's ref. Its children decode to blinds, revealed in turn. False
+        when the position is not a matching blind."""
+        node, depth, parent, link = self.root, 0, None, None
+        while node is not None:
+            if depth == len(path):
+                break
+            if isinstance(node, (_Blind, _Leaf)):
+                return False
+            if isinstance(node, _Ext):
+                np_ = node.path
+                if depth + len(np_) > len(path) or path[depth:depth + len(np_)] != np_:
+                    return False
+                depth += len(np_)
+                parent, link = node, None
+                node = node.child
+                continue
+            parent, link = node, path[depth]
+            node = node.children[path[depth]]
+            depth += 1
+        if not isinstance(node, _Blind) or keccak256(rlp) != node.hash:
+            return False
+        revealed = _decode_node(rlp, {}, stamp=True)
+        revealed._ref = encode_hash_ref(node.hash)
+        self.stamped += 1
+        if parent is None:
+            self.root = revealed
+        elif isinstance(parent, _Ext):
+            parent.child = revealed
+        else:
+            parent.children[link] = revealed
+        return True
+
+    def harvest_spine(self, key: bytes, out: list, seen: set) -> None:
+        """Append ``(path, rlp)`` of every node of 32 bytes or more along
+        ``key``'s path to ``out`` (the hot cache's population), paths as
+        key-nibble positions. The walk stops at the first node whose
+        children's refs are not clean (a revealed subtree under a clean
+        parent before any commit); harvests run after a commit, or after a
+        reveal with stamping, where that does not happen on the key path."""
+        nib = unpack_nibbles(key) if len(key) == 32 else key
+        node, depth = self.root, 0
+        while node is not None and not isinstance(node, _Blind):
+            path = bytes(nib[:depth])
+            if path not in seen:
+                if not _children_ready(node):
+                    return
+                rlp = _encode_rlp(node)
+                if len(rlp) >= 32:
+                    seen.add(path)
+                    out.append((path, rlp))
+            if isinstance(node, _Leaf):
+                return
+            if isinstance(node, _Ext):
+                if nib[depth:depth + len(node.path)] != node.path:
+                    return
+                depth += len(node.path)
+                node = node.child
+            else:
+                node = node.children[nib[depth]]
+                depth += 1
 
     # -- read -----------------------------------------------------------------
 
@@ -426,21 +562,47 @@ def _child_ref_of(child) -> bytes:
     return child._ref
 
 
-def _child_ref_template(child, slot_of: dict[int, int]) -> tuple[bytes, int]:
+def _children_ready(node) -> bool:
+    """True when every child carries a usable ref (a blind, or a cached
+    ref): ``_encode_rlp``'s precondition outside a commit."""
+    if isinstance(node, _Leaf):
+        return True
+    if isinstance(node, _Ext):
+        c = node.child
+        return isinstance(c, _Blind) or c._ref is not None
+    return all(c is None or isinstance(c, _Blind) or c._ref is not None for c in node.children)
+
+
+def _child_ref_template(child, slot_of: dict[int, int], resident=None) -> tuple[bytes, int]:
     """Child reference as template bytes + digest source slot (0 = no
     hole): clean, blinded and inline children contribute literal bytes,
     dirty hashed children a 33-byte placeholder whose digest the card
     splices from the resident buffer. Dirty inline children were finalised
     when their own (deeper) level was walked, so their ``_ref`` already
-    holds complete hole-free bytes."""
+    holds complete hole-free bytes.
+
+    ``resident`` (the hot-state arena): maps a known child hash to a digest
+    slot still resident from an earlier epoch (0: not resident). A hit
+    turns the literal ref into a hole spliced from that slot; the spliced
+    bytes are the slot's digest, which is the hash, so the RLP is
+    bit-identical either way."""
     if isinstance(child, _Blind):
+        if resident is not None:
+            s = resident(child.hash)
+            if s:
+                return HASH_REF_HOLE, s
         return encode_hash_ref(child.hash), 0
     if child._ref is not None:
-        return child._ref, 0
+        r = child._ref
+        if resident is not None and len(r) == 33 and r[0] == 0xA0:
+            s = resident(r[1:])
+            if s:
+                return HASH_REF_HOLE, s
+        return r, 0
     return HASH_REF_HOLE, slot_of[id(child)]
 
 
-def _node_template_sparse(node, slot_of: dict[int, int]):
+def _node_template_sparse(node, slot_of: dict[int, int], resident=None):
     """(RLP template with zero-filled holes, [(byte_off, src_slot)]) for one
     dirty node, built with the same RLP functions as the serial encode
     (``HASH_REF_HOLE`` is a well-formed 33-byte ref), so the spliced bytes
@@ -448,14 +610,14 @@ def _node_template_sparse(node, slot_of: dict[int, int]):
     if isinstance(node, _Leaf):
         return leaf_node_rlp(node.path, node.value), []
     if isinstance(node, _Ext):
-        ref, src = _child_ref_template(node.child, slot_of)
+        ref, src = _child_ref_template(node.child, slot_of, resident)
         rlp = extension_node_rlp(node.path, ref)
         # the child ref is the payload's tail; +1 skips its 0xa0 marker
         return rlp, ([(len(rlp) - 32, src)] if src else [])
     refs: list[bytes] = []
     srcs: list[int] = []
     for c in node.children:
-        r, s = (EMPTY_STRING_RLP, 0) if c is None else _child_ref_template(c, slot_of)
+        r, s = (EMPTY_STRING_RLP, 0) if c is None else _child_ref_template(c, slot_of, resident)
         refs.append(r)
         srcs.append(s)
     rlp = branch_node_rlp(refs, node.value)
@@ -563,11 +725,21 @@ class ParallelSparseCommitter:
     finish hashes each depth with ``hasher``, by default
     ``device_hasher(device)`` (kernel 1).
 
-    Both run on ``device`` (the card by default; ``device="cpu"`` runs the
-    kernels' plain versions). There is no fallback: a failed build or launch
-    raises out of ``commit``. ``arena=`` (the hot-state delta finish) is not
-    ported yet and raises ``NotImplementedError``. Roots are bit-identical
-    to the serial path. Per-commit state is local; the pool is shared.
+    ``arena=`` (a :class:`~reth_tpu_torch.ops.fused_commit.DigestArena`,
+    the hot-state plane) takes the delta finish before either: the fused
+    layout against the arena's one engine, whose digest buffer stays on the
+    card across commits, at ``subtrie_levels`` depths per launch (8 when
+    unset). Only the commit's dirty rows stage; clean and blinded children
+    whose digests are still resident splice from their slots. If another
+    finish holds the arena, or the epoch fails in any way (the arena evicts
+    and counts the fault), the same commit reruns on the finish it would
+    take without the arena, on the same device.
+
+    All run on ``device`` (the card by default; ``device="cpu"`` runs the
+    kernels' plain versions). There is no fallback to the CPU: a failed
+    build or launch raises out of ``commit`` (under the arena, out of the
+    rerun). Roots are bit-identical to the serial path. Per-commit state is
+    local; the pool and the arena are shared.
     """
 
     POOL_MIN_NODES = 128   # below this a level encodes serially
@@ -582,8 +754,6 @@ class ParallelSparseCommitter:
                  injector: SparseFaultInjector | None = None,
                  subtrie_levels: int | None = None, arena=None,
                  device: str | torch.device = "cuda"):
-        if arena is not None:
-            raise NotImplementedError("ParallelSparseCommitter(arena=...) is not ported yet")
         env = os.environ
         self.device = resolve(device)
         self.workers = sparse_worker_count(workers)
@@ -592,6 +762,11 @@ class ParallelSparseCommitter:
         self.subtrie_levels = int(subtrie_levels if subtrie_levels is not None
                                   else env.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 0)
         self.injector = injector if injector is not None else SparseFaultInjector.from_env()
+        # the hot-state arena: its engine runs k depths a launch, the
+        # fused layout even when subtrie_levels is unset
+        self.arena = arena
+        self._arena_k = self.subtrie_levels if self.subtrie_levels > 1 else 8
+        self.hot_injector = HotStateFaultInjector.from_env() if arena is not None else None
         self._hasher = None  # device_hasher(self.device), built at first use
         self._pool: ThreadPoolExecutor | None = None
         self._pool_lock = threading.Lock()
@@ -692,6 +867,12 @@ class ParallelSparseCommitter:
         if not live:
             self.last = {**stats, "wall_s": 0.0}
             return roots
+        if self.arena is not None:
+            # the hot-state delta finish; None: contended, or a fault the
+            # arena counted and evicted for, and the same commit reruns below
+            delta = self._commit_fused_arena(live, roots, stats, t_wall)
+            if delta is not None:
+                return delta
         if self.subtrie_levels > 1:
             return self._commit_fused(live, roots, stats, t_wall)
         if hasher is None:
@@ -767,28 +948,8 @@ class ParallelSparseCommitter:
         ``SubtrieFusedEngine``: one launch of kernel 4 per
         ``subtrie_levels`` depths, one read-back of the digest buffer.
         Digest slots start at 1; slot 0 is the engine's dummy."""
-        levels = self._collect([t for _, t in live])
-        slot_of: dict[int, int] = {}
-        schedule: list[tuple[list, list, list]] = []
-        for depth in sorted(levels, reverse=True):
-            if self.injector is not None:
-                self.injector.on_dispatch()
-            stats["levels"] += 1
-            lv_nodes, lv_templates, lv_holes = [], [], []
-            for _g, node in levels[depth]:
-                t, holes = _node_template_sparse(node, slot_of)
-                if len(t) < 32:
-                    node._ref = t  # inline: complete and hole-free
-                    continue
-                slot_of[id(node)] = len(slot_of) + 1
-                lv_nodes.append(node)
-                lv_templates.append(t)
-                lv_holes.append(holes)
-            if lv_nodes:
-                schedule.append((lv_nodes, lv_templates, lv_holes))
-
+        schedule, slot_of = self._templates(live, stats, itertools.count(1).__next__)
         window = self._pack_schedule(schedule, slot_of)
-        buf = None
         if window:
             eng = self._engine()
             eng.begin(len(slot_of))
@@ -802,22 +963,140 @@ class ParallelSparseCommitter:
                 for node in nodes:
                     node._ref = encode_hash_ref(bytes(buf[slot_of[id(node)]]))
                     stats["hashed"] += 1
-
-        for i, t in live:
-            root_slot = slot_of.get(id(t.root))
-            if root_slot is not None:
-                t.root_hash = bytes(buf[root_slot])
-            else:
-                # inline or clean root: the root hash is keccak of the full
-                # root RLP whatever its size (the serial path's rule)
-                t.root_hash = keccak256(_encode_rlp(t.root))
-            t.updates = 0
-            roots[i] = t.root_hash
+        self._set_roots(live, roots, slot_of)
         stats["wall_s"] = round(time.perf_counter() - t_wall, 6)
         stats["subtrie_k"] = self.subtrie_levels
         self.last = stats
         sparse_commit_metrics.record_commit(stats)
         return roots
+
+    # -- hot-state arena delta finish -----------------------------------------
+
+    def _commit_fused_arena(self, live, roots, stats, t_wall):
+        """Commit the dirty set against the persistent ``DigestArena``: only
+        this block's dirty rows stage; unchanged children (clean refs,
+        blinds, reveal-stamped subtrees) inline as literal bytes or
+        hole-splice rows still resident from earlier epochs. The terminal
+        fetch is ``peek_slots`` (this epoch's rows), which keeps the buffer
+        on the card for the next block.
+
+        Returns None, and the caller reruns the same commit on the finish
+        it takes without the arena, when the arena is contended or anything
+        fails in the epoch (the arena evicts first, so no partial epoch is
+        ever referenced). The engine is built on ``self.device`` with its
+        ladder off, outside any catch but the owner's. Roots are
+        bit-identical either way: a resident splice writes the exact digest
+        bytes the literal ref would have carried."""
+        arena = self.arena
+        if not arena.try_acquire():
+            return None  # another finish holds the arena: classic finish
+        try:
+            evict_storm = self.hot_injector is not None and self.hot_injector.evict_storm
+            fresh = arena.begin_epoch(evict_storm=evict_storm)
+            eng = arena.engine
+            if eng is None:
+                eng = arena.engine = SubtrieFusedEngine(min_tier=64, k=self._arena_k,
+                                                        device=self.device)
+                fresh = True
+
+            schedule, slot_of = self._templates(live, stats, arena.alloc,
+                                                None if fresh else arena.lookup)
+            epoch_nodes = [n for nodes, _t, _h in schedule for n in nodes]
+            epoch_slots = [slot_of[id(n)] for n in epoch_nodes]
+            window = self._pack_schedule(schedule, slot_of)
+            h2d_bytes = 0
+            if window:
+                max_slots = arena.next_slot - 1
+                if fresh:
+                    eng.begin(max_slots)
+                else:
+                    eng.begin_delta(max_slots)
+                for w in window:
+                    eng.dispatch_packed(w["flat"], w["row_off"], w["row_len"], w["slots"],
+                                        w["holes"], w["b_tier"])
+                rows = eng.peek_slots(np.asarray(epoch_slots, dtype=np.int64))
+                for node, slot, d in zip(epoch_nodes, epoch_slots, rows):
+                    dig = bytes(d)
+                    node._ref = encode_hash_ref(dig)
+                    arena.note(dig, slot)
+                    stats["hashed"] += 1
+                stats["dispatches"] += eng.dispatches
+                h2d_bytes = eng.staged_u8_bytes + eng.staged_i32_bytes
+
+            self._set_roots(live, roots, slot_of)
+            # delta-upload accounting: staged rows against the
+            # reveal-stamped rows a cold finish would have staged again
+            stamped = 0
+            for _i, t in live:
+                stamped += t.stamped
+                t.stamped = 0
+            staged_rows = len(epoch_nodes)
+            denom = staged_rows + stamped
+            delta_fraction = (staged_rows / denom) if denom else 0.0
+            stats["wall_s"] = round(time.perf_counter() - t_wall, 6)
+            stats["subtrie_k"] = self._arena_k
+            stats["staged_rows"] = staged_rows
+            stats["stamped_rows"] = stamped
+            stats["delta_fraction"] = round(delta_fraction, 4)
+            stats["h2d_bytes"] = h2d_bytes
+            stats["arena_fresh"] = fresh
+            self.last = stats
+            sparse_commit_metrics.record_commit(stats)
+            try:
+                hotstate_metrics.record_arena(arena.snapshot(), delta_fraction=delta_fraction,
+                                              staged_rows=staged_rows, stamped_rows=stamped,
+                                              h2d_bytes=h2d_bytes, fresh=fresh)
+            except Exception:  # noqa: BLE001 — metrics never gate a commit
+                pass
+            return roots
+        except BaseException as e:  # noqa: BLE001 — the owner's catch: evict, count, rerun
+            arena.on_fault(e)
+            if not isinstance(e, Exception) or isinstance(e, InjectedSparseAbort):
+                raise  # injected aborts and interrupts keep their meaning
+            return None
+        finally:
+            arena.release()
+
+    def _templates(self, live, stats, alloc, resident=None):
+        """The fused layout of the dirty set: by depth, deepest first, each
+        hashed node's RLP template with holes and its slot from ``alloc()``
+        (inline nodes are complete and get their refs here; ``resident``:
+        see ``_child_ref_template``). The inline-vs-hashed split needs only
+        RLP lengths, never digests. Returns ([(nodes, templates, holes)] by
+        level, slot by node id)."""
+        levels = self._collect([t for _, t in live])
+        slot_of: dict[int, int] = {}
+        schedule: list[tuple[list, list, list]] = []
+        for depth in sorted(levels, reverse=True):
+            if self.injector is not None:
+                self.injector.on_dispatch()
+            stats["levels"] += 1
+            lv_nodes, lv_templates, lv_holes = [], [], []
+            for _g, node in levels[depth]:
+                t, holes = _node_template_sparse(node, slot_of, resident)
+                if len(t) < 32:
+                    node._ref = t  # inline: complete and hole-free
+                    continue
+                slot_of[id(node)] = alloc()
+                lv_nodes.append(node)
+                lv_templates.append(t)
+                lv_holes.append(holes)
+            if lv_nodes:
+                schedule.append((lv_nodes, lv_templates, lv_holes))
+        return schedule, slot_of
+
+    @staticmethod
+    def _set_roots(live, roots, slot_of: dict[int, int]) -> None:
+        """Each live trie's root once its hashed nodes carry their refs: a
+        hashed root's digest, else keccak of the full root RLP whatever its
+        size (an inline or clean root: the serial path's rule)."""
+        for i, t in live:
+            if id(t.root) in slot_of:
+                t.root_hash = bytes(t.root._ref[1:])
+            else:
+                t.root_hash = keccak256(_encode_rlp(t.root))
+            t.updates = 0
+            roots[i] = t.root_hash
 
     @staticmethod
     def _pack_schedule(schedule, slot_of: dict[int, int]) -> list[dict]:
@@ -865,26 +1144,41 @@ class SparseStateTrie:
 
     account_trie: SparseTrie = field(default_factory=SparseTrie)
     storage_tries: dict[bytes, SparseTrie] = field(default_factory=dict)
+    # the hot-state plane: reveal-ref stamping on every trie
+    stamp_reveals: bool = False
 
     @classmethod
     def anchored(cls, state_root: bytes) -> "SparseStateTrie":
         return cls(account_trie=SparseTrie(state_root))
 
+    def set_stamping(self, on: bool) -> None:
+        """Turn reveal-ref stamping on or off for every current and future
+        trie (the delta finish stages fewer rows with it on)."""
+        self.stamp_reveals = on
+        self.account_trie.stamp_reveals = on
+        for t in self.storage_tries.values():
+            t.stamp_reveals = on
+
     def reveal_account(self, proof_nodes: list[bytes]) -> None:
         self.account_trie.reveal(proof_nodes)
+
+    def _new_trie(self, hashed_addr: bytes, storage_root: bytes) -> SparseTrie:
+        st = self.storage_tries[hashed_addr] = SparseTrie(storage_root)
+        st.stamp_reveals = self.stamp_reveals
+        return st
 
     def storage_trie(self, hashed_addr: bytes,
                      storage_root: bytes = EMPTY_ROOT_HASH) -> SparseTrie:
         st = self.storage_tries.get(hashed_addr)
         if st is None:
-            st = self.storage_tries[hashed_addr] = SparseTrie(storage_root)
+            st = self._new_trie(hashed_addr, storage_root)
         return st
 
     def reveal_storage(self, hashed_addr: bytes, storage_root: bytes,
                        proof_nodes: list[bytes]) -> None:
         st = self.storage_tries.get(hashed_addr)
         if st is None or (st.root is None and st.root_hash != storage_root):
-            st = self.storage_tries[hashed_addr] = SparseTrie(storage_root)
+            st = self._new_trie(hashed_addr, storage_root)
         st.reveal(proof_nodes)
 
     def update_account(self, hashed_addr: bytes, account_rlp: bytes) -> None:

@@ -434,3 +434,20 @@ def sparse_block(st, owners, slot_keys, seed: int, dirty: int = 4, wipe_every: i
         if i % 3 == 0:
             t.update(bytes(rng.integers(0, 256, 32, dtype=np.uint8)), b"\x07\x08")
         st.update_account(ha, bytes(rng.integers(1, 256, 40, dtype=np.uint8)))
+
+
+# -- delta commits of the hot-state arena (SubtrieFusedEngine.begin_delta) -----
+
+
+def arena_level(rng, n: int, slot0: int, srcs=()):
+    """``dispatch_packed``'s arguments for one level of ``n`` rows of 40-140
+    random bytes at slots slot0.., each row with a hole at byte 3 whose
+    digest comes from ``srcs`` (cycled) when given."""
+    rows = [rng.integers(0, 256, int(rng.integers(40, 140)), dtype=np.uint8).tobytes()
+            for _ in range(n)]
+    row_len = np.array([len(r) for r in rows], dtype=np.uint32)
+    row_off = (np.cumsum(row_len) - row_len).astype(np.uint32)
+    holes = (np.array([[i, 3, srcs[i % len(srcs)]] for i in range(n)], dtype=np.int32).T
+             if len(srcs) else None)
+    return (np.frombuffer(b"".join(rows), dtype=np.uint8), row_off, row_len,
+            np.arange(slot0, slot0 + n, dtype=np.int32), holes, 2)

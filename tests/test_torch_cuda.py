@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, edge_chain, edge_digest_buffer,
+from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, arena_level, edge_chain,
+                            edge_digest_buffer,
                             edge_level, level_kernel_args, prefix_jobs, require_card,
                             sparse_block, sparse_state, staged_chunks, template_bucket,
                             template_buffer, template_levels, threshold_chain)
@@ -359,3 +360,76 @@ def test_supervised_rebuild_on_card_matches_twin(monkeypatch, k):
         assert fc.subtrie_levels.launches + fc.packed_level.launches > before
         if k:
             assert fused_metrics.last["mode"] == ("perlevel" if wedge else "fused")
+
+
+@pytest.mark.cuda
+def test_delta_epochs_on_card_match_cpu_engine():
+    """The hot-state arena's engine protocol on the card: a full epoch, then
+    delta epochs whose holes read rows of earlier epochs (kernel 4 on a
+    buffer it did not fill in the same commit), the last one past the
+    buffer's size so that it copy-grows. Every read-back and the whole
+    buffer equal the same epochs on device="cpu"; the grown buffer keeps
+    every resident row; no pinned staging outlives an epoch."""
+    require_card()
+    out = {}
+    for device in ("cpu", "cuda"):
+        rng = np.random.default_rng(12)
+        eng = fc.SubtrieFusedEngine(min_tier=64, k=8, device=device)
+        reads, slot = [], 1
+        for epoch, (n_levels, rows) in enumerate(((3, 20), (2, 15), (4, 60))):
+            start = slot
+            levels = []
+            for _ in range(n_levels):
+                srcs = range(1, slot) if slot > 1 else ()
+                levels.append(arena_level(rng, rows, slot, srcs))
+                slot += rows
+            if epoch == 0:
+                eng.begin(slot - 1)
+            else:
+                before = eng._buf.clone()
+                eng.begin_delta(slot - 1)
+                assert bool((eng._buf[:before.shape[0]] == before).all())
+            k4 = fc.subtrie_levels.launches
+            for lv in levels:
+                eng.dispatch_packed(*lv)
+            reads.append(eng.peek_slots(np.arange(start, slot)))
+            assert eng.pinned_bytes() == 0 and eng._buf is not None
+            if device == "cuda":
+                assert fc.subtrie_levels.launches > k4
+        assert eng.growths == 2  # 64 -> 128 -> 512 rows
+        out[device] = reads, eng._buf.cpu().numpy()
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert np.array_equal(got, want)
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_arena_finish_on_card_matches_cpu(seed):
+    """ParallelSparseCommitter(arena=DigestArena()) on the card against the
+    same commits on device="cpu": the same roots, arena snapshots and delta
+    stats over a full epoch and three delta epochs, launching
+    subtrie_levels only, with no fault."""
+    require_card()
+    out = {}
+    for device in ("cpu", "cuda"):
+        st, owners, keys = sparse_state(tsp, seed, tries=40, slots=32)
+        arena = fc.DigestArena()
+        c = tsp.ParallelSparseCommitter(arena=arena, device=device)
+        k1, k4 = tk.keccak256_words_masked.launches, fc.subtrie_levels.launches
+        rec = []
+        for block in range(4):
+            if block:
+                sparse_block(st, owners, keys, seed=seed * 10 + block)
+            root = st.root(committer=c)
+            rec.append((root, arena.snapshot(), {k: c.last[k] for k in (
+                "staged_rows", "stamped_rows", "delta_fraction", "arena_fresh", "hashed")}))
+        if device == "cuda":
+            assert tk.keccak256_words_masked.launches == k1
+            assert fc.subtrie_levels.launches > k4
+            assert arena.engine.device.type == "cuda" and not arena.engine.ladder
+        snap = arena.snapshot()
+        assert (snap["faults"], snap["full_epochs"], snap["delta_epochs"]) == (0, 1, 3)
+        assert snap["resident_hits"] > 0 and arena.leaked_rows() == 0
+        out[device] = rec
+    assert out["cuda"] == out["cpu"]

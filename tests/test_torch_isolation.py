@@ -49,7 +49,7 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.trie.turbo", "reth_tpu_torch.trie.state_root",
                 "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types",
                 "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing",
-                "reth_tpu_torch.ops.supervisor"):
+                "reth_tpu_torch.ops.supervisor", "reth_tpu_torch.trie.hot_cache"):
         assert mod in res["modules"]
 
 

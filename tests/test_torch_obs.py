@@ -191,3 +191,61 @@ def test_registry_renders_prometheus_text():
     with pytest.raises(ValueError):
         reg.histogram("h_seconds", buckets=(0.2,))
     assert np.isclose(reg.histogram("h_seconds").snapshot()[1], 0.5)
+
+
+def _hotstate_values(reg) -> dict:
+    return {name: (type(m).__name__, m.help, m.snapshot() if hasattr(m, "buckets") else m.value)
+            for name, m in reg.items()}
+
+
+def test_hotstate_metrics_match_reference(monkeypatch):
+    """HotStateMetrics: the same hotstate_* names, types, help and values
+    after the same cache and arena records, and then after the same arena
+    commits and cache absorbs of both packages (fresh registries, patched
+    in where each package records)."""
+    from reth_tpu.ops import fused_commit as jfc
+    from reth_tpu.trie import hot_cache as jhc
+    from reth_tpu_torch.ops import fused_commit as pfc
+    from reth_tpu_torch.trie import hot_cache as phc
+
+    regs = jmetrics.MetricsRegistry(), pmetrics.MetricsRegistry()
+    groups = jmetrics.HotStateMetrics(regs[0]), pmetrics.HotStateMetrics(regs[1])
+    monkeypatch.setattr(jmetrics, "hotstate_metrics", groups[0])
+    monkeypatch.setattr(pmetrics, "hotstate_metrics", groups[1])
+    monkeypatch.setattr(ts, "hotstate_metrics", groups[1])
+    stats = [{"entries": 4, "hits": 10, "misses": 2, "stale_drops": 1, "poison_caught": 0,
+              "evictions": 0, "puts": 9, "clears": 0},
+             {"entries": 5, "hits": 14, "misses": 3, "stale_drops": 1, "poison_caught": 2,
+              "evictions": 1, "puts": 12, "clears": 1}]
+    for g in groups:
+        for s in stats:
+            g.record_cache(s)
+        g.record_arena({"resident_rows": 7, "leaked_rows": 0, "evictions": 1, "faults": 1,
+                        "delta_epochs": 3, "full_epochs": 2}, delta_fraction=0.3,
+                       staged_rows=3, stamped_rows=7, h2d_bytes=5000, fresh=False)
+    assert _hotstate_values(regs[1]) == _hotstate_values(regs[0])
+    assert groups[1].last == groups[0].last
+    assert groups[1].last["hit_rate"] == pytest.approx(14 / 17, abs=1e-3)
+    assert {n for n, _ in regs[1].items()} >= {
+        "hotstate_cache_hits_total", "hotstate_cache_entries", "hotstate_arena_resident_rows",
+        "hotstate_delta_upload_fraction", "hotstate_h2d_bytes_per_commit"}
+
+    for sparse, hc, fc, hasher, kw in ((js, jhc, jfc, jhash, {}), (ts, phc, pfc, phash,
+                                                                   {"device": "cpu"})):
+        st, owners, keys = sparse_state(sparse, 31, tries=4, slots=12)
+        c = sparse.ParallelSparseCommitter(workers=1, arena=fc.DigestArena(), **kw)
+        if sparse is js:
+            c.SUBTRIE_ROW_FLOOR = c.SUBTRIE_HOLE_FLOOR = 64
+        cache = hc.TrieNodeCache(injector=None)
+        for block in range(3):
+            if block:
+                sparse_block(st, owners, keys, seed=40 + block)
+            st.root(hasher, committer=c)
+            cache.absorb_block(st, owners, {o: keys[o] for o in owners})
+    want, got = _hotstate_values(regs[0]), _hotstate_values(regs[1])
+    # the staged layout is the port's own (64-bit indices, staged row
+    # offsets), so the bytes staged per commit differ from the reference's
+    assert {k: v for k, v in got.items() if k != "hotstate_h2d_bytes_per_commit"} == \
+        {k: v for k, v in want.items() if k != "hotstate_h2d_bytes_per_commit"}
+    assert got["hotstate_h2d_bytes_per_commit"][2][2] == want["hotstate_h2d_bytes_per_commit"][2][2]
+    assert got["hotstate_arena_delta_epochs_total"][2] == 2 + 3

@@ -402,12 +402,15 @@ class _ServiceClient:
 
 
 def test_unported_seams_raise():
-    with pytest.raises(NotImplementedError):
-        ts.ParallelSparseCommitter(arena=object(), device="cpu")
+    """The hash service's lanes are not ported: a hasher with submit()
+    raises, with or without the hot-state arena (which is ported)."""
+    from reth_tpu_torch.ops.fused_commit import DigestArena
+
     t = ts.SparseTrie()
     t.update(b"\x01" * 32, b"\x02" * 40)
-    with pytest.raises(NotImplementedError):
-        ts.ParallelSparseCommitter(device="cpu").commit([t], _ServiceClient())
+    for arena in (None, DigestArena()):
+        with pytest.raises(NotImplementedError):
+            ts.ParallelSparseCommitter(arena=arena, device="cpu").commit([t], _ServiceClient())
 
 
 def test_the_card_is_the_default_and_never_replaced_by_the_cpu():
