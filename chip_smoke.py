@@ -32,7 +32,16 @@
    child process that loads kernel 1 and hashes keccak256(b"") on the card;
    the run fails unless it is ok and the breaker closed. Its latency is
    logged.
-3. Slice phase, ten main paths, the launch counters zeroed just before
+   Before that, warm-up cold and warm (ops/warmup.py): build_warmup(
+   supervisor=, cache_dir=<a fresh directory>) over default_menu() in a
+   fresh child process (nothing loaded yet): every shape WARM, misses equal
+   to the shapes, nvcc run once per kernel source into the versioned cache,
+   the cache enabled after its probe child; then a second child on the same
+   directory: hits equal to the shapes and no nvcc run. Each shape's wall
+   and kernel launches are logged. Then the cache probe child alone, and the
+   drill of a truncated library: a third child quarantines the directory
+   and rebuilds it.
+3. Slice phase, sixteen main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
@@ -88,8 +97,31 @@
    main paths; each block's root must equal on both lineages, and both
    lineages' proof fetches, cache hits / misses / entries, stamped rows,
    delta fraction, bytes staged and walls are logged per block. Each
-   finish is timed (median of the blocks). Each path must launch its
-   kernels and no other. The
+   finish is timed (median of the blocks). Then the control plane:
+   "state_root degraded", the state_root() above through
+   TrieCommitter(supervisor=, warmup=) while a warm-up manager started in
+   the background is held at the menu's first shape (every bucket hashed on
+   the host, cpu_routed > 0, no launch), and, once the manager is released
+   and warm (outside the main paths), "state_root warming", the same run
+   again (cpu_routed unchanged, every bucket through kernel 1), both held
+   against numpy's root and branch nodes; "service", bench.py's service
+   workload (8 clients x 300 requests x 4 keys of 64 bytes, seed 7, lanes
+   round-robin) through HashService(backend=KeccakDevice(1024,
+   block_tier=4).hash_batch), after the same requests per call outside the
+   main paths (every digest equal to numpy's, no replay, fewer kernel-1
+   launches than requests; both walls, the coalesce factor, the dispatches,
+   the round trips and each lane's wait logged); "sparse service" and
+   "sparse service k=8", the sparse cell's blocks on two more copies of its
+   state with the service's live-lane client as the hasher (encode chunks
+   streamed through submit, kernel 1 on the dispatcher thread; the fused
+   window through commit_window, kernel 4 there), held against the twin like
+   the other sparse paths; "rebuild leased", the full rebuild through
+   TurboCommitter(hash_service=) on the default engine while a thread keeps
+   submitting live-lane requests (leases equal to the commits, no replay,
+   roots and branch nodes equal to the numpy twin's; the lease bypasses and
+   the live lane's waits logged). Each path must launch its
+   kernels and no other (the leased rebuild may also launch kernel 1, for
+   its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
    host-to-device copies, launches and staged levels are logged.
 4. For each main path, two more runs after the launch counts were read
@@ -157,7 +189,15 @@
    (every epoch full); c) RETH_TPU_FAULT_HOTSTATE_POISON=3 on the hot tip
    (every poisoned serve caught, none revealed); d) max_rows shrunk so that
    begin_epoch evicts (no leaked row); e) a second thread holding the arena
-   (the classic finish, contended 1).
+   (the classic finish, contended 1). Then the control plane's drills
+   (control_drills): a) RETH_TPU_FAULT_COMPILE_WEDGE=1 (retried, then warm);
+   b) a compile wedge forever with attempts=1 (the breaker trips, serving
+   degrades to the host, and after the cooldown the real half-open probe
+   promotes the shape); c) RETH_TPU_FAULT_SERVICE_WEDGE_EVERY=2 (under a
+   supervisor: replays, every future completing once with equal digests;
+   unsupervised: every second future raises the wedge, no replay); d)
+   RETH_TPU_FAULT_SERVICE_QUEUE_CAP with block=False (LaneOverloaded); e)
+   RETH_TPU_FAULT_SERVICE_STALL under a lease (aged requests bypass).
 
 Any mismatch or exception exits non-zero. The last line is
 {"ok": true, "device": {...}}; before it, the card's name and power limit
@@ -692,21 +732,30 @@ KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 # the general committer, fused and then supervised (SupervisedHasher over
 # KeccakDevice), then the sparse live-tip finish, classic and fused
 PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", "sparse",
-         "sparse k=8", "sparse arena", "hot tip")
+         "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
+         "service", "sparse service", "sparse service k=8", "rebuild leased")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
                 "state_root": ("keccak256_absorb", "packed_level"),
                 "state_root auto": ("keccak256_absorb",),
                 "sparse": ("keccak256_absorb",), "sparse k=8": ("subtrie_levels",),
-                "sparse arena": ("subtrie_levels",), "hot tip": ("subtrie_levels",)}
+                "sparse arena": ("subtrie_levels",), "hot tip": ("subtrie_levels",),
+                "state_root degraded": (), "state_root warming": ("keccak256_absorb",),
+                "service": ("keccak256_absorb",), "sparse service": ("keccak256_absorb",),
+                "sparse service k=8": ("subtrie_levels",),
+                "rebuild leased": ("packed_level", "branch_level")}
+# kernels a main path may launch besides its own: the leased rebuild's live
+# client dispatches through kernel 1 whenever the lease is not held
+PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
 # the rebuild paths and their unsupervised twins
 AUTO_TWIN = {"auto": "default", "auto k=8": "k=8"}
 # the drills' state: bench.py's generator at a fixed cut size (no flag)
 DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 # the rows that time a kernel at another main path's launches: row -> kernel
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
-              "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels"}
+              "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels",
+              "service_absorb": "keccak256_absorb"}
 # the main paths whose kernel 4 launches keep a copy of the digest buffer as
 # it was before the launch (the arena's: rows of earlier epochs), so that the
 # timed replay starts from it
@@ -732,8 +781,10 @@ class _Recorded:
         self.fn.launches = value
 
     def __call__(self, *args):
-        before = self.fn.launches
         rec = self.recorder
+        if rec.path is None:  # between main paths: launch, record nothing
+            return self.fn(*args)
+        before = self.fn.launches
         keep = self.name == "subtrie_levels" and rec.path in KEEP_BUFFER_PATHS
         base = args[-1].clone() if keep else None
         out = self.fn(*args)
@@ -946,6 +997,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "arena_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
                           lambda *a: subtrie_cost(bound, *a), level_src,
                           "reth_tpu/ops/fused_commit.py:1046", "sparse arena"),
+        "service_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                           level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                           "reth_tpu/ops/keccak_pallas.py:96", "service"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -1050,6 +1104,11 @@ def engine_summary(engines: list) -> str:
 
 # the sparse finish's card paths
 SPARSE_PATHS = ("sparse", "sparse k=8", "sparse arena")
+# the same finish with the hash service's live-lane client as its hasher:
+# classic (encode chunks streamed through submit, kernel 1 on the service's
+# dispatcher) and fused (the window through commit_window, kernel 4 there)
+SERVICE_SPARSE_PATHS = ("sparse service", "sparse service k=8")
+CELL_PATHS = SPARSE_PATHS + SERVICE_SPARSE_PATHS
 
 
 class GcPauses:
@@ -1080,25 +1139,27 @@ class GcPauses:
 
 class SparseCell:
     """The sparse live-tip finish at one size: the same generated state
-    four times, committed by the card's classic finish ("sparse":
+    six times, committed by the card's classic finish ("sparse":
     ParallelSparseCommitter hashing each depth through KeccakDevice, kernel
     1), by the card's fused finish ("sparse k=8": subtrie_levels=8, kernel
     4), by the hot-state arena's delta finish on the card ("sparse arena":
     arena=DigestArena(), kernel 4 on one engine whose digest buffer outlives
-    the block) and by the CPU twin (the classic finish on device="cpu" with
-    the numpy hasher). Each block applies the same seeded dirty set to all
-    four; every root and the account trie's stored branch updates are held
-    against the twin's."""
+    the block), by the same two finishes with ``service``'s live-lane client
+    as the hasher ("sparse service": chunks streamed through submit, kernel 1
+    on the service's dispatcher thread; "sparse service k=8": the window
+    through commit_window, kernel 4 there) and by the CPU twin (the classic
+    finish on device="cpu" with the numpy hasher). Each block applies the
+    same seeded dirty set to all six; every root and the account trie's
+    stored branch updates are held against the twin's."""
 
-    def __init__(self):
+    def __init__(self, service):
         from reth_tpu_torch.ops.fused_commit import DigestArena
         from reth_tpu_torch.primitives.keccak import keccak256_batch_np
         from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
 
-        self.hash_np = keccak256_batch_np
         t0 = time.perf_counter()
         self.states = {name: sparse_base(SPARSE_TRIES, SPARSE_SLOTS)
-                       for name in SPARSE_PATHS + ("twin",)}
+                       for name in CELL_PATHS + ("twin",)}
         self.owners = self.states["twin"][1]
         log(f"sparse state generated {len(self.states)} times in {time.perf_counter() - t0:.1f} s "
             f"({SPARSE_TRIES} storage tries x {SPARSE_SLOTS} slots, {SPARSE_TRIES} accounts)")
@@ -1107,7 +1168,13 @@ class SparseCell:
                            "sparse k=8": ParallelSparseCommitter(subtrie_levels=8, device="cuda"),
                            "sparse arena": ParallelSparseCommitter(arena=self.arena,
                                                                    device="cuda"),
+                           "sparse service": ParallelSparseCommitter(device="cuda"),
+                           "sparse service k=8": ParallelSparseCommitter(subtrie_levels=8,
+                                                                         device="cuda"),
                            "twin": ParallelSparseCommitter(device="cpu")}
+        live = service.client("live")
+        self.hashers = {"twin": keccak256_batch_np, "sparse service": live,
+                        "sparse service k=8": live}
         # the fused finish's engines, one per commit
         self.engines = track_engines(self.committers["sparse k=8"], "_engine")
         self.next_block = {name: 0 for name in self.states}
@@ -1123,7 +1190,7 @@ class SparseCell:
 
         st, _, _ = self.states[name]
         c = self.committers[name]
-        hasher = self.hash_np if name == "twin" else None
+        hasher = self.hashers.get(name)
         with GcPauses() as gcp:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1138,7 +1205,7 @@ class SparseCell:
         of kernel 1 (classic) and kernel 4 (fused) on all of its nodes."""
         from reth_tpu_torch.trie.sparse import export_branch_updates
 
-        for name in ("twin",) + SPARSE_PATHS:
+        for name in ("twin",) + CELL_PATHS:
             root, wall, stats = self.finish(name)
             self.roots[name].append(root)
             self.stored[name] = export_branch_updates(self.states[name][0].account_trie,
@@ -1177,7 +1244,7 @@ class SparseCell:
 
     def check(self, what: str) -> None:
         """Every root and branch export so far equal to the twin's."""
-        for name in SPARSE_PATHS:
+        for name in CELL_PATHS:
             n = len(self.roots[name])
             if self.roots[name] != self.roots["twin"][:n]:
                 raise AssertionError(f"{name}: a sparse root differs from the CPU twin's ({what})")
@@ -1252,7 +1319,7 @@ class SparseCell:
 # each of HOT_WRITES writes (half of them keys of the fork's previous block)
 # and HOT_DELETES deletes (the shape of bench.py's hotstate mode, at the trie
 # level)
-HOT_ACCOUNTS, HOT_BLOCKS, HOT_WRITES, HOT_DELETES = 262_144, 8, 2048, 128
+HOT_ACCOUNTS, HOT_BLOCKS, HOT_WRITES, HOT_DELETES = 262_144, 4, 2048, 128
 HOT_NEW = 128  # of each block's writes, keys new to the fork (inserts)
 
 
@@ -1478,6 +1545,8 @@ def hot_tip_setup():
     from reth_tpu_torch.ops.fused_commit import DigestArena
     from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
 
+    log(f"hot tip: {HOT_BLOCKS} blocks a fork (cut from 8 to 4 to make room for the control "
+        f"plane's phases inside the time limit)")
     t0 = time.perf_counter()
     genesis, keys = hot_genesis()
     log(f"hot tip: genesis account trie of {len(keys)} keys built and hashed on the CPU in "
@@ -1545,13 +1614,7 @@ def join_supervised(timeout: float = 120.0) -> int:
     abandoned may still call into a dropped engine and launch on the card,
     so no launch counter is read, and the script does not exit, while one
     runs. Returns how many were found; raises if one outlives ``timeout``."""
-    found = [t for t in threading.enumerate() if t.name.startswith("supervised-")]
-    for t in found:
-        t.join(timeout)
-    alive = [t.name for t in found if t.is_alive()]
-    if alive:
-        raise AssertionError(f"watchdog threads still running after {timeout} s: {alive}")
-    return len(found)
+    return join_threads("supervised-", timeout)
 
 
 def journal_size(backend) -> tuple[int, int]:
@@ -1581,6 +1644,513 @@ def supervisor_startup():
     return sup
 
 
+# -- the control plane: warm-up and the shared hash service ---------------------
+
+# bench.py's RETH_TPU_BENCH_MODE=service workload: clients x requests a client
+# x keys a request, 64-byte keys from seed 7, the lanes round-robin by client
+SVC_CLIENTS, SVC_REQS, SVC_KEYS = 8, 300, 4
+
+
+def join_threads(prefix: str, timeout: float = 120.0) -> int:
+    """Join every thread whose name starts with ``prefix`` (an abandoned
+    warm-up step still launches once its injected sleep ends); raises if one
+    outlives ``timeout``. Returns how many were found."""
+    found = [t for t in threading.enumerate() if t.name.startswith(prefix)]
+    for t in found:
+        t.join(timeout)
+    alive = [t.name for t in found if t.is_alive()]
+    if alive:
+        raise AssertionError(f"threads still running after {timeout} s: {alive}")
+    return len(found)
+
+
+def warmup_child(cache_dir: str) -> int:
+    """``--warmup-child DIR``: one warm-up run in a fresh process (nothing of
+    the port loaded yet): ``build_warmup(supervisor=, cache_dir=DIR)`` over
+    ``default_menu()``, with the cache probe child and each shape's wall and
+    kernel launches recorded. Prints one JSON line."""
+    sys.path.insert(0, HERE)
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops import keccak as ok
+    from reth_tpu_torch.ops import warmup as ow
+    from reth_tpu_torch.ops.supervisor import DeviceSupervisor
+
+    nvcc_runs: list[str] = []
+    command = _build._command
+
+    def counted(src, out):
+        if src.suffix == ".cu":
+            nvcc_runs.append(src.name)
+        return command(src, out)
+
+    _build._command = counted
+    wrapper = {"keccak.masked": ok.keccak256_words_masked,
+               "keccak.exact": ok.keccak256_words_masked, "fused.plain": fc.packed_level,
+               "fused.splice": fc.packed_level, "fused.subtrie": fc.subtrie_levels}
+    shapes = {}
+
+    def builder(shape):
+        w = wrapper[shape.program]
+        before = w.launches
+        t0 = time.perf_counter()
+        ow.build_shape(shape, "cuda")
+        shapes[str(shape)] = {"wall_s": round(time.perf_counter() - t0, 4),
+                              "launches": w.launches - before}
+
+    sup = DeviceSupervisor(registry=MetricsRegistry())
+    mgr = ow.build_warmup(supervisor=sup, cache_dir=cache_dir, builder=builder,
+                          registry=MetricsRegistry())
+    t0 = time.perf_counter()
+    snap = mgr.run()
+    print(json.dumps({"snapshot": snap, "wall_s": round(time.perf_counter() - t0, 3),
+                      "nvcc_runs": nvcc_runs, "builds": mgr.builds, "shapes": shapes,
+                      "validate": mgr.cache.last_report, "breaker": sup.breaker.state,
+                      "wedges": mgr.wedges}))
+    return 0
+
+
+def run_warmup_child(base, what: str) -> dict:
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmup-child", str(base)],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"warm-up child ({what}) failed rc={r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["process_s"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
+def warmup_phase() -> dict:
+    """Warm-up on the card, cold and warm: ``build_warmup`` over the default
+    menu in a fresh child process on a fresh cache directory (every shape
+    WARM, misses equal to the shapes, nvcc run for both kernel libraries),
+    then a second child on the same directory (hits equal to the shapes, no
+    nvcc run), then the cache probe child alone, then the drill of a
+    truncated library (the third child quarantines the directory and
+    rebuilds). Each shape's wall and launches are logged."""
+    import shutil
+    from pathlib import Path
+
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.ops import warmup as ow
+    from reth_tpu_torch.ops.supervisor import probe_device
+
+    base = Path(HERE) / "reth_tpu_torch" / "build" / f"warmup-cache-{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    cache_dir = ow.CompileCache(base).dir
+    total = len(ow.default_menu())
+    out = {}
+    try:
+        for what in ("cold", "warm"):
+            res = out[what] = run_warmup_child(base, what)
+            snap = res["snapshot"]
+            hits, misses = (0, total) if what == "cold" else (total, 0)
+            want_nvcc = sorted(_build.KERNEL_SOURCES) if what == "cold" else []
+            if (snap["state"], snap["warm"], snap["cache_hits"], snap["cache_misses"],
+                    sorted(res["nvcc_runs"]), snap["cache"]["loaded_elsewhere"]) != \
+                    ("warm", total, hits, misses, want_nvcc, 0) or \
+                    snap["cache"]["mode"] != what or \
+                    any(v["launches"] != 1 for v in res["shapes"].values()):
+                raise AssertionError(f"warm-up, {what} cache: {json.dumps(res)}")
+            log(f"warm-up, {what} cache ({res['process_s']} s for the child process, run() "
+                f"{res['wall_s']} s): {snap['warm']}/{snap['total']} shapes WARM, hits "
+                f"{snap['cache_hits']}, misses {snap['cache_misses']}, nvcc runs "
+                f"{res['nvcc_runs']}, libraries built {res['builds']}, cache {snap['cache']}, "
+                f"validate {res['validate']}, breaker {res['breaker']}")
+            log(f"warm-up, {what} cache, each shape's wall and launches: "
+                + ", ".join(f"{k} {v['wall_s']} s x{v['launches']}"
+                            for k, v in res["shapes"].items()))
+        probe = probe_device(cache_dir=str(cache_dir))
+        if not probe.ok:
+            raise AssertionError(f"the cache probe child failed: {probe.diag}")
+        out["probe_s"] = round(probe.latency, 3)
+        log(f"warm-up, the cache probe child (kernel 1 loaded from {cache_dir.name}, "
+            f"keccak256(b'') on the card): ok in {probe.latency:.3f} s")
+        lib = _build.library_path(_build.CUDA_SRC_DIR / "keccak.cu", cache_dir)
+        data = lib.read_bytes()
+        lib.write_bytes(data[:len(data) // 3])
+        res = out["truncated"] = run_warmup_child(base, "truncated")
+        snap = res["snapshot"]
+        quarantined = sorted(p.name for p in base.glob("*.quarantine-*"))
+        if (res["validate"]["quarantined"], res["validate"]["corrupt"], snap["state"],
+                snap["cache_misses"], sorted(res["nvcc_runs"]), len(quarantined)) != \
+                (True, 1, "warm", total, sorted(_build.KERNEL_SOURCES), 1):
+            raise AssertionError(f"warm-up, truncated library: {json.dumps(res)}")
+        log(f"warm-up drill, {lib.name} truncated to {len(data) // 3} of {len(data)} bytes: "
+            f"validate {res['validate']}, the directory quarantined as {quarantined[0]}, "
+            f"rebuilt (nvcc runs {res['nvcc_runs']}), {snap['warm']}/{snap['total']} shapes "
+            f"WARM, misses {snap['cache_misses']} ({res['process_s']} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def state_root_warming(run_path, recorder, accounts, storages) -> tuple:
+    """The main paths "state_root degraded" and "state_root warming":
+    state_root() through TrieCommitter(supervisor=, warmup=) while a warm-up
+    manager, started in the background, is held at the menu's first shape
+    (a builder that waits on an event): every bucket is hashed on the host,
+    counted in cpu_routed, and no kernel is launched. Then the manager is
+    released and finishes (outside the main paths), and the same committer
+    runs again: cpu_routed does not grow and every bucket goes through
+    kernel 1. Returns both runs' (root, details)."""
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops import warmup as ow
+    from reth_tpu_torch.ops.supervisor import DeviceSupervisor
+    from reth_tpu_torch.trie.committer import TrieCommitter
+    from reth_tpu_torch.trie.state_root import state_root
+
+    sup = DeviceSupervisor(registry=MetricsRegistry())
+    held = ow.default_menu()[0]
+    release = threading.Event()
+
+    def builder(shape):
+        if shape == held:
+            release.wait()
+        ow.build_shape(shape, "cuda")
+
+    recorder.path = None
+    mgr = ow.WarmupManager(supervisor=sup, builder=builder, budget=600, attempts=1, backoff=0,
+                           registry=MetricsRegistry())
+    committer = TrieCommitter(supervisor=sup, warmup=mgr, device="cuda")
+    mgr.start()
+    deadline = time.monotonic() + 60
+    while mgr.snapshot()["compiling"] != str(held):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"warm-up never reached {held}: {mgr.snapshot()}")
+        time.sleep(0.005)
+    t0 = time.perf_counter()
+    degraded = run_path("state_root degraded",
+                        lambda: state_root(accounts, storages, committer=committer))
+    wall_degraded = time.perf_counter() - t0
+    dev = committer.hasher._device.__self__
+    routed, host = mgr.cpu_routed, dev.host_hashed
+    if routed == 0 or host == 0 or sup.failovers:
+        raise AssertionError(f"state_root degraded: cpu_routed {routed}, host-hashed {host}, "
+                             f"failovers {sup.failovers}")
+    log(f"state_root degraded (warm-up held at {held}, {mgr.overall_state()}): "
+        f"{wall_degraded:.3f} s, {routed} buckets routed to the CPU twin, {host} messages hashed "
+        f"on the host, no launch")
+    recorder.path = None  # the warm-up's own launches belong to no main path
+    t0 = time.perf_counter()
+    release.set()
+    mgr.wait(300)
+    snap = mgr.snapshot()
+    if snap["state"] != "warm" or snap["warm"] != snap["total"]:
+        raise AssertionError(f"warm-up did not finish warm: {snap}")
+    log(f"warm-up released: {snap['warm']}/{snap['total']} shapes WARM in "
+        f"{time.perf_counter() - t0:.3f} s, compile walls {snap['compile_wall_s']} s")
+    t0 = time.perf_counter()
+    warm = run_path("state_root warming",
+                    lambda: state_root(accounts, storages, committer=committer))
+    wall_warm = time.perf_counter() - t0
+    if mgr.cpu_routed != routed or dev.host_hashed != host or sup.failovers:
+        raise AssertionError(f"state_root warming: cpu_routed {routed} -> {mgr.cpu_routed}, "
+                             f"host-hashed {host} -> {dev.host_hashed} after warm-up")
+    log(f"state_root warming (warm-up {mgr.overall_state()}): {wall_warm:.3f} s, cpu_routed "
+        f"stayed {routed}, every bucket through kernel 1 ({dev.uploads} host-to-device copies "
+        f"by its KeccakDevice)")
+    return degraded, warm
+
+
+def service_workload() -> list[list[bytes]]:
+    rng = np.random.default_rng(7)
+    return [[rng.integers(0, 256, size=64, dtype=np.uint8).tobytes() for _ in range(SVC_KEYS)]
+            for _ in range(SVC_CLIENTS * SVC_REQS)]
+
+
+def run_clients(workload, dispatch) -> tuple[float, list, list]:
+    """bench.py's clients: SVC_CLIENTS threads, each its SVC_REQS requests
+    on lane ``client % 4``; returns (wall s, digests by request, each
+    request's round trip in s)."""
+    from reth_tpu_torch.ops.hash_service import LANES
+
+    out = [None] * len(workload)
+    lat = [0.0] * len(workload)
+    errs: list = []
+
+    def worker(c):
+        try:
+            for i in range(c * SVC_REQS, (c + 1) * SVC_REQS):
+                t0 = time.perf_counter()
+                out[i] = dispatch(LANES[c % 4], workload[i])
+                lat[i] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in range(SVC_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return time.perf_counter() - t0, out, lat
+
+
+def service_path(run_path, recorder, launches) -> None:
+    """The main path "service": bench.py's service workload through
+    HashService(backend=KeccakDevice(1024, block_tier=4).hash_batch), after
+    the same requests per call (each request its own launch, outside the
+    main paths). Every digest equals keccak256_batch_np's; no replay, and
+    fewer kernel-1 launches than requests. Logs both walls, the coalesce
+    factor, the dispatches and each lane's wait."""
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops.hash_service import HashService
+    from reth_tpu_torch.ops.keccak import KeccakDevice
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+
+    workload = service_workload()
+    flat = [m for r in workload for m in r]
+    want = keccak256_batch_np(flat)
+    recorder.path = None
+    direct = KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch
+    direct(workload[0])
+    wall_direct, out_direct, lat_direct = run_clients(workload, lambda lane, msgs: direct(msgs))
+    svc = HashService(backend=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch,
+                      registry=MetricsRegistry())
+    try:
+        wall_svc, out_svc, lat_svc = run_path(
+            "service", lambda: run_clients(workload, lambda lane, msgs: svc.hash(lane, msgs)))
+    finally:
+        svc.stop()
+    n_req = len(workload)
+    for label, out in (("per call", out_direct), ("service", out_svc)):
+        if [d for r in out for d in r] != want:
+            raise AssertionError(f"service workload, {label}: a digest differs from numpy's")
+    k1 = launches["service"]["keccak256_absorb"]
+    if svc.replays or not 0 < k1 < n_req:
+        raise AssertionError(f"service: replays {svc.replays}, kernel-1 launches {k1} for "
+                             f"{n_req} requests")
+    _c, svc_total, svc_n = svc.metrics._service.snapshot()
+    waits = [w for lane in svc._waits.values() for w in lane]
+    handoff = np.mean(lat_svc) - np.mean(waits) - svc_total / svc_n
+    log(f"service workload ({SVC_CLIENTS} clients x {SVC_REQS} requests x {SVC_KEYS} keys of 64 "
+        f"bytes, seed 7): per call {wall_direct:.3f} s ({len(flat) / wall_direct:.1f} hashes/s, "
+        f"{n_req} launches), coalesced {wall_svc:.3f} s ({len(flat) / wall_svc:.1f} hashes/s), "
+        f"{svc.dispatches} dispatches, coalesce factor {svc.coalesce_factor():.2f}, "
+        f"{k1} kernel-1 launches, replays {svc.replays}; every digest equals numpy's")
+    log(f"service round trip per request: per call p50 {np.percentile(lat_direct, 50) * 1e3:.3f} "
+        f"/ p99 {np.percentile(lat_direct, 99) * 1e3:.3f} ms, service p50 "
+        f"{np.percentile(lat_svc, 50) * 1e3:.3f} / p99 {np.percentile(lat_svc, 99) * 1e3:.3f} ms; "
+        f"mean dispatch (service time) {svc_total / svc_n * 1e3:.3f} ms, mean queue wait "
+        f"{np.mean(waits) * 1e3:.3f} ms, mean round trip less both (hand-off and the interpreter "
+        f"lock) {handoff * 1e3:.3f} ms; lane waits {json.dumps(svc.lane_waits())}")
+    # the coalesced run once more, after the counts were read: the card's
+    # busy time and idle share (its cProfile sees the joining thread only)
+    recorder.path = None
+    svc = HashService(backend=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch,
+                      registry=MetricsRegistry())
+    try:
+        profile_path("service, coalesced",
+                     lambda: run_clients(workload, lambda lane, msgs: svc.hash(lane, msgs)))
+    finally:
+        svc.stop()
+
+
+def rebuild_leased(run_path, rebuild, committer, service) -> list:
+    """The main path "rebuild leased": the full rebuild through
+    TurboCommitter(hash_service=service) on the default engine, one lease a
+    commit, while one thread keeps submitting 4-key live-lane requests (each
+    held against numpy). Requires leases equal to the commits and no replay;
+    logs the lease bypasses and the live lane's waits."""
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+
+    stop = threading.Event()
+    live = {"requests": 0, "bad": 0, "lat": []}
+
+    def live_client():
+        rng = np.random.default_rng(11)
+        while not stop.is_set():
+            msgs = [rng.integers(0, 256, size=64, dtype=np.uint8).tobytes() for _ in range(4)]
+            t0 = time.perf_counter()
+            got = service.hash("live", msgs)
+            live["lat"].append(time.perf_counter() - t0)
+            live["requests"] += 1
+            live["bad"] += got != keccak256_batch_np(msgs)
+            time.sleep(0.001)
+
+    def drive():
+        t = threading.Thread(target=live_client, name="live-client")
+        t.start()
+        try:
+            return rebuild(committer, "rebuild leased engine")
+        finally:
+            stop.set()
+            t.join()
+
+    res = run_path("rebuild leased", drive)
+    snap = service.snapshot()
+    if snap["leases"] != 2 or snap["replays"] or live["bad"] or snap["leased_by"] is not None:
+        raise AssertionError(f"rebuild leased: {snap}, live client {live['requests']} requests, "
+                             f"{live['bad']} wrong")
+    lat = np.array(live["lat"])
+    log(f"rebuild leased: {snap['leases']} leases for 2 commits, {snap['lease_bypasses']} lease "
+        f"bypasses (aged live requests hashed on the twin), replays 0; live client "
+        f"{live['requests']} requests, round trip p50 {np.percentile(lat, 50) * 1e3:.3f} / p99 "
+        f"{np.percentile(lat, 99) * 1e3:.3f} ms, lane waits {json.dumps(service.lane_waits())}")
+    return res
+
+
+def control_drills() -> list[dict]:
+    """Drills of warm-up and the service on the card, each on its rung:
+    a) RETH_TPU_FAULT_COMPILE_WEDGE=1 (the first step wedges past its budget,
+    the retry warms the shape); b) a wedge forever with attempts=1 (the
+    breaker trips, serving degrades to the host, and after the cooldown the
+    real half-open probe promotes the shape); c)
+    RETH_TPU_FAULT_SERVICE_WEDGE_EVERY=2 (a supervised service replays,
+    every future completing once with equal digests; an unsupervised one
+    fails every second future with the wedge and replays nothing); d) RETH_TPU_FAULT_SERVICE_QUEUE_CAP with
+    block=False (LaneOverloaded); e) RETH_TPU_FAULT_SERVICE_STALL under a
+    lease (aged requests bypass onto the twin)."""
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops import keccak as ok
+    from reth_tpu_torch.ops import warmup as ow
+    from reth_tpu_torch.ops.hash_service import HashService, InjectedServiceWedge, LaneOverloaded
+    from reth_tpu_torch.ops.keccak import KeccakDevice
+    from reth_tpu_torch.ops.supervisor import CircuitBreaker, DeviceSupervisor, FaultInjector
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+
+    out = []
+    shape = ow.MenuShape("keccak.masked", 4, 1024)
+
+    def env_armed(knobs: dict, make):
+        os.environ.update(knobs)
+        try:
+            return make()
+        finally:
+            for k in knobs:
+                del os.environ[k]
+
+    t0 = time.perf_counter()
+    sup = env_armed({"RETH_TPU_FAULT_COMPILE_WEDGE": "1"},
+                    lambda: DeviceSupervisor(registry=MetricsRegistry()))
+    mgr = ow.WarmupManager(menu=[shape], supervisor=sup, budget=2.0, attempts=3, backoff=0,
+                           registry=MetricsRegistry())
+    snap = mgr.run()
+    join_threads("warmup-")
+    if (snap["state"], mgr.wedges, mgr.retries, sup.injector.compiles_wedged,
+            sup.breaker.state) != ("warm", 1, 1, 1, "closed"):
+        raise AssertionError(f"drill a) compile wedge: {snap}")
+    out.append({"drill": "a) RETH_TPU_FAULT_COMPILE_WEDGE=1", "rung": "retried, warm",
+                "wedges": mgr.wedges, "retries": mgr.retries,
+                "wall_s": round(time.perf_counter() - t0, 4)})
+    log(f"control drill a) RETH_TPU_FAULT_COMPILE_WEDGE=1: wedged once past its 2 s budget, "
+        f"retried, {snap['state']} ({out[-1]['wall_s']} s)")
+
+    t0 = time.perf_counter()
+    inj = FaultInjector(compile_wedge=-1)
+    sup = DeviceSupervisor(breaker=CircuitBreaker(failure_threshold=1, reset_timeout=1.0),
+                           injector=inj, registry=MetricsRegistry())
+    mgr = ow.WarmupManager(menu=[shape], supervisor=sup, budget=1.0, attempts=1, backoff=0,
+                           registry=MetricsRegistry())
+    snap = mgr.run()
+    dev = KeccakDevice(min_tier=1024, block_tier=4, warmup=mgr, device="cuda")
+    msgs = [bytes([i % 251]) * 64 for i in range(1024)]
+    k0 = ok.keccak256_words_masked.launches
+    degraded_ok = dev.hash_batch(msgs) == keccak256_batch_np(msgs)
+    degraded = (snap["state"], sup.breaker.state, dev.host_hashed,
+                ok.keccak256_words_masked.launches - k0)
+    if not degraded_ok or degraded != ("degraded", "open", len(msgs), 0):
+        raise AssertionError(f"drill b) wedge forever: {degraded}, {snap}")
+    with inj._lock:
+        inj.compile_wedge = 0  # the fault clears
+    time.sleep(1.2)  # past the breaker's cooldown
+    probed = sup.allows_device()  # the real half-open probe, a child on the card
+    deadline = time.monotonic() + 120
+    while not mgr.device_ready() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    join_threads("device-warmup-retry")
+    join_threads("warmup-")
+    k0 = ok.keccak256_words_masked.launches
+    promoted_ok = dev.hash_batch(msgs) == keccak256_batch_np(msgs)
+    promoted = (probed, mgr.overall_state(), sup.breaker.state, dev.host_hashed,
+                ok.keccak256_words_masked.launches - k0)
+    if not promoted_ok or promoted != (True, "warm", "closed", len(msgs), 1):
+        raise AssertionError(f"drill b) half-open promotion: {promoted}, {mgr.snapshot()}")
+    out.append({"drill": "b) compile wedge forever, attempts=1", "rung": "open, degraded, "
+                "promoted", "probe_s": round(sup.last_probe.latency, 3),
+                "wall_s": round(time.perf_counter() - t0, 4)})
+    log(f"control drill b) compile wedge forever: breaker open, {len(msgs)} messages hashed on "
+        f"the host while degraded, half-open probe ok in {sup.last_probe.latency:.3f} s, the "
+        f"shape promoted and the next bucket launched kernel 1 ({out[-1]['wall_s']} s)")
+
+    t0 = time.perf_counter()
+    reqs = [[b"wedge-%d-%d" % (i, j) for j in range(4)] for i in range(16)]
+    want = [keccak256_batch_np(r) for r in reqs]
+    rungs = {}
+    for rung, kw in (("replayed", {"supervisor": DeviceSupervisor(registry=MetricsRegistry())}),
+                     ("raised", {})):
+        svc = env_armed({"RETH_TPU_FAULT_SERVICE_WEDGE_EVERY": "2"},
+                        lambda: HashService(registry=MetricsRegistry(), **kw))
+        futs, outs = [], []
+        for r in reqs:  # one at a time: one dispatch each, every second one wedged
+            futs.append(svc.submit("payload", r))
+            try:
+                outs.append(futs[-1].result(60))
+            except InjectedServiceWedge:
+                outs.append(None)
+        svc.stop()
+        expect = want if rung == "replayed" else [
+            None if i % 2 else d for i, d in enumerate(want)]
+        if outs != expect or [f.completions for f in futs] != [1] * 16 or \
+                (svc.replays, svc.failed_dispatches) != ((8, 0) if rung == "replayed" else (0, 8)):
+            raise AssertionError(f"drill c) service wedge, {rung}: {svc.snapshot()}")
+        rungs[rung] = svc
+    out.append({"drill": "c) RETH_TPU_FAULT_SERVICE_WEDGE_EVERY=2",
+                "rung": "replayed under a supervisor, raised without one",
+                "replays": rungs["replayed"].replays,
+                "raised": rungs["raised"].failed_dispatches,
+                "wall_s": round(time.perf_counter() - t0, 4)})
+    log(f"control drill c) RETH_TPU_FAULT_SERVICE_WEDGE_EVERY=2: supervised, "
+        f"{rungs['replayed'].replays} of {rungs['replayed'].dispatches} dispatches replayed on "
+        f"the twin, 16 futures completed once each, digests equal; unsupervised, "
+        f"{rungs['raised'].failed_dispatches} futures raised the wedge, replays "
+        f"{rungs['raised'].replays}, the other 8 digests equal")
+
+    t0 = time.perf_counter()
+    svc = env_armed({"RETH_TPU_FAULT_SERVICE_QUEUE_CAP": "4"},
+                    lambda: HashService(registry=MetricsRegistry(), lease_bypass_s=30.0))
+    with svc.lease("drill"):
+        svc.submit("proof", [b"a"] * 4)
+        try:
+            svc.submit("proof", [b"b"], block=False)
+            rejected = False
+        except LaneOverloaded:
+            rejected = True
+    svc.stop()
+    if not rejected or svc.rejects != 1 or svc.lane_capacity != 4:
+        raise AssertionError(f"drill d) queue cap: {svc.snapshot()}")
+    out.append({"drill": "d) RETH_TPU_FAULT_SERVICE_QUEUE_CAP=4, block=False",
+                "rung": "LaneOverloaded", "rejects": svc.rejects,
+                "wall_s": round(time.perf_counter() - t0, 4)})
+    log("control drill d) RETH_TPU_FAULT_SERVICE_QUEUE_CAP=4: the fifth message raised "
+        "LaneOverloaded under block=False")
+
+    t0 = time.perf_counter()
+    svc = env_armed({"RETH_TPU_FAULT_SERVICE_STALL": "0.05"},
+                    lambda: HashService(registry=MetricsRegistry(), lease_bypass_s=0.01))
+    reqs = [[b"stall-%d" % i] for i in range(8)]
+    with svc.lease("drill"):
+        outs = [svc.hash("live", r) for r in reqs]
+        bypassed = svc.lease_bypasses
+    after = svc.hash("live", [b"after"])
+    svc.stop()
+    if outs != [keccak256_batch_np(r) for r in reqs] or bypassed != len(reqs) or \
+            after != keccak256_batch_np([b"after"]) or svc.injector.dispatches != 1:
+        raise AssertionError(f"drill e) stall under a lease: {svc.snapshot()}")
+    out.append({"drill": "e) RETH_TPU_FAULT_SERVICE_STALL=0.05 under a lease",
+                "rung": "bypassed", "lease_bypasses": bypassed,
+                "wall_s": round(time.perf_counter() - t0, 4)})
+    log(f"control drill e) RETH_TPU_FAULT_SERVICE_STALL=0.05 under a lease: {bypassed} aged "
+        f"requests bypassed onto the twin, then one stalled dispatch on the card")
+    return out
+
+
 def slice_phase(args, storage_jobs, account_jobs, sup):
     """The main paths (``PATHS``), each with the launch counts zeroed just
     before it and read just after; the supervised ones ("auto", "auto k=8",
@@ -1589,8 +2159,9 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     import torch
 
     from reth_tpu_torch.convert import jobs_to_device
-    from reth_tpu_torch.metrics import fused_metrics, pipeline_metrics
+    from reth_tpu_torch.metrics import MetricsRegistry, fused_metrics, pipeline_metrics
     from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops.hash_service import HashService
     from reth_tpu_torch.ops.keccak import KeccakDevice, keccak256_words_masked
     from reth_tpu_torch.primitives.keccak import keccak256_batch_np
     from reth_tpu_torch.trie.committer import TrieCommitter
@@ -1636,6 +2207,12 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
                                              subtrie_levels=8)}
     engines = {name: track_engines(c, "_device_engine") for name, c in committers.items()}
     backends = {name: track_engines(committers[name]) for name in AUTO_TWIN}
+    # the control plane's services: the sparse finish's live lane (k-level
+    # windows 8 levels a launch) and the leased rebuild's
+    svc_sparse = HashService(subtrie_levels=8, registry=MetricsRegistry())
+    svc_rebuild = HashService(registry=MetricsRegistry())
+    leased = TurboCommitter(backend="device", device="cuda", hash_service=svc_rebuild)
+    engines["rebuild leased"] = track_engines(leased, "_device_engine")
     fused = TrieCommitter(fused=True, device="cuda",
                           hasher=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch)
     sr_auto = TrieCommitter(supervisor=sup, device="cuda")
@@ -1645,7 +2222,7 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     recorder = MainPathRecorder()
     launches, got, walls, guarded = {}, {}, {}, {}
     fallbacks = fused_metrics._fallbacks.value
-    cell = SparseCell()
+    cell = SparseCell(svc_sparse)
     cell.baseline()
     sparse_walls: dict[str, list] = {}
     hot, cold = hot_tip_setup()
@@ -1677,6 +2254,18 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
         sparse_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
                        for name in SPARSE_PATHS}
         run_path("hot tip", lambda: [hot.block() for _ in range(2 * HOT_BLOCKS)])
+        # the control plane: warm-up's degraded serving, the shared service
+        (root_deg, det_deg), (root_warm, det_warm) = state_root_warming(
+            run_path, recorder, accounts, storages)
+        service_path(run_path, recorder, launches)
+        service_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
+                        for name in SERVICE_SPARSE_PATHS}
+        got["rebuild leased"] = rebuild_leased(run_path, rebuild, leased, svc_rebuild)
+        recorder.path = None
+    svc_sparse_snap = svc_sparse.snapshot()
+    svc_sparse_waits = svc_sparse.lane_waits()
+    svc_sparse.stop()
+    svc_rebuild.stop()
     wall_sr = walls.pop("state_root")
     wall_sr_auto = walls.pop("state_root auto")
     # state_root auto's unsupervised twin (KeccakDevice without the
@@ -1713,8 +2302,23 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
             f"rows {sa['resident_rows']}, buffer {sa['buffer_rows']} rows, growths "
             f"{sa['growths']} ({sa['grown_bytes']} B, {sa['grow_ms']} ms on the card), pinned "
             f"{sa['pinned_bytes']} B after the epoch")
+    for name in SERVICE_SPARSE_PATHS:
+        w = sorted(sparse_walls[name])
+        log(f"sparse finish, {name}: median wall {w[len(w) // 2]:.4f} s over {len(w)} blocks "
+            f"({', '.join(f'{x:.4f}' for x in sparse_walls[name])}), streamed "
+            f"{[stats['streamed'] for _, stats in service_runs[name]]}, launches "
+            f"{json.dumps(launches[name])}")
+        if not all(stats["streamed"] for _, stats in service_runs[name]):
+            raise AssertionError(f"{name}: a block did not go through the live lane")
+    if svc_sparse_snap["replays"] or not svc_sparse_snap["window_dispatches"]:
+        raise AssertionError(f"the sparse finish's service: {svc_sparse_snap}")
+    log(f"sparse finish's service (live lane): {json.dumps(svc_sparse_snap)}, lane waits "
+        f"{json.dumps(svc_sparse_waits)}")
     hot_tip_report(hot, cold)
     summaries = {name: engine_summary(made) for name, made in engines.items()}
+    if any(st["backend"] != "device" for st in reports["rebuild leased engine"]):
+        raise AssertionError(f"rebuild leased: a commit left the card: "
+                             f"{reports['rebuild leased engine']}")
     ladders = {name: {e.ladder for e in engines[name]} for name in ("k=8", "auto k=8")}
     if ladders != {"k=8": {False}, "auto k=8": {True}}:
         raise AssertionError(f"the k-level ladder is armed off the supervised route, or not "
@@ -1772,10 +2376,18 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     if root_auto != root_np or det_auto["branch_nodes"] != det_np["branch_nodes"] \
             or det_auto["storage_roots"] != det_np["storage_roots"] or root_plain != root_np:
         raise AssertionError("state_root differs between the supervised card committer and numpy")
+    for what, (root, det) in (("degraded", (root_deg, det_deg)), ("warming", (root_warm, det_warm))):
+        if root != root_np or det["branch_nodes"] != det_np["branch_nodes"] \
+                or det["storage_roots"] != det_np["storage_roots"]:
+            raise AssertionError(f"state_root {what} differs from the numpy committer's")
+    log(f"state_root degraded and state_root warming (TrieCommitter(supervisor=, warmup=)): "
+        f"root {root_warm.hex()}, branch nodes and storage roots equal numpy's on both runs")
     log(f"state_root auto (TrieCommitter(supervisor=...), kernel 1 through SupervisedHasher): "
         f"{wall_sr_auto:.3f} s, root, branch nodes and storage roots equal numpy's")
     for path, kernels in PATH_KERNELS.items():
         for name in KERNELS:
+            if name in PATH_MAY.get(path, ()):
+                continue
             if (launches[path][name] > 0) != (name in kernels):
                 raise AssertionError(f"{name} was launched {launches[path][name]} times on main "
                                      f"path {path}, which launches {kernels} and no other kernel")
@@ -2281,6 +2893,8 @@ def main() -> int:
     ap.add_argument("--state-accounts", type=int, default=100_000)
     ap.add_argument("--state-slots", type=int, default=40_000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--warmup-child", metavar="DIR", default=None,
+                    help="internal: one warm-up run on the compile cache under DIR")
     args = ap.parse_args()
 
     import torch
@@ -2288,6 +2902,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.warmup_child is not None:
+        return warmup_child(args.warmup_child)
     sys.path.insert(0, HERE)
     from reth_tpu_torch.device import resolve
     from reth_tpu_torch.ops import _build
@@ -2307,6 +2923,7 @@ def main() -> int:
         check_ptxas(s.name, log_path.read_text() if log_path.exists() else "")
     check_coherent_digest_loads(libs["fused_level.cu"], "subtrie_levels_kernel")
     bound = make_bound(libs)
+    warmup_phase()
 
     if args.accounts != 1_000_000 or args.slots != 400_000:
         log(f"size cut: {args.accounts} accounts / {args.slots} slots "
@@ -2326,6 +2943,7 @@ def main() -> int:
             r.update(check1)
     log(f"drills: {json.dumps(drills())}")
     log(f"hot drills: {json.dumps(hot_drills(hot))}")
+    log(f"control drills: {json.dumps(control_drills())}")
     join_supervised()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

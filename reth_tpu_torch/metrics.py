@@ -8,8 +8,10 @@ metric names: ``TrieMetrics`` (one record per commit), ``PipelineMetrics``
 ``SparseCommitMetrics`` (the live-tip finish), ``FusedCommitMetrics`` (the
 fused engines' launches and the k-level engine's fault ladder),
 ``SupervisorMetrics`` (the breaker, failovers, watchdog timeouts and
-probes) and ``HotStateMetrics`` (the hot-state plane's node cache and
-device digest arena). The module-level instances record into the process-wide
+probes), ``HotStateMetrics`` (the hot-state plane's node cache and
+device digest arena), ``HashServiceMetrics`` (the shared hash service's
+lanes) and ``WarmupMetrics`` (the warm-up manager's menu and compile
+cache). The module-level instances record into the process-wide
 ``REGISTRY``, as in the reference. The node's process and build-identity
 gauges are not ported.
 """
@@ -460,3 +462,153 @@ class HotStateMetrics:
 
 
 hotstate_metrics = HotStateMetrics()
+
+
+class HashServiceMetrics:
+    """The shared hash service (``ops/hash_service.py``): per-lane queue
+    depth and request counts, the coalesce factor (requests fused per
+    dispatch), batch occupancy (messages over the batch tier), wait and
+    service-time histograms, and the failure-path counters (numpy-twin
+    replays, backpressure rejects, lease bypasses). Each ``HashService``
+    makes its own, on the registry it is given (``REGISTRY`` by default)."""
+
+    _LANES = ("live", "payload", "rebuild", "proof")
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._requests = {lane: reg.counter(f"hash_service_requests_total_{lane}",
+                                            f"requests submitted on the {lane} lane")
+                          for lane in self._LANES}
+        self._msgs = {lane: reg.counter(f"hash_service_msgs_total_{lane}",
+                                        f"messages submitted on the {lane} lane")
+                      for lane in self._LANES}
+        self._qdepth = {lane: reg.gauge(f"hash_service_queue_depth_{lane}",
+                                        f"messages waiting on the {lane} lane")
+                        for lane in self._LANES}
+        self._rejects = {lane: reg.counter(f"hash_service_rejects_total_{lane}",
+                                           f"backpressure rejections on the {lane} lane")
+                         for lane in self._LANES}
+        self._dispatches = reg.counter("hash_service_dispatches_total",
+                                       "coalesced backend dispatches issued")
+        self._coalesced = reg.counter("hash_service_coalesced_requests_total",
+                                      "requests fused into coalesced dispatches")
+        self._hashed = reg.counter("hash_service_hashed_msgs_total", "messages hashed")
+        self._coalesce_factor = reg.gauge(
+            "hash_service_coalesce_factor",
+            "requests per dispatch, lifetime average (>1 = batching works)")
+        self._occupancy = reg.gauge("hash_service_batch_occupancy",
+                                    "last dispatch: messages / padded batch tier")
+        self._replays = reg.counter("hash_service_replays_total",
+                                    "coalesced batches replayed on the numpy twin after a failure")
+        self._lease_bypasses = reg.counter("hash_service_lease_bypass_total",
+                                           "coalesced batches hashed on the CPU twin while leased")
+        self._leases = reg.counter("hash_service_leases_total")
+        self._lease_wait = reg.histogram("hash_service_lease_wait_seconds",
+                                         buckets=(0.0001, 0.001, 0.01, 0.1, 0.5, 1, 5, 30))
+        self._wait = {lane: reg.histogram(f"hash_service_wait_seconds_{lane}",
+                                          f"queue wait before dispatch, {lane} lane",
+                                          buckets=SUB_MS_BUCKETS)
+                      for lane in self._LANES}
+        self._service = reg.histogram("hash_service_service_seconds",
+                                      "coalesced dispatch wall time", buckets=SUB_MS_BUCKETS)
+
+    def record_submit(self, lane: str, n_msgs: int) -> None:
+        self._requests[lane].increment()
+        self._msgs[lane].increment(n_msgs)
+
+    def set_queue_depth(self, lane: str, n_msgs: int) -> None:
+        self._qdepth[lane].set(n_msgs)
+
+    def record_reject(self, lane: str) -> None:
+        self._rejects[lane].increment()
+
+    def record_wait(self, lane: str, seconds: float) -> None:
+        self._wait[lane].record(seconds)
+
+    def record_dispatch(self, *, requests: int, msgs: int, occupancy: float,
+                        service_s: float, replayed: bool) -> None:
+        self._dispatches.increment()
+        self._coalesced.increment(requests)
+        self._hashed.increment(msgs)
+        self._coalesce_factor.set(round(self._coalesced.value / self._dispatches.value, 3))
+        self._occupancy.set(round(occupancy, 4))
+        self._service.record(service_s)
+
+    def record_replay(self) -> None:
+        self._replays.increment()
+
+    def record_lease(self, wait_s: float) -> None:
+        self._leases.increment()
+        self._lease_wait.record(wait_s)
+
+    def record_lease_bypass(self) -> None:
+        self._lease_bypasses.increment()
+
+
+class WarmupMetrics:
+    """The warm-up manager (``ops/warmup.py``): menu progress (shapes warm
+    and failed out of those declared), per-shape warm-up walls, watchdog
+    wedges and backoff retries, compile-cache hits, misses and quarantines,
+    and how many buckets degraded serving routed to the CPU twin. Each
+    ``WarmupManager`` makes its own, on the registry it is given."""
+
+    _STATES = {"off": 0.0, "pending": 1.0, "warming": 2.0, "warm": 3.0, "degraded": 4.0}
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._state = reg.gauge("warmup_state", "0 off, 1 pending, 2 warming, 3 warm, 4 degraded")
+        self._total = reg.gauge("warmup_shapes_total", "declared menu shapes")
+        self._warm = reg.gauge("warmup_shapes_warm", "menu shapes compiled and promoted")
+        self._failed = reg.gauge("warmup_shapes_failed",
+                                 "menu shapes that exhausted their compile retries")
+        self._compiles = reg.counter("warmup_compiles_total", "successful AOT shape compiles")
+        self._compile_s = reg.counter("warmup_compile_seconds_total",
+                                      "wall spent in successful warm-up compiles")
+        self._compile_hist = reg.histogram("warmup_compile_seconds", "per-shape AOT compile wall",
+                                           buckets=(0.05, 0.25, 1, 5, 15, 60, 240, 1200))
+        self._retries = reg.counter("warmup_retries_total",
+                                    "compile retries after a wedge/failure")
+        self._wedges = reg.counter("warmup_wedges_total",
+                                   "compiles that exceeded the watchdog budget or raised")
+        self._cpu_routed = reg.counter("warmup_cpu_routed_total",
+                                       "dispatch buckets served on the CPU twin while un-warm")
+        self._cache_hits = reg.counter("warmup_cache_hits_total",
+                                       "shape compiles satisfied by the persistent cache")
+        self._cache_misses = reg.counter("warmup_cache_misses_total",
+                                         "shape compiles that wrote new persistent-cache entries")
+        self._cache_entries = reg.gauge("warmup_cache_entries",
+                                        "persistent-cache entries found at validation")
+        self._quarantines = reg.counter("warmup_cache_quarantines_total",
+                                        "corrupt cache directories quarantined and rebuilt")
+
+    def set_state(self, state: str) -> None:
+        self._state.set(self._STATES.get(state, 0.0))
+
+    def set_progress(self, *, total: int, warm: int, failed: int) -> None:
+        self._total.set(total)
+        self._warm.set(warm)
+        self._failed.set(failed)
+
+    def record_compile(self, wall_s: float, cache_hit: bool | None) -> None:
+        self._compiles.increment()
+        self._compile_s.increment(round(wall_s, 6))
+        self._compile_hist.record(wall_s)
+        if cache_hit is True:
+            self._cache_hits.increment()
+        elif cache_hit is False:
+            self._cache_misses.increment()
+
+    def record_retry(self) -> None:
+        self._retries.increment()
+
+    def record_wedge(self) -> None:
+        self._wedges.increment()
+
+    def record_cpu_routed(self, n: int = 1) -> None:
+        self._cpu_routed.increment(n)
+
+    def record_quarantine(self) -> None:
+        self._quarantines.increment()
+
+    def set_cache_entries(self, n: int) -> None:
+        self._cache_entries.set(n)

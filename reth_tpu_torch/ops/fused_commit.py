@@ -59,6 +59,7 @@ from ..metrics import fused_metrics
 from ..primitives.keccak import RATE
 from . import _build
 from .keccak import _next_tier, keccak256_words_masked_ref
+from .warmup import DEFAULT_SUBTRIE_TIER
 
 
 def _bytes_to_words(t: torch.Tensor) -> torch.Tensor:
@@ -400,9 +401,12 @@ class FusedLevelEngine:
 
     ``begin(max_slots)`` → dispatches, deepest level first → ``finish()``
     returns the (S, 32) numpy digest array, or ``fetch_slots`` returns just
-    the rows asked for. Slot 0 is a reserved dummy."""
+    the rows asked for. Slot 0 is a reserved dummy. A level of more than
+    ``MAX_BLOCK_TIER`` rate blocks raises ``ValueError``, the reference's
+    declared ceiling of the warm-up menu (an MPT node takes at most 4)."""
 
     effective_kind = "device"  # the backend a commit's metrics name
+    MAX_BLOCK_TIER = 64
 
     def __init__(self, min_tier: int = 1024, device: str | torch.device = "cuda"):
         self.min_tier = min_tier
@@ -487,6 +491,12 @@ class FusedLevelEngine:
         """Window-boundary hook of the pipelined rebuild; this engine
         launches eagerly, so there is nothing to flush."""
 
+    def _check_block_tier(self, b_tier: int) -> int:
+        if b_tier > self.MAX_BLOCK_TIER:
+            raise ValueError(f"node of {b_tier} rate blocks exceeds the declared block-tier "
+                             f"ceiling {self.MAX_BLOCK_TIER} (ops/warmup.py shape menu)")
+        return b_tier
+
     def _count_dispatch(self, levels: int = 1) -> None:
         """One launch ran, carrying ``levels`` staged levels."""
         self.dispatches += 1
@@ -533,6 +543,7 @@ class FusedLevelEngine:
         n = len(row_off)
         if n == 0:
             return
+        self._check_block_tier(b_tier)
         if holes is None:
             holes = np.zeros((3, 0), dtype=np.int32)
         order, start = _csr(holes[0], n)
@@ -649,6 +660,7 @@ class MegaFusedEngine(FusedLevelEngine):
         n = len(row_off)
         if n == 0:
             return
+        self._check_block_tier(b_tier)
         if holes is None:
             holes = np.zeros((3, 0), dtype=np.int32)
         order, start = _csr(holes[0], n)
@@ -842,16 +854,21 @@ class SubtrieFusedEngine(MegaFusedEngine):
     ``peek_slots`` reads back this commit's rows and keeps it. A delta commit
     never takes the ladder: its journal covers only the current commit, so a
     replay from a zeroed buffer would lose the resident rows; a failed launch
-    raises to the arena's owner. ``warmup=`` and the mesh variant are not
-    ported."""
+    raises to the arena's owner.
+
+    ``warmup`` (an ``ops/warmup.py WarmupManager``) is asked at each flush
+    whether the shape ("fused.subtrie", k, ``DEFAULT_SUBTRIE_TIER``) is
+    warm; while it is not, the flush runs one level a launch, still on the
+    card, and later flushes promote once it is. The reference's padding
+    floors (``row_floor`` / ``hole_floor``) have no counterpart: the port
+    launches exact row counts. The mesh variant is not ported."""
 
     _CHUNK_BTIER_CAP = 8
 
     def __init__(self, min_tier: int = 1024, k: int | None = None, warmup=None, injector=None,
                  ladder: bool = False, device: str | torch.device = "cuda"):
-        if warmup is not None:
-            raise NotImplementedError("SubtrieFusedEngine(warmup=...) is not ported yet")
         super().__init__(min_tier=min_tier, device=device)
+        self.warmup = warmup
         if k is None:
             k = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 8)
         self.k = max(1, int(k))
@@ -941,6 +958,12 @@ class SubtrieFusedEngine(MegaFusedEngine):
             self._run_plan_numpy(u8.numpy(), idx.numpy(), plan)
             return
         chunks = self._chunk_plan(plan, 1 if self._mode == "perlevel" else self.k)
+        if (self._mode == "fused" and self.k > 1 and self.warmup is not None
+                and not self.warmup.route_bucket("fused.subtrie", self.k, DEFAULT_SUBTRIE_TIER)):
+            # degraded routing: the k-level shape is not warm, so this flush
+            # runs one level a launch; the engine stays on "fused"
+            fused_metrics.record_fallback()
+            chunks = self._chunk_plan(plan, 1)
         # the reference's rule: a plan whose chunks are all single levels
         # counts as per-level for the injector
         mode = "perlevel" if self._mode == "perlevel" or len(chunks) >= len(plan) else "fused"

@@ -6,7 +6,13 @@ Port of the JAX package's ``ops/keccak_jax.py`` (XLA masked absorb,
 kernel). One CUDA kernel takes the place of both device paths: it absorbs
 any number of rate blocks per message, so the 1-block bucket (the Pallas
 kernel's job), the exact-block buckets and the masked buckets all launch
-the same kernel, and no bucket falls back to a CPU twin.
+the same kernel. A bucket goes to the numpy twin on the host only while a
+warm-up manager serves degraded (``ops/warmup.py``): its shape is not warm
+yet. A message above the menu's block-tier ceiling (32 rate blocks) is off
+the menu, so it too is hashed on the host while the menu warms; without a
+manager, or once the menu is warm, it runs on the kernel. (The reference
+hashes such messages on the host always, because XLA compiles one program
+per shape; the digests are the same.)
 
 Word layout is the reference's: a padded message is ``(B*34,)`` little-endian
 u32 words (``pad_batch`` viewed as ``<u4``); a digest is ``(8,)`` u32 words
@@ -21,7 +27,8 @@ import numpy as np
 import torch
 
 from ..device import resolve, stream_handle
-from ..primitives.keccak import RATE, RC, ROT, bucketed_hash, pad_batch
+from ..primitives.keccak import (RATE, RC, ROT, bucketed_hash, keccak256_words_masked_np,
+                                 pad_batch)
 from . import _build
 
 WORDS_PER_BLOCK = RATE // 4  # 34 u32 words per rate block
@@ -153,10 +160,13 @@ def keccak256_words(words: torch.Tensor, num_blocks: int) -> torch.Tensor:
     return keccak256_words_masked(words, counts)
 
 
-def _next_tier(n: int, min_tier: int) -> int:
+def _next_tier(n: int, min_tier: int, max_tier: int | None = None) -> int:
+    """The pow2 ladder from ``min_tier``, clamped at ``max_tier``."""
     t = min_tier
     while t < n:
         t *= 2
+    if max_tier is not None and t > max_tier:
+        return max_tier
     return t
 
 
@@ -170,15 +180,21 @@ class KeccakDevice:
     ``MAX_EXACT_BLOCKS``, or one shared ``block_tier`` bucket, pow2 block
     tiers above), and batches above ``MAX_BATCH_TIER`` (rounded onto the
     pow2 ladder from ``min_tier``) are hashed in chunks. Batches are not
-    padded to batch tiers: the kernel takes any row count."""
+    padded to batch tiers: the kernel takes any row count. ``warmup`` (an
+    ``ops/warmup.py WarmupManager``) is asked for each bucket's (kind, block
+    tier, batch tier); a shape it has not warmed, a bucket above the menu's
+    block ceiling included, is hashed on the host while it warms.
+    ``host_hashed`` counts the messages hashed on the host."""
 
     MAX_EXACT_BLOCKS = 8
+    # the batch ceiling of the warm-up menu (ops/warmup.py)
     MAX_BATCH_TIER = 16384
 
-    def __init__(self, min_tier: int = 8, block_tier: int | None = None,
+    def __init__(self, min_tier: int = 8, block_tier: int | None = None, warmup=None,
                  max_batch_tier: int | None = None, device: str | torch.device = "cuda"):
         self.min_tier = min_tier
         self.block_tier = block_tier
+        self.warmup = warmup
         self.device = resolve(device)
         if max_batch_tier is None:
             max_batch_tier = self.MAX_BATCH_TIER
@@ -187,6 +203,7 @@ class KeccakDevice:
             cap *= 2
         self.max_batch_tier = cap
         self.uploads = 0  # host-to-device copies since construction
+        self.host_hashed = 0  # messages hashed on the host since construction
 
     def hash_batch(self, msgs: list[bytes]) -> list[bytes]:
         cap = self.max_batch_tier
@@ -206,13 +223,24 @@ class KeccakDevice:
         return _next_tier(nb, 2 * self.MAX_EXACT_BLOCKS)
 
     def _hash_bucket(self, sub: list[bytes], key: int, counts: np.ndarray) -> np.ndarray:
-        """Hash one bucket; returns (n, 8) u32 digests (rows ``.tobytes()``
-        to the 32-byte digests)."""
+        """Hash one bucket; returns digests whose rows ``.tobytes()`` to the
+        32-byte digests: (n, 8) u32 from the kernel, (n, 4) u64 from the
+        host twin."""
+        if self.warmup is not None and not self.warmup.route_bucket(
+                self._kind(key), key, _next_tier(len(sub), self.min_tier, self.max_batch_tier)):
+            self.host_hashed += len(sub)
+            return keccak256_words_masked_np(pad_batch(sub, counts), int(counts.max()), counts)
         words = pad_batch(sub, counts, pad_to_blocks=key).view("<u4")
         w = torch.from_numpy(words).to(self.device)
         c = torch.from_numpy(counts.astype(np.int32)).to(self.device)
         self.uploads += 2
         return keccak256_words_masked(w, c).cpu().numpy()
+
+    def _kind(self, key: int) -> str:
+        """The menu program a bucket key runs as (the reference's kinds)."""
+        if self.block_tier is None and key <= self.MAX_EXACT_BLOCKS:
+            return "keccak.exact"
+        return "keccak.masked"
 
     def hash_one(self, msg: bytes) -> bytes:
         return self.hash_batch([msg])[0]

@@ -21,6 +21,12 @@ route), with the same policies, counters and fault knobs:
   batch on the numpy hasher.
 - **Fault injection** (:class:`FaultInjector`): the six
   ``RETH_TPU_FAULT_*`` knobs of the reference, parsed as it parses them.
+- **Warm-up gate** (``ops/warmup.py``): a ``WarmupManager`` built with
+  ``supervisor=`` attaches itself as ``DeviceSupervisor.warmup``; a
+  supervised fused commit stays on the twin until every menu shape is warm
+  (:meth:`DeviceSupervisor.warmup_allows_device`), ``SupervisedHasher``'s
+  ``KeccakDevice`` routes each un-warm bucket to the host, and a half-open
+  probe that closes the breaker re-runs the FAILED shapes.
 
 Two facts of CUDA shape the port:
 
@@ -35,8 +41,8 @@ Two facts of CUDA shape the port:
   reference's breaker policy, kept as it is).
 
 Not ported: ``DeviceBreakerBoard`` and ``FaultInjector.on_mesh_dispatch``
-(the mesh), ``FaultInjector.on_compile`` and the warm-up gate (warm-up);
-``probe_device(cache_dir=...)`` raises ``NotImplementedError``.
+(the mesh); a supervisor armed with ``RETH_TPU_FAULT_DEVICE_WEDGE`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -136,11 +142,14 @@ def probe_device(budget: float | None = None, *, code: str = PROBE_CODE,
     """One fail-fast health probe: run ``code`` in a child process under a
     hard wall-clock ``budget`` (default ``RETH_TPU_PROBE_TIMEOUT``, 120 s).
     Returns a :class:`ProbeResult`; never raises and never blocks past the
-    budget. ``cache_dir`` (the reference's compile-cache check) belongs to
-    warm-up, which is not ported."""
+    budget. ``cache_dir`` (warm-up's compile-cache check) makes the child
+    load its kernel libraries from that directory (``ops/warmup.py
+    CompileCache``), so a directory that does not load fails the child."""
     if cache_dir is not None:
-        raise NotImplementedError("probe_device(cache_dir=...) belongs to warm-up, "
-                                  "which is not ported yet")
+        code = ("import sys\n"
+                f"sys.path.insert(0, {str(_build.PKG_DIR.parent)!r})\n"
+                "from reth_tpu_torch.ops import _build\n"
+                f"_build.set_kernel_dir({str(cache_dir)!r})\n" + code)
     if budget is None:
         budget = float(os.environ.get("RETH_TPU_PROBE_TIMEOUT", "120"))
     t0 = time.monotonic()
@@ -199,10 +208,12 @@ class FaultInjector:
     ``delay``: seconds added to every call inside its worker thread; above
     the watchdog budget it drives the real timeout path. ``probe_fail``: the
     first N probes fail (negative: every probe). ``pipeline_abort``: the Nth
-    rebuild window raises :class:`InjectedPipelineAbort`. ``compile_wedge``
-    and ``device_wedge`` are parsed and held as in the reference; their
-    hooks belong to warm-up and the mesh, which are not ported, so a
-    :class:`DeviceSupervisor` given either raises ``NotImplementedError``
+    rebuild window raises :class:`InjectedPipelineAbort`. ``compile_wedge``:
+    the first N warm-up steps (negative: every one) sleep well past their
+    watchdog budget (:meth:`on_compile`), the warm-up retry and breaker
+    drill. ``device_wedge`` is parsed and held as in the reference; its hook
+    belongs to the mesh, which is not ported, so a
+    :class:`DeviceSupervisor` given it raises ``NotImplementedError``
     rather than run a drill that injects nothing.
 
     Env form (:meth:`from_env`): ``RETH_TPU_FAULT_WEDGE_EVERY`` /
@@ -246,6 +257,20 @@ class FaultInjector:
     def active(self) -> bool:
         return bool(self.wedge_every or self.delay or self.probe_fail or self.pipeline_abort
                     or self.compile_wedge or self.device_wedge)
+
+    def on_compile(self, budget: float) -> None:
+        """Called inside every warm-up step's worker thread. A wedged step
+        sleeps well past the caller's watchdog ``budget`` in the (abandoned)
+        worker, so the real join-timeout path runs."""
+        with self._lock:
+            if self.compile_wedge == 0:
+                return
+            if self.compile_wedge > 0:
+                self.compile_wedge -= 1
+            self.compiles_wedged += 1
+        tracing.fault_event("RETH_TPU_FAULT_COMPILE_WEDGE", target="ops::warmup",
+                            compile=self.compiles_wedged)
+        time.sleep(min(budget * 3 + 1, budget + 60))
 
     def on_pipeline_window(self) -> None:
         """Called by the rebuild pipeline before it dispatches each packed
@@ -392,12 +417,9 @@ class DeviceSupervisor:
             failure_threshold=int(os.environ.get("RETH_TPU_BREAKER_TRIPS", "3")),
             reset_timeout=float(os.environ.get("RETH_TPU_BREAKER_RESET", "30")))
         self.injector = injector if injector is not None else FaultInjector.from_env()
-        for knob, armed in (("RETH_TPU_FAULT_COMPILE_WEDGE (warm-up)",
-                             self.injector is not None and self.injector.compile_wedge),
-                            ("RETH_TPU_FAULT_DEVICE_WEDGE (the mesh)",
-                             self.injector is not None and self.injector.device_wedge)):
-            if armed:
-                raise NotImplementedError(f"{knob} drills a path that is not ported yet")
+        if self.injector is not None and self.injector.device_wedge:
+            raise NotImplementedError("RETH_TPU_FAULT_DEVICE_WEDGE (the mesh) drills a path "
+                                      "that is not ported yet")
         self._probe_fn = probe_fn or probe_device
         self.metrics = SupervisorMetrics(registry)
         self.failovers = 0
@@ -406,6 +428,9 @@ class DeviceSupervisor:
         self.guarded_calls = 0  # worker threads started by run_guarded
         self.last_probe: ProbeResult | None = None
         self._probe_lock = threading.Lock()
+        # the warm-up manager (ops/warmup.py) attaches itself here, so the
+        # committers reach its per-shape states through their supervisor
+        self.warmup = None
         self._publish()
 
     # -- shared instance (one supervisor per process) ------------------------
@@ -464,6 +489,9 @@ class DeviceSupervisor:
                 if self.breaker.state == HALF_OPEN:
                     if self._probe().ok:
                         self.breaker.record_success()
+                        if self.warmup is not None:
+                            # the card is back: promote FAILED shapes
+                            self.warmup.on_device_recovered()
                     else:
                         self.breaker.record_failure()
                         self.metrics.record_trip()
@@ -473,6 +501,13 @@ class DeviceSupervisor:
 
     def allows_device(self) -> bool:
         return self.route() == "device"
+
+    def warmup_allows_device(self) -> bool:
+        """The commit-level warm-up gate: a fused commit's resident digest
+        buffer cannot change backends at a shape boundary, so the whole
+        commit stays on the twin until every menu shape is warm. True
+        without a warm-up manager."""
+        return self.warmup is None or self.warmup.device_ready()
 
     # -- watchdog-bounded dispatch -------------------------------------------
 
@@ -539,6 +574,7 @@ class DeviceSupervisor:
             "probe_ok": None if lp is None else lp.ok,
             "probe_latency": None if lp is None else round(lp.latency, 3),
             "fault_injection": self.injector.active() if self.injector is not None else False,
+            "warmup": None if self.warmup is None else self.warmup.overall_state(),
         }
 
     def _publish(self) -> None:
@@ -570,10 +606,9 @@ class SupervisedBackend:
         from ..trie.turbo import DigestArena
 
         if arena is not None and not isinstance(arena, DigestArena):
-            raise NotImplementedError("SupervisedBackend(arena=...) takes the numpy twin's "
-                                      "host DigestArena (trie/turbo.py); the device hot-state "
-                                      "arena (ops/fused_commit.py) goes to "
-                                      "ParallelSparseCommitter(arena=...)")
+            raise TypeError("SupervisedBackend(arena=...) takes the numpy twin's host "
+                            "DigestArena (trie/turbo.py); the device hot-state arena "
+                            "(ops/fused_commit.py) goes to ParallelSparseCommitter(arena=...)")
         self.sup = supervisor
         self._factory = device_factory
         self._arena = arena
@@ -624,7 +659,9 @@ class SupervisedBackend:
         self._journal = []
         self._device, self._cpu = None, None
         self.failed_over = False
-        if self.sup.route() == "device":
+        # the warm-up gate first (no probe): a commit that starts while the
+        # menu warms runs on the twin, degraded serving and not a failover
+        if self.sup.warmup_allows_device() and self.sup.route() == "device":
             try:
                 self._device = self.sup.run_guarded(self._factory, what="engine init")
             except DeviceDispatchError:
@@ -677,15 +714,16 @@ class SupervisedHasher:
     ``device`` under the watchdog, the numpy hasher (``keccak256_batch_np``)
     on failure or while the breaker is open. Hashing is stateless, so a
     failed batch simply runs again on the CPU. Kernel 1's library is loaded
-    before the first guarded call."""
+    before the first guarded call. The warm-up manager (``warmup``, else the
+    one attached to the supervisor when the device hasher is built) routes
+    each un-warm bucket to the host."""
 
     def __init__(self, supervisor: DeviceSupervisor, device_hasher=None, cpu_hasher=None,
                  min_tier: int = 1024, warmup=None, device="cuda"):
-        if warmup is not None:
-            raise NotImplementedError("SupervisedHasher(warmup=...) is not ported yet")
         self.sup = supervisor
         self._device = device_hasher
         self._min_tier = min_tier
+        self._warmup = warmup
         self.device = resolve(device)
         self._loaded = False
         if cpu_hasher is None:
@@ -698,7 +736,8 @@ class SupervisedHasher:
         if self._device is None:
             from .keccak import KeccakDevice
 
-            self._device = KeccakDevice(min_tier=self._min_tier, block_tier=4,
+            warmup = self._warmup if self._warmup is not None else self.sup.warmup
+            self._device = KeccakDevice(min_tier=self._min_tier, block_tier=4, warmup=warmup,
                                         device=self.device).hash_batch
         return self._device
 

@@ -20,6 +20,7 @@ branch node with its state/tree/hash masks and child hashes
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 
 import torch
@@ -126,14 +127,17 @@ class TrieCommitter:
         behind the watchdog and the breaker with failover to the numpy twin
         (the reference's ``--hasher auto``): the fused engine runs as a
         ``SupervisedBackend``, a missing ``hasher`` becomes a
-        ``SupervisedHasher``. ``mesh`` and ``warmup`` are the reference's
-        seams for later slices of the port (the mesh, warm-up) and raise
-        ``NotImplementedError``."""
-        for name, value in (("mesh", mesh), ("warmup", warmup)):
-            if value is not None:
-                raise NotImplementedError(f"TrieCommitter({name}=...) is not ported yet")
+        ``SupervisedHasher``. ``warmup`` (an ``ops/warmup.py
+        WarmupManager``) adds degraded serving: the default hasher's
+        ``KeccakDevice`` hashes each un-warm bucket on the host until its
+        shape is warm (a supervised fused commit is gated through the
+        supervisor the manager attached to). ``mesh`` is the reference's
+        seam for the mesh, not ported, and raises ``NotImplementedError``."""
+        if mesh is not None:
+            raise NotImplementedError("TrieCommitter(mesh=...) is not ported yet")
         self.fused = fused
         self.supervisor = supervisor
+        self.warmup = warmup
         self._engine = None
         if fused:
             dev = resolve(device)
@@ -144,12 +148,43 @@ class TrieCommitter:
                 self._engine = FusedLevelEngine(min_tier=min_tier, device=dev)
         elif hasher is None:
             if supervisor is not None:
-                hasher = SupervisedHasher(supervisor, min_tier=min_tier, device=device)
+                hasher = SupervisedHasher(supervisor, min_tier=min_tier, warmup=warmup,
+                                          device=device)
             else:
                 # Trie nodes are <= 4 rate blocks (branch max ~533 B): one
                 # shared block-tier bucket per batch
-                hasher = KeccakDevice(min_tier=min_tier, block_tier=4, device=device).hash_batch
+                hasher = KeccakDevice(min_tier=min_tier, block_tier=4, warmup=warmup,
+                                      device=device).hash_batch
         self.hasher = hasher
+        # the shared hash service (ops/hash_service.py) when one is hung off
+        # this committer: ``hasher`` is then a lane-bound client, and
+        # ``for_lane`` hands each call site its own priority lane
+        self.hash_service = None
+
+    def attach_warmup(self, manager) -> None:
+        """Late-bind a warm-up manager to a built committer: per-bucket
+        routing for the ``KeccakDevice``-backed hashers (the supervised fused
+        path is gated through the supervisor the manager attached to)."""
+        self.warmup = manager
+        h = self.hasher
+        if isinstance(h, SupervisedHasher):
+            h._warmup = manager
+            h._device = None  # rebuilt with the manager at the next call
+        else:
+            owner = getattr(h, "__self__", None)  # KeccakDevice.hash_batch
+            if isinstance(owner, KeccakDevice):
+                owner.warmup = manager
+
+    def for_lane(self, lane: str) -> "TrieCommitter":
+        """A shallow clone whose ``hasher`` is the hash service's client on
+        ``lane`` (live > payload > rebuild > proof). Without a service, or on
+        the fused path (which does not hash through ``hasher``), the
+        committer itself."""
+        if self.hash_service is None or self.fused:
+            return self
+        clone = copy.copy(self)
+        clone.hasher = self.hash_service.client(lane)
+        return clone
 
     def commit(
         self,

@@ -30,8 +30,13 @@ host half, reveal-ref stamping and the hooks ``node_at`` / ``blind_hash_at``
 / ``reveal_at`` / ``harvest_spine``, serves ``trie/hot_cache.py
 TrieNodeCache``.
 
-Not ported yet: the hash service's streaming and window lanes; a hasher
-with ``submit`` or ``commit_window`` raises ``NotImplementedError``.
+A hasher bound to the shared hash service's live lane
+(``ops/hash_service.py HashClient``) is used as the reference uses it: the
+classic finish streams each pooled depth's encode chunks through
+``hasher.submit``, so the service's continuous batching fuses them back
+into full launches while the pool keeps encoding; the fused finish hands
+its whole window to ``hasher.commit_window``, one k-level engine commit on
+the service's dispatcher; and such a hasher skips the arena's delta finish.
 
 Blinded nodes are paths the proofs never revealed. Reading through or
 collapsing into one raises ``BlindedNodeError`` carrying the nibble path, so
@@ -843,12 +848,10 @@ class ParallelSparseCommitter:
         """Hash every dirty subtree of ``tries`` and return their roots (in
         input order), bit-identical to calling ``root_hash_compute`` on
         each. The classic finish makes one hasher dispatch per global depth
-        (``hasher`` defaults to ``device_hasher(self.device)``); the fused
-        finish one launch per ``subtrie_levels`` depths."""
-        for seam in ("submit", "commit_window"):
-            if getattr(hasher, seam, None) is not None:
-                raise NotImplementedError(
-                    f"a hasher with {seam}() (the hash service) is not ported yet")
+        (``hasher`` defaults to ``device_hasher(self.device)``), streamed
+        chunk by chunk through ``hasher.submit`` where the hasher has it; the
+        fused finish one launch per ``subtrie_levels`` depths, or one
+        ``hasher.commit_window`` where the hasher has that."""
         t_wall = time.perf_counter()
         roots: list[bytes | None] = [None] * len(tries)
         live: list[tuple[int, "SparseTrie"]] = []
@@ -867,14 +870,14 @@ class ParallelSparseCommitter:
         if not live:
             self.last = {**stats, "wall_s": 0.0}
             return roots
-        if self.arena is not None:
+        if self.arena is not None and getattr(hasher, "commit_window", None) is None:
             # the hot-state delta finish; None: contended, or a fault the
             # arena counted and evicted for, and the same commit reruns below
             delta = self._commit_fused_arena(live, roots, stats, t_wall)
             if delta is not None:
                 return delta
         if self.subtrie_levels > 1:
-            return self._commit_fused(live, roots, stats, t_wall)
+            return self._commit_fused(live, roots, stats, t_wall, hasher)
         if hasher is None:
             if self._hasher is None:
                 self._hasher = device_hasher(self.device)
@@ -907,11 +910,14 @@ class ParallelSparseCommitter:
             sparse_commit_metrics.set_encode_busy(len(chunks))
             futs = [pool.submit(_encode_chunk, c) for c in chunks]
             try:
-                nodes, rlps = [], []
-                for chunk, f in zip(chunks, futs):
-                    nodes.extend(chunk)
-                    rlps.extend(f.result())
-                self._apply_level(nodes, rlps, hasher, stats)
+                if hasattr(hasher, "submit"):
+                    self._stream_level(chunks, futs, hasher, stats)
+                else:
+                    nodes, rlps = [], []
+                    for chunk, f in zip(chunks, futs):
+                        nodes.extend(chunk)
+                        rlps.extend(f.result())
+                    self._apply_level(nodes, rlps, hasher, stats)
             finally:
                 sparse_commit_metrics.set_encode_busy(0)
 
@@ -941,24 +947,32 @@ class ParallelSparseCommitter:
 
     # -- whole-subtrie fused finish (k levels per launch) -------------------
 
-    def _commit_fused(self, live, roots, stats, t_wall):
+    def _commit_fused(self, live, roots, stats, t_wall, hasher=None):
         """Pack the global per-depth schedule into hole-spliced level
         templates (the inline-vs-hashed split needs only RLP lengths, never
         digest values) and commit the whole dirty set through a
         ``SubtrieFusedEngine``: one launch of kernel 4 per
-        ``subtrie_levels`` depths, one read-back of the digest buffer.
-        Digest slots start at 1; slot 0 is the engine's dummy."""
+        ``subtrie_levels`` depths, one read-back of the digest buffer. With
+        a hasher that has ``commit_window`` (the hash service's live lane)
+        the window runs on the service instead. Digest slots start at 1;
+        slot 0 is the engine's dummy."""
+        commit_window = getattr(hasher, "commit_window", None)
         schedule, slot_of = self._templates(live, stats, itertools.count(1).__next__)
         window = self._pack_schedule(schedule, slot_of)
         if window:
-            eng = self._engine()
-            eng.begin(len(slot_of))
-            for w in window:
-                eng.dispatch_packed(w["flat"], w["row_off"], w["row_len"], w["slots"],
-                                    w["holes"], w["b_tier"])
-            buf = eng.finish()
-            stats["dispatches"] += eng.dispatches
-            stats["h2d_bytes"] = eng.staged_u8_bytes + eng.staged_i32_bytes
+            if commit_window is not None:
+                buf = commit_window(window, len(slot_of))
+                stats["streamed"] += len(window)
+                stats["dispatches"] += max(1, -(-len(window) // self.subtrie_levels))
+            else:
+                eng = self._engine()
+                eng.begin(len(slot_of))
+                for w in window:
+                    eng.dispatch_packed(w["flat"], w["row_off"], w["row_len"], w["slots"],
+                                        w["holes"], w["b_tier"])
+                buf = eng.finish()
+                stats["dispatches"] += eng.dispatches
+                stats["h2d_bytes"] = eng.staged_u8_bytes + eng.staged_i32_bytes
             for nodes, _templates, _holes in schedule:
                 for node in nodes:
                     node._ref = encode_hash_ref(bytes(buf[slot_of[id(node)]]))
@@ -1116,6 +1130,29 @@ class ParallelSparseCommitter:
             window.append({"flat": flat, "row_off": row_off, "row_len": row_len,
                            "slots": slots, "holes": holes, "b_tier": bt})
         return window
+
+    @staticmethod
+    def _stream_level(chunks, futs, hasher, stats) -> None:
+        """One pooled depth on the live lane: each encoded chunk's rows of 32
+        bytes or more go to ``hasher.submit`` as their own request while the
+        pool encodes the next chunks; the service fuses them back into full
+        launches."""
+        pending = []
+        for chunk, f in zip(chunks, futs):
+            rlps = f.result()
+            to_hash = [(n, r) for n, r in zip(chunk, rlps) if len(r) >= 32]
+            for n, r in zip(chunk, rlps):
+                if len(r) < 32:
+                    n._ref = r  # inline ref
+            if to_hash:
+                stats["streamed"] += 1
+                stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + sum(len(r) for _, r in to_hash)
+                pending.append((to_hash, hasher.submit([r for _, r in to_hash])))
+        for to_hash, fut in pending:
+            for (n, _r), d in zip(to_hash, fut.result()):
+                n._ref = encode_hash_ref(bytes(d))
+                stats["hashed"] += 1
+        stats["dispatches"] += 1 if pending else 0
 
     @staticmethod
     def _apply_level(nodes, rlps, hasher, stats) -> None:

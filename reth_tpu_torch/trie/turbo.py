@@ -770,19 +770,26 @@ class TurboCommitter:
     uploaded in two copies, one launch per level), or
     ``SubtrieFusedEngine(k)`` for ``subtrie_levels`` k > 1 (one launch per
     chunk of k levels). ``subtrie_levels=None`` reads
-    ``RETH_TPU_SUBTRIE_LEVELS`` (unset: 0). ``hash_service`` and ``mesh``
-    are seams for later slices of the port (the hash service, the mesh)
-    and raise ``NotImplementedError``."""
+    ``RETH_TPU_SUBTRIE_LEVELS`` (unset: 0). The k-level engine is gated by
+    the warm-up manager attached to ``supervisor``, if any.
+
+    ``hash_service`` (an ``ops/hash_service.py HashService``): each device
+    commit ("device" or "auto") holds the service's exclusive lease from
+    ``begin`` to its terminal fetch (``lease_backend``), and drops it when
+    the commit aborts or fails; the coalesced lanes pause meanwhile, and
+    their aged requests bypass onto the twin. The numpy backend takes no
+    lease. ``mesh`` is the reference's seam for the mesh, not ported, and
+    raises ``NotImplementedError``."""
 
     def __init__(self, backend: str = "device", min_tier: int = 1024, mesh=None,
                  supervisor=None, hash_service=None, subtrie_levels: int | None = None,
                  device: str | torch.device = "cuda"):
         if backend not in ("device", "numpy", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
-        for name, value in (("mesh", mesh), ("hash_service", hash_service)):
-            if value is not None:
-                raise NotImplementedError(f"TurboCommitter({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("TurboCommitter(mesh=...) is not ported yet")
         self.supervisor = supervisor
+        self.hash_service = hash_service
         if subtrie_levels is None:
             subtrie_levels = int(os.environ.get("RETH_TPU_SUBTRIE_LEVELS", "0") or 0)
         self.subtrie_levels = max(0, int(subtrie_levels))
@@ -798,17 +805,26 @@ class TurboCommitter:
         fault ladder, which only the supervised route asks for."""
         if self.subtrie_levels > 1:
             return SubtrieFusedEngine(min_tier=self.min_tier, k=self.subtrie_levels,
+                                      warmup=getattr(self.supervisor, "warmup", None),
                                       ladder=ladder, device=self.device)
         return MegaFusedEngine(min_tier=self.min_tier, device=self.device)
 
     def _make_backend(self):
         if self.backend_kind == "numpy":
             return _NumpyBackend(arena=self.arena)
-        if self.backend_kind == "auto":
-            return SupervisedBackend(self.supervisor or DeviceSupervisor.shared(),
-                                     functools.partial(self._device_engine, ladder=True),
-                                     arena=self.arena, device=self.device)
-        return self._device_engine()
+
+        def build():
+            if self.backend_kind == "auto":
+                return SupervisedBackend(self.supervisor or DeviceSupervisor.shared(),
+                                         functools.partial(self._device_engine, ladder=True),
+                                         arena=self.arena, device=self.device)
+            return self._device_engine()
+
+        if self.hash_service is not None:
+            # the shared service's discipline: this commit holds the card
+            # through the service's lease, built once the lease is held
+            return self.hash_service.lease_backend(factory=build)
+        return build()
 
     def commit_hashed_many(
         self,
@@ -860,7 +876,10 @@ class TurboCommitter:
         if injector is None:
             injector = FaultInjector.from_env()
         pipe = RebuildPipeline(backend, self._lib, injector=injector, **knobs)
-        results = pipe.run(jobs, collect_branches, start_depth)
+        try:
+            results = pipe.run(jobs, collect_branches, start_depth)
+        finally:
+            _release(backend)  # an aborted commit drops the service's lease
         trie_metrics.record_commit(
             backend=backend.effective_kind, nodes=results[-1].hashed_nodes,
             levels=max(r.levels for r in results), leaves=sum(len(j[1]) for j in jobs),
@@ -870,6 +889,14 @@ class TurboCommitter:
     def _run(self, lib, h, n_jobs, key_arrays, collect_branches, start_depth=0):
         t_start = time.time()
         backend = self._make_backend()
+        try:
+            return self._run_inner(lib, h, n_jobs, key_arrays, collect_branches, start_depth,
+                                   backend, t_start)
+        finally:
+            _release(backend)  # a failed commit drops the service's lease
+
+    def _run_inner(self, lib, h, n_jobs, key_arrays, collect_branches, start_depth, backend,
+                   t_start):
         max_slot = lib.rtb_max_slot(h)
         backend.begin(max_slot)
         n_levels = lib.rtb_num_levels(h)
@@ -920,6 +947,13 @@ class TurboCommitter:
             _collect_meta_records(meta_rec, key_arrays, job_starts, digests,
                                   results, start_depth)
         return results
+
+
+def _release(backend) -> None:
+    """Drop a leased backend's lease (idempotent; other backends hold none)."""
+    release = getattr(backend, "release", None)
+    if release is not None:
+        release()
 
 
 def _collect_meta_records(meta_rec, key_arrays, job_starts, digests, results,

@@ -433,3 +433,94 @@ def test_arena_finish_on_card_matches_cpu(seed):
         assert snap["resident_hits"] > 0 and arena.leaked_rows() == 0
         out[device] = rec
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_default_menu_warms_on_card():
+    """Warm-up over the default menu on the card: every shape WARM, and each
+    shape's step launched its kernel (kernel 1 for keccak.*, kernel 2 for
+    fused.plain / fused.splice, kernel 4 for fused.subtrie)."""
+    from reth_tpu_torch.ops import warmup as pw
+
+    require_card()
+    counter = {"keccak.masked": tk.keccak256_words_masked, "keccak.exact": tk.keccak256_words_masked,
+               "fused.plain": fc.packed_level, "fused.splice": fc.packed_level,
+               "fused.subtrie": fc.subtrie_levels}
+    moved = {}
+
+    def builder(shape):
+        before = counter[shape.program].launches
+        pw.build_shape(shape, "cuda")
+        moved[str(shape)] = counter[shape.program].launches - before
+
+    mgr = pw.WarmupManager(builder=builder, budget=120, attempts=1, backoff=0,
+                           registry=MetricsRegistry())
+    snap = mgr.run()
+    assert snap["state"] == "warm" and snap["warm"] == snap["total"] == len(pw.default_menu())
+    assert mgr.wedges == 0 and set(moved) == {str(s) for s in mgr.menu}
+    assert all(n == 1 for n in moved.values())
+
+
+@pytest.mark.cuda
+def test_hash_service_on_card_matches_numpy():
+    """The service's default backend (kernel 1 through KeccakDevice) on the
+    card: coalesced digests bit-exact against keccak256_batch_np, fewer
+    launches than requests, no replay; a window request equals the CPU
+    service's buffer."""
+    import threading
+
+    from reth_tpu_torch.ops.hash_service import HashService
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+
+    require_card()
+    svc = HashService(registry=MetricsRegistry(), window_s=0.004, subtrie_levels=8)
+    rng = np.random.default_rng(11)
+    reqs = [[bytes(rng.integers(0, 256, size=int(n), dtype=np.uint8))
+             for n in rng.integers(1, 300, size=4)] for _ in range(256)]
+    out = [None] * len(reqs)
+    before = tk.keccak256_words_masked.launches
+
+    def client(i):
+        for j in range(i, len(reqs), 8):
+            out[j] = svc.client(("live", "payload", "rebuild", "proof")[j % 4])(reqs[j])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    launches = tk.keccak256_words_masked.launches - before
+    assert out == [keccak256_batch_np(r) for r in reqs]
+    assert 0 < launches < len(reqs) and svc.replays == 0
+    rows = [b"\x11" * 45, b"\x22" * 50]
+    window = [{"flat": np.frombuffer(b"".join(rows), np.uint8),
+               "row_off": np.array([0, 45], np.uint32), "row_len": np.array([45, 50], np.uint32),
+               "slots": np.array([1, 2], np.int32), "holes": None, "b_tier": 1}]
+    got = svc.client("live").commit_window(window, 2)
+    svc.stop()
+    cpu = HashService(backend=keccak256_batch_np, registry=MetricsRegistry(), device="cpu",
+                      subtrie_levels=8)
+    want = cpu.client("live").commit_window(window, 2)
+    cpu.stop()
+    assert got[1:3].tobytes() == want[1:3].tobytes() == keccak256(rows[0]) + keccak256(rows[1])
+    assert svc.replays == 0
+
+
+@pytest.mark.cuda
+def test_failed_build_raises_from_service_and_warmup_on_card(monkeypatch, tmp_path):
+    """A kernel build that fails (here a flag nvcc refuses, into an empty
+    kernel directory) raises out of HashService(...) and out of
+    WarmupManager.run(): never replayed, never parked as FAILED."""
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.ops import warmup as pw
+    from reth_tpu_torch.ops.hash_service import HashService
+
+    require_card()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["--no-such-nvcc-flag"])
+    monkeypatch.setattr(_build, "_kernel_dir", tmp_path)
+    with pytest.raises(_build.BuildError):
+        HashService(registry=MetricsRegistry())
+    mgr = pw.WarmupManager(budget=60, attempts=1, registry=MetricsRegistry())
+    with pytest.raises(_build.BuildError):
+        mgr.run()
+    assert mgr.wedges == 0 and pw.FAILED not in mgr.states.values()

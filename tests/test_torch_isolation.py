@@ -16,9 +16,12 @@ import torch
 
 from reth_tpu_torch import convert
 from reth_tpu_torch.device import resolve
+from reth_tpu_torch.metrics import MetricsRegistry
 from reth_tpu_torch.ops import fused_commit as fc
+from reth_tpu_torch.ops import hash_service as ths
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.ops import supervisor as tsup
+from reth_tpu_torch.ops import warmup as tw
 from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie.committer import TrieCommitter
@@ -49,7 +52,8 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.trie.turbo", "reth_tpu_torch.trie.state_root",
                 "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types",
                 "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing",
-                "reth_tpu_torch.ops.supervisor", "reth_tpu_torch.trie.hot_cache"):
+                "reth_tpu_torch.ops.supervisor", "reth_tpu_torch.trie.hot_cache",
+                "reth_tpu_torch.ops.warmup", "reth_tpu_torch.ops.hash_service"):
         assert mod in res["modules"]
 
 
@@ -76,7 +80,8 @@ def test_sources_name_no_jax_import():
     convert.jobs_to_device, convert.digest_buffer_from_numpy,
     tsp.ParallelSparseCommitter.__init__, tsp.SparseTrie.root_hash_compute,
     tsp.SparseStateTrie.root, tsp.device_hasher, tsup.SupervisedBackend.__init__,
-    tsup.SupervisedHasher.__init__,
+    tsup.SupervisedHasher.__init__, ths.HashService.__init__, tw.WarmupManager.__init__,
+    tw.build_shape,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -100,5 +105,12 @@ def test_cuda_without_a_card_raises():
         TurboCommitter(backend="auto", supervisor=sup)
     with pytest.raises(RuntimeError):
         TrieCommitter(supervisor=sup)
+    # the control plane: the hash service, warm-up and its constructor
+    with pytest.raises(RuntimeError):
+        ths.HashService(registry=MetricsRegistry())
+    with pytest.raises(RuntimeError):
+        tw.WarmupManager(registry=MetricsRegistry())
+    with pytest.raises(RuntimeError):
+        tw.build_warmup(registry=MetricsRegistry())
     with pytest.raises(ValueError):
         resolve("meta")

@@ -402,15 +402,17 @@ class _ServiceClient:
 
 
 def test_unported_seams_raise():
-    """The hash service's lanes are not ported: a hasher with submit()
-    raises, with or without the hot-state arena (which is ported)."""
+    """The hash service's lanes are ported now: a hasher with submit() is
+    taken, with or without the hot-state arena, and a one-leaf trie (no
+    pooled depth) never streams, so the root comes from its calls."""
     from reth_tpu_torch.ops.fused_commit import DigestArena
 
-    t = ts.SparseTrie()
-    t.update(b"\x01" * 32, b"\x02" * 40)
     for arena in (None, DigestArena()):
-        with pytest.raises(NotImplementedError):
-            ts.ParallelSparseCommitter(arena=arena, device="cpu").commit([t], _ServiceClient())
+        t, twin = ts.SparseTrie(), ts.SparseTrie()
+        for trie in (t, twin):
+            trie.update(b"\x01" * 32, b"\x02" * 40)
+        got = ts.ParallelSparseCommitter(arena=arena, device="cpu").commit([t], _ServiceClient())
+        assert got == [twin.root_hash_compute(phash)]
 
 
 def test_the_card_is_the_default_and_never_replaced_by_the_cpu():

@@ -105,8 +105,15 @@ def test_fused_without_hasher_fails_like_reference():
 
 @pytest.mark.parametrize("seam", ["mesh", "supervisor", "warmup"])
 def test_unported_committer_seams_raise(seam):
+    """The mesh is the committer's one unported seam; the warm-up manager,
+    with or without a supervisor, reaches the committer's hasher."""
     kw = {seam: object()}
-    if seam == "supervisor":
-        kw["warmup"] = object()  # the supervisor is ported; its warm-up gate is not
-    with pytest.raises(NotImplementedError):
-        TrieCommitter(device="cpu", **kw)
+    if seam == "mesh":
+        with pytest.raises(NotImplementedError):
+            TrieCommitter(device="cpu", **kw)
+        return
+    manager = kw["warmup"] = object()
+    c = TrieCommitter(device="cpu", **kw)
+    assert c.warmup is manager
+    gate = c.hasher._warmup if seam == "supervisor" else c.hasher.__self__.warmup
+    assert gate is manager

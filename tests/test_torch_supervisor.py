@@ -209,9 +209,13 @@ def test_default_probe_without_a_card_fails_within_budget():
     assert "rc=1" in r.diag and "CUDA" in r.diag
 
 
-def test_probe_cache_dir_is_not_ported():
-    with pytest.raises(NotImplementedError, match="warm-up"):
-        psup.probe_device(budget=1, cache_dir="/nonexistent")
+def test_probe_cache_dir_is_not_ported(tmp_path):
+    """Warm-up's compile-cache check is ported now: the child loads kernel 1
+    from the directory it is given. An empty directory (or a host without a
+    card) fails the child: a failed result, not an exception."""
+    r = psup.probe_device(budget=120, cache_dir=str(tmp_path))
+    assert not r.ok and r.latency < 120
+    assert "rc=1" in r.diag
 
 
 # -- the watchdog ----------------------------------------------------------------
@@ -585,31 +589,41 @@ def test_failed_build_raises_instead_of_failing_over(monkeypatch, path):
 
 
 def test_unported_seams_raise():
+    """Only the mesh's seams are left unported; the warm-up and hash-service
+    seams take their objects, and a device arena handed to SupervisedBackend
+    is the wrong type."""
     sup = _supervisor("port")
-    with pytest.raises(NotImplementedError, match="hot-state"):
+    with pytest.raises(TypeError, match="hot-state"):
         psup.SupervisedBackend(sup, lambda: None, arena=object(), device="cpu")
+    manager, service = object(), object()
+    assert psup.SupervisedHasher(sup, warmup=manager, device="cpu")._warmup is manager
+    assert pturbo.TurboCommitter(backend="auto", supervisor=sup, device="cpu",
+                                 hash_service=service).hash_service is service
+    assert pcommitter.TrieCommitter(supervisor=sup, device="cpu",
+                                    warmup=manager).hasher._warmup is manager
     with pytest.raises(NotImplementedError):
-        psup.SupervisedHasher(sup, warmup=object(), device="cpu")
-    for kw in ({"hash_service": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            pturbo.TurboCommitter(backend="auto", supervisor=sup, device="cpu", **kw)
-    for kw in ({"warmup": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            pcommitter.TrieCommitter(supervisor=sup, device="cpu", **kw)
+        pturbo.TurboCommitter(backend="auto", supervisor=sup, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError):
+        pcommitter.TrieCommitter(supervisor=sup, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("knob", [{"compile_wedge": 2}, {"device_wedge": (0, 3)},
                                   {"RETH_TPU_FAULT_COMPILE_WEDGE": "-1"},
                                   {"RETH_TPU_FAULT_DEVICE_WEDGE": "1"}])
 def test_unported_fault_knobs_raise(monkeypatch, knob):
-    """The warm-up and mesh drills have no hook in the port: a supervisor
-    armed with either refuses to start, so such a drill cannot pass by
-    injecting nothing."""
+    """The mesh's drill has no hook in the port: a supervisor armed with it
+    refuses to start, so such a drill cannot pass by injecting nothing. The
+    compile wedge is warm-up's drill, ported now: the supervisor starts and
+    its injector carries the knob to the warm-up steps."""
     ((name, value),) = knob.items()
     if name.startswith("RETH_"):
         monkeypatch.setenv(name, value)
         inj = None
     else:
         inj = psup.FaultInjector(**knob)
+    if "compile_wedge" in name.lower():
+        sup = psup.DeviceSupervisor(injector=inj, registry=pmetrics.MetricsRegistry())
+        assert sup.injector.compile_wedge == (int(value) if inj is None else value)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         psup.DeviceSupervisor(injector=inj, registry=pmetrics.MetricsRegistry())

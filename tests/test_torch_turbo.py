@@ -104,12 +104,15 @@ def test_rejects_like_reference(port):
         port.commit_hashed_pipelined([dup, job(5, seed=2)])
 
 
-# "auto" and supervisor= are ported; the hash service and the mesh are not,
-# with or without them
+# "auto", supervisor= and hash_service= are ported; the mesh is not, with or
+# without them
 @pytest.mark.parametrize("kw", [dict(backend="auto", hash_service=object()), dict(mesh=object()),
                                 dict(hash_service=object()), dict(subtrie_levels=4, mesh=object()),
                                 dict(supervisor=object(), mesh=object())])
 def test_unported_seams_raise(kw):
+    if "mesh" not in kw:
+        assert TurboCommitter(device="cpu", **kw).hash_service is kw["hash_service"]
+        return
     with pytest.raises(NotImplementedError):
         TurboCommitter(device="cpu", **kw)
 
