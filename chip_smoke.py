@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one Hopper card.
 
-    python3 chip_smoke.py [--accounts N] [--slots N] [--state-accounts N] [--state-slots N]
+    python3 chip_smoke.py [--accounts N] [--slots N] [--rebuild-accounts N] [--rebuild-slots N]
+                          [--state-accounts N] [--state-slots N]
 
 1. Builds every native source of the port from this checkout (the two CUDA
    kernel libraries with nvcc, the trie sweep with g++, all at once), and
@@ -41,9 +42,20 @@
    and kernel launches are logged. Then the cache probe child alone, and the
    drill of a truncated library: a third child quarantines the directory
    and rebuilds it.
-3. Slice phase, sixteen main paths, the launch counters zeroed just before
+   Right after the build, the MerkleStage cell's CPU twin starts in a child
+   process of its own (chip_smoke.py --merkle-twin, merkle_twin), beside
+   everything below until the cell needs it: plain_state(--accounts,
+   --slots) in a port MemDb, the two hashing stages and
+   full_state_root_turbo(backend="numpy") on TrieCommitter(
+   hasher=keccak256_batch_np, device="cpu") (header 1's root), each block's
+   writes, hashing stages and MerkleStage._incremental (the block's root and
+   tables), and block 3's state rebuilt single-shot again (its root and
+   tables must be the incremental route's).
+3. Slice phase, eighteen main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
-   "default", the full-state rebuild through
+   "default", the full-state rebuild (at --rebuild-accounts /
+   --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
+   MerkleStage cell keeps) through
    TurboCommitter.commit_hashed_pipelined (storage tries, then the account
    trie as 256 two-nibble prefix subtries at start_depth=2, both collecting
    branch nodes) on the default engine, MegaFusedEngine; "k=8", the same
@@ -85,7 +97,7 @@
    the account trie's stored branch updates (export_branch_updates) are
    held against a fourth copy finished on the CPU with the numpy hasher.
    Then "hot tip": one account trie of HOT_ACCOUNTS (262,144) seeded keys,
-   two sibling forks imported interleaved, HOT_BLOCKS (8) blocks a fork of
+   two sibling forks imported interleaved, HOT_BLOCKS (2) blocks a fork of
    2,048 writes (half of them keys of the fork's previous block) and 128
    deletes; each block starts from a blind SparseTrie at its fork's root
    with reveal stamping, reveals its keys through a shared TrieNodeCache
@@ -119,18 +131,42 @@
    TurboCommitter(hash_service=) on the default engine while a thread keeps
    submitting live-lane requests (leases equal to the commits, no replay,
    roots and branch nodes equal to the numpy twin's; the lease bypasses and
-   the live lane's waits logged). Each path must launch its
-   kernels and no other (the leased rebuild may also launch kernel 1, for
-   its live client between leases). The
+   the live lane's waits logged). Then the MerkleStage cell (MerkleCell):
+   plain_state(--accounts, --slots) = 1,000,000 addresses, 400,000 slots
+   over 100,000 owners, loaded into a port MemDb with headers 0 and 1 (the
+   twin's root); "merkle stage", Pipeline(factory, [MerkleUnwindStage(c),
+   AccountHashingStage(c), StorageHashingStage(c), MerkleStage(c)]).run(1)
+   with c = TrieCommitter(device="cuda"): the hashing stages' clean scans
+   (kernel 1 through KeccakDevice, one batch a 200,000-key scan chunk) and
+   the chunked rebuild at chunk_leaves 500,000 (the storage chunk, two
+   account chunks, the stitch; kernels 2 and 3 through the stage's
+   TurboCommitter on "device", kernel 1 for the stitch), each stage's and
+   each MerkleStage iteration's wall and kind, each commit's stage times,
+   the hashing stages' keys/s and hashed nodes/s logged; it must end with
+   every row of HashedAccounts, HashedStorages, AccountsTrie and
+   StoragesTrie equal to the twin's (compared by row counts and SHA-256 of
+   the rows in key order), the four checkpoints 1, the progress blob
+   cleared and 0 fallbacks; then "merkle incremental", blocks 2 and 3
+   (STAGE_BLOCK writes with their changesets and headers, each block's
+   writes timed apart) through Pipeline.run(2), run(3) (the incremental
+   route, kernel 1 only) and Pipeline.unwind(1), the four tables after each
+   step equal to the twin's at that block (block 1's after the unwind).
+   Each path must launch its kernels and no other (the leased rebuild may
+   also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
    host-to-device copies, launches and staged levels are logged.
 4. For each main path, two more runs after the launch counts were read
-   (the hot tip: two more blocks of its cached lineage):
+   (the hot tip: two more blocks of its cached lineage; "merkle stage" from
+   the database as the path found it, "merkle incremental" from block 1,
+   each restored from a kept table map, which a MemDb publishes immutable):
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
    main path (keccak256_absorb: state_root; packed_level and branch_level:
-   default; subtrie_levels: k=8; and packed_level once more at state_root's
+   merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
+   also at "merkle incremental"'s launches, the "incremental_absorb" row
+   ("merkle stage"'s are state_root's shape, 16,384 one-block rows); and
+   packed_level once more at state_root's
    template levels, the "template_levels" row, whose plain version is
    splice_level on the reference's padded layout; keccak256_absorb once more
    at the sparse finish's launches, the "sparse_absorb" row, and
@@ -274,21 +310,15 @@ def build_state(n_accounts: int, n_slots: int, seed: int = 42):
 
 
 def plain_state(n_accounts: int, n_slots: int, seed: int):
-    """Plain state for state_root(): 20-byte addresses, accounts, and
-    n_slots storage slots spread over n_accounts // 10 accounts."""
+    """Plain state for state_root() and the MerkleStage cell: 20-byte
+    addresses, accounts, and n_slots storage slots spread over n_accounts //
+    10 accounts (tests/_torch_helpers.py stage_state)."""
     from reth_tpu_torch.primitives.types import Account
 
-    rng = np.random.default_rng(seed)
-    addrs = [bytes(a) for a in rng.integers(0, 256, size=(n_accounts, 20), dtype=np.uint8)]
-    balances = rng.integers(1, 1 << 60, size=n_accounts)
-    accounts = {a: Account(nonce=i % 300, balance=int(balances[i])) for i, a in enumerate(addrs)}
-    owners = addrs[: max(1, n_accounts // 10)]
-    slots = rng.integers(0, 256, size=(n_slots, 32), dtype=np.uint8)
-    values = rng.integers(1, 1 << 60, size=n_slots)
-    storages: dict[bytes, dict[bytes, int]] = {}
-    for k in range(n_slots):
-        storages.setdefault(owners[k % len(owners)], {})[bytes(slots[k])] = int(values[k])
-    return accounts, storages
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_helpers import stage_state
+
+    return stage_state(Account, n_accounts, n_slots, seed)
 
 
 # the sparse finish's size: storage tries x slots, dirty slot writes per trie
@@ -733,7 +763,8 @@ KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 # KeccakDevice), then the sparse live-tip finish, classic and fused
 PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", "sparse",
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
-         "service", "sparse service", "sparse service k=8", "rebuild leased")
+         "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
+         "merkle incremental")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -744,7 +775,9 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "state_root degraded": (), "state_root warming": ("keccak256_absorb",),
                 "service": ("keccak256_absorb",), "sparse service": ("keccak256_absorb",),
                 "sparse service k=8": ("subtrie_levels",),
-                "rebuild leased": ("packed_level", "branch_level")}
+                "rebuild leased": ("packed_level", "branch_level"),
+                "merkle stage": ("keccak256_absorb", "packed_level", "branch_level"),
+                "merkle incremental": ("keccak256_absorb",)}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -755,7 +788,7 @@ DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 # the rows that time a kernel at another main path's launches: row -> kernel
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
               "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels",
-              "service_absorb": "keccak256_absorb"}
+              "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb"}
 # the main paths whose kernel 4 launches keep a copy of the digest buffer as
 # it was before the launch (the arena's: rows of earlier epochs), so that the
 # timed replay starts from it
@@ -980,9 +1013,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                              level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
                              "reth_tpu/ops/keccak_pallas.py:96", "state_root"),
         "packed_level": (fc.packed_level, fc.packed_level_ref, level(packed_work), level_src,
-                         "reth_tpu/ops/fused_commit.py:93", "default"),
+                         "reth_tpu/ops/fused_commit.py:93", "merkle stage"),
         "branch_level": (fc.branch_level, fc.branch_level_ref, level(branch_work), level_src,
-                         "reth_tpu/ops/fused_commit.py:119", "default"),
+                         "reth_tpu/ops/fused_commit.py:119", "merkle stage"),
         "subtrie_levels": (fc.subtrie_levels, fc.subtrie_levels_ref,
                            lambda *a: subtrie_cost(bound, *a), level_src,
                            "reth_tpu/ops/fused_commit.py:1046", "k=8"),
@@ -1000,6 +1033,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "service_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
                            level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
                            "reth_tpu/ops/keccak_pallas.py:96", "service"),
+        "incremental_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                               level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                               "reth_tpu/ops/keccak_pallas.py:96", "merkle incremental"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -1314,12 +1350,349 @@ class SparseCell:
         return out
 
 
+# the MerkleStage cell: the commitment stages over a MemDb of
+# plain_state(--accounts, --slots), then MERKLE_BLOCKS blocks on the same
+# database, each of tests/_torch_helpers.py's STAGE_BLOCK writes (2,048
+# accounts rewritten, 128 of them new; 16 deleted with their storage; 4,096
+# slot writes over 512 owners, 256 set to zero); the four tables the card
+# path must reproduce
+MERKLE_BLOCKS = (2, 3)
+MERKLE_TABLES = ("HashedAccounts", "HashedStorages", "AccountsTrie", "StoragesTrie")
+
+
+def table_digests(db) -> dict:
+    """Each of the four tables of ``db``: its row count and the SHA-256 of
+    its rows in key order (each key and value length-prefixed; a DUPSORT
+    key's values in order), so that two databases compare row for row."""
+    import hashlib
+
+    out = {}
+    for name in MERKLE_TABLES:
+        rows = db._tables.get(name, {})
+        h = hashlib.sha256()
+        n = 0
+        for k in sorted(rows):
+            v = rows[k]
+            vals = v if isinstance(v, list) else [v]
+            n += len(vals)
+            h.update(len(k).to_bytes(4, "little") + k + len(vals).to_bytes(4, "little"))
+            for x in vals:
+                h.update(len(x).to_bytes(4, "little") + x)
+        out[name] = [n, h.hexdigest()]
+    return out
+
+
+def merkle_state(n_accounts: int, n_slots: int, seed: int, factory):
+    """The cell's plain state (``plain_state``) loaded into ``factory``'s
+    database with header 0, and the blocks' writes, generated on the way
+    (``stage_block``). Returns the blocks."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_helpers import load_stage_state, stage_block
+
+    from reth_tpu_torch.primitives.types import Account, Header
+
+    t0 = time.perf_counter()
+    accounts, storages = plain_state(n_accounts, n_slots, seed)
+    t1 = time.perf_counter()
+    load_stage_state(factory, accounts, storages, Header(number=0))
+    log(f"merkle cell: {len(accounts)} accounts, {sum(len(v) for v in storages.values())} "
+        f"slots over {len(storages)} owners generated in {t1 - t0:.1f} s, loaded into a MemDb "
+        f"in {time.perf_counter() - t1:.1f} s")
+    return {b: stage_block(accounts, storages, b, seed, Account) for b in MERKLE_BLOCKS}
+
+
+def merkle_twin(n_accounts: int, n_slots: int, seed: int, out_path: str) -> int:
+    """The MerkleStage cell's CPU twin, in a child process of its own
+    (``--merkle-twin``), started with the smoke so that it runs beside the
+    card's earlier paths: the same state in a MemDb, the two hashing stages on
+    ``TrieCommitter(hasher=keccak256_batch_np, device="cpu")`` with
+    ``turbo_backend = "numpy"``, then ``full_state_root_turbo(backend=
+    "numpy")``, the single-shot route (header 1's root); each block's writes,
+    its hashing stages and ``MerkleStage._incremental`` (the block's root);
+    then block 3's state rebuilt single-shot again on the numpy twin, whose
+    root and tables must be the incremental route's. Writes the roots and
+    each block's ``table_digests`` to ``out_path`` as JSON."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_helpers import apply_stage_block
+
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.primitives.types import Header
+    from reth_tpu_torch.stages import (AccountHashingStage, MerkleStage, Pipeline,
+                                       StorageHashingStage)
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.trie.committer import TrieCommitter
+    from reth_tpu_torch.trie.incremental import full_state_root_turbo
+
+    db = MemDb()
+    factory = ProviderFactory(db)
+    blocks = merkle_state(n_accounts, n_slots, seed, factory)
+    tc = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    tc.turbo_backend = "numpy"
+    hashing = [AccountHashingStage(tc), StorageHashingStage(tc)]
+    t0 = time.perf_counter()
+    Pipeline(factory, hashing).run(1)
+    t1 = time.perf_counter()
+    with factory.provider_rw() as p:
+        root = full_state_root_turbo(p, backend="numpy")
+        p.insert_header(Header(number=1, state_root=root))
+    log(f"merkle twin: hashing stages {t1 - t0:.3f} s, single-shot numpy rebuild "
+        f"{time.perf_counter() - t1:.3f} s, root {root.hex()}")
+    out = {"roots": {1: root.hex()}, "tables": {1: table_digests(db)}}
+    for b in MERKLE_BLOCKS:
+        t0 = time.perf_counter()
+        apply_stage_block(factory, blocks[b], b)
+        Pipeline(factory, hashing).run(b)
+        with factory.provider_rw() as p:
+            root = MerkleStage(tc)._incremental(p, b, b)
+            p.insert_header(Header(number=b, state_root=root))
+        out["roots"][b] = root.hex()
+        out["tables"][b] = table_digests(db)
+        log(f"merkle twin: block {b} ({len(blocks[b][0])} account and {len(blocks[b][1])} slot "
+            f"writes) in {time.perf_counter() - t0:.3f} s, root {root.hex()}")
+    t0 = time.perf_counter()
+    with factory.provider_rw() as p:
+        full = full_state_root_turbo(p, backend="numpy")
+    if full.hex() != out["roots"][MERKLE_BLOCKS[-1]] or \
+            table_digests(db) != out["tables"][MERKLE_BLOCKS[-1]]:
+        raise AssertionError(f"merkle twin: block {MERKLE_BLOCKS[-1]}'s single-shot numpy "
+                             f"rebuild differs from the incremental route's root or tables")
+    log(f"merkle twin: block {MERKLE_BLOCKS[-1]}'s single-shot numpy rebuild "
+        f"({time.perf_counter() - t0:.3f} s) gives the incremental route's root and four tables")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class MerkleTwin:
+    """The twin's child process (``merkle_twin``), started at once; ``result``
+    waits for it, logs its output and returns its JSON. ``stop`` ends it."""
+
+    def __init__(self, args):
+        base = os.path.join(HERE, "reth_tpu_torch", "build")
+        os.makedirs(base, exist_ok=True)
+        self.out = os.path.join(base, f"merkle-twin-{os.getpid()}.json")
+        self.log = self.out[:-5] + ".log"
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--merkle-twin", self.out,
+                 "--accounts", str(args.accounts), "--slots", str(args.slots),
+                 "--seed", str(args.seed + 3)], stdout=f, stderr=subprocess.STDOUT, cwd=HERE)
+        self.t0 = time.perf_counter()
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        with open(self.log) as f:
+            for line in f.read().splitlines():
+                log(f"  (twin) {line}")
+        if rc != 0:
+            raise AssertionError(f"the merkle twin's child process exited {rc}")
+        with open(self.out) as f:
+            res = json.load(f)
+        for path in (self.out, self.log):
+            os.remove(path)
+        log(f"merkle twin: child process done after {time.perf_counter() - self.t0:.1f} s "
+            f"(waited {time.perf_counter() - t0:.1f} s for it)")
+        return res
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class TimedStage:
+    """A stage as the pipeline sees it (``id``, ``execute``, ``unwind``),
+    timing each call into ``rows``: the stage, the iteration's kind (for
+    MerkleStage, read from its progress blob before and after: "start",
+    "storage chunk", "storage done", "account chunk", "account chunk +
+    stitch", "incremental" or "single-shot"), its wall, and the turbo
+    commit's pipeline stage times and hashed nodes when it made one."""
+
+    def __init__(self, stage, rows: list):
+        self.stage, self.id, self.rows = stage, stage.id, rows
+
+    def _kind(self, before, after, inp) -> str:
+        if self.id != "MerkleExecute":
+            return "clean" if inp.checkpoint == 0 else "incremental"
+        if before is None:
+            if after is not None:
+                return "start"
+            return "single-shot" if inp.checkpoint == 0 else "incremental"
+        if before[:1] == b"S":
+            return "storage chunk" if after[:1] == b"S" else "storage done"
+        return "account chunk" if after is not None else "account chunk + stitch"
+
+    def execute(self, provider, inp):
+        import torch
+
+        from reth_tpu_torch.metrics import pipeline_metrics, trie_metrics
+
+        pipeline_metrics.last = trie_metrics.last = None
+        before = provider.stage_progress("MerkleExecute")
+        t0 = time.perf_counter()
+        out = self.stage.execute(provider, inp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kind = self._kind(before, provider.stage_progress("MerkleExecute"), inp)
+        self.rows.append(dict(stage=self.id, kind=kind, wall_s=round(wall, 4),
+                              commit=pipeline_metrics.last,
+                              nodes=(trie_metrics.last or {}).get("nodes", 0)))
+        return out
+
+    def unwind(self, provider, inp):
+        t0 = time.perf_counter()
+        self.stage.unwind(provider, inp)
+        self.rows.append(dict(stage=self.id, kind="unwind",
+                              wall_s=round(time.perf_counter() - t0, 4)))
+
+
+class MerkleCell:
+    """The MerkleStage path on a port ``MemDb``: ``plain_state(n_accounts,
+    n_slots, seed)`` loaded into PlainAccountState / PlainStorageState with
+    headers 0 and 1, driven by ``Pipeline(factory, [MerkleUnwindStage(c),
+    AccountHashingStage(c), StorageHashingStage(c), MerkleStage(c)])`` with
+    ``c = TrieCommitter(device="cuda")`` (kernel 1 through KeccakDevice;
+    the rebuild's TurboCommitter on "device", kernels 2 and 3). Each
+    header's root and each block's tables come from the CPU twin
+    (``twin``, ``merkle_twin``'s result)."""
+
+    def __init__(self, n_accounts: int, n_slots: int, seed: int, twin: dict):
+        from reth_tpu_torch.primitives.types import Header
+        from reth_tpu_torch.stages import (AccountHashingStage, MerkleStage, MerkleUnwindStage,
+                                           StorageHashingStage)
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+        from reth_tpu_torch.trie.committer import TrieCommitter
+
+        self.db = MemDb()
+        self.factory = ProviderFactory(self.db)
+        self.blocks = merkle_state(n_accounts, n_slots, seed, self.factory)
+        with self.factory.provider() as p:
+            self.n_accounts = p.tx.entry_count("PlainAccountState")
+            self.n_slots = p.tx.entry_count("PlainStorageState")
+        self.twin = {int(b): t for b, t in twin["tables"].items()}
+        self.headers = {int(b): Header(number=int(b), state_root=bytes.fromhex(r))
+                        for b, r in twin["roots"].items()}
+        with self.factory.provider_rw() as p:
+            p.insert_header(self.headers[1])
+        self.snapshots = {0: self.db._tables}
+        self.committer = TrieCommitter(device="cuda")
+        self.merkle = MerkleStage(self.committer)
+        self.rows: list[dict] = []
+        self.stages = [TimedStage(s, self.rows) for s in (
+            MerkleUnwindStage(self.committer), AccountHashingStage(self.committer),
+            StorageHashingStage(self.committer), self.merkle)]
+
+    def pipeline(self):
+        from reth_tpu_torch.stages import Pipeline
+
+        return Pipeline(self.factory, self.stages)
+
+    def check(self, tables, block: int, what: str) -> None:
+        """``tables`` (a published table map of the card's database) equal,
+        row for row, to the twin's at ``block``."""
+        from reth_tpu_torch.storage import MemDb
+
+        db = MemDb()
+        db._tables = tables
+        got, want = table_digests(db), self.twin[block]
+        if got != want:
+            raise AssertionError(f"merkle cell, {what}: the card's tables differ from the "
+                                 f"twin's at block {block}: {got} against {want}")
+        log(f"merkle cell, {what}: every row of " + ", ".join(
+            f"{name} ({want[name][0]})" for name in MERKLE_TABLES) + " equals the twin's "
+            f"(block {block})")
+
+    def report(self, what: str, rows: list) -> None:
+        """Each stage iteration's wall and kind, each commit's stage times;
+        the hashing stages' keys/s and the rebuild's hashed nodes/s."""
+        for r in rows:
+            line = f"merkle cell, {what}: {r['stage']} {r['kind']} {r['wall_s']:.4f} s"
+            if r.get("commit"):
+                c = r["commit"]
+                line += (f"; commit {c['wall_s']} s = sweep {c['sweep_s']} (summed over the sweep "
+                         f"threads) / pack {c['pack_s']} / dispatch {c['dispatch_s']} / fetch "
+                         f"{c['fetch_s']} s, {c['windows']} windows, {c['jobs']} subtries, "
+                         f"hashed by {c['backend']}, {r['nodes']} hashed nodes")
+            log(line)
+        walls: dict[str, float] = {}
+        for r in rows:
+            walls[r["stage"]] = walls.get(r["stage"], 0.0) + r["wall_s"]
+        extra = ""
+        if what == "merkle stage":
+            msgs = {"AccountHashing": self.n_accounts, "StorageHashing": 2 * self.n_slots}
+            extra = ", ".join(f"{sid} {msgs[sid] / walls[sid]:.1f} keys/s" for sid in msgs)
+            nodes = sum(r.get("nodes", 0) for r in rows if r["stage"] == "MerkleExecute")
+            extra += (f", MerkleExecute {nodes} hashed nodes by the turbo commits, "
+                      f"{nodes / walls['MerkleExecute']:.1f} hashed nodes/s")
+        log(f"merkle cell, {what}: stage walls " + ", ".join(
+            f"{sid} {w:.3f} s" for sid, w in walls.items()) + (f"; {extra}" if extra else ""))
+
+    def drive_stage(self) -> None:
+        """Path "merkle stage": ``Pipeline.run(1)`` from checkpoint 0: the
+        two hashing stages' clean scans, then the chunked rebuild."""
+        self.pipeline().run(1)
+
+    def check_stage(self) -> None:
+        with self.factory.provider() as p:
+            checkpoints = {s.id: p.stage_checkpoint(s.id) for s in self.stages}
+            blob = p.stage_progress("MerkleExecute")
+        if set(checkpoints.values()) != {1} or blob is not None or self.merkle.fallbacks:
+            raise AssertionError(f"merkle stage: checkpoints {checkpoints}, progress blob "
+                                 f"{blob!r}, fallbacks {self.merkle.fallbacks}")
+        kinds = [r["kind"] for r in self.rows if r["stage"] == "MerkleExecute"]
+        if "account chunk + stitch" not in kinds or "storage chunk" not in kinds:
+            raise AssertionError(f"merkle stage did not take the chunked route: {kinds}")
+        self.snapshots[1] = self.db._tables
+        self.check(self.snapshots[1], 1, "merkle stage")
+        log(f"merkle stage: checkpoints {json.dumps(checkpoints)}, progress blob cleared, "
+            f"0 fallbacks, iterations {kinds}")
+
+    def drive_incremental(self) -> dict:
+        """Path "merkle incremental": each block's writes with its changesets
+        and header (its own wall), then ``Pipeline.run(b)`` (the incremental
+        route: the span is under the threshold); then ``Pipeline.unwind(1)``.
+        The database after each step is kept (``after``) for ``check``."""
+        import torch
+
+        from _torch_helpers import apply_stage_block
+
+        walls = {}
+        self.after = {}
+        for b in MERKLE_BLOCKS:
+            t0 = time.perf_counter()
+            apply_stage_block(self.factory, self.blocks[b], b, self.headers[b])
+            t1 = time.perf_counter()
+            self.pipeline().run(b)
+            torch.cuda.synchronize()
+            walls[f"block {b}"] = time.perf_counter() - t1
+            walls[f"block {b} writes"] = t1 - t0
+            self.after[b] = self.db._tables
+        t0 = time.perf_counter()
+        self.pipeline().unwind(1)
+        torch.cuda.synchronize()
+        walls["unwind to 1"] = time.perf_counter() - t0
+        self.after["unwind"] = self.db._tables
+        return walls
+
+    def check_incremental(self) -> None:
+        for b in MERKLE_BLOCKS:
+            self.check(self.after[b], b, f"merkle incremental, block {b}")
+        self.check(self.after["unwind"], 1, "merkle incremental, unwind to 1")
+
+    def restore(self, n: int) -> None:
+        """The card database as it was at snapshot ``n`` (0: before "merkle
+        stage"; 1: block 1, before "merkle incremental")."""
+        self.db._tables = self.snapshots[n]
+        del self.rows[:]
+
+
 # the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
 # forks imported interleaved (A1 B1 A2 B2 ...), HOT_BLOCKS blocks a fork,
 # each of HOT_WRITES writes (half of them keys of the fork's previous block)
 # and HOT_DELETES deletes (the shape of bench.py's hotstate mode, at the trie
 # level)
-HOT_ACCOUNTS, HOT_BLOCKS, HOT_WRITES, HOT_DELETES = 262_144, 4, 2048, 128
+HOT_ACCOUNTS, HOT_BLOCKS, HOT_WRITES, HOT_DELETES = 262_144, 2, 2048, 128
 HOT_NEW = 128  # of each block's writes, keys new to the fork (inserts)
 
 
@@ -1546,7 +1919,7 @@ def hot_tip_setup():
     from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
 
     log(f"hot tip: {HOT_BLOCKS} blocks a fork (cut from 8 to 4 to make room for the control "
-        f"plane's phases inside the time limit)")
+        f"plane's phases, and to 2 for the MerkleStage cell's, inside the time limit)")
     t0 = time.perf_counter()
     genesis, keys = hot_genesis()
     log(f"hot tip: genesis account trie of {len(keys)} keys built and hashed on the CPU in "
@@ -2151,7 +2524,7 @@ def control_drills() -> list[dict]:
     return out
 
 
-def slice_phase(args, storage_jobs, account_jobs, sup):
+def slice_phase(args, storage_jobs, account_jobs, sup, twin):
     """The main paths (``PATHS``), each with the launch counts zeroed just
     before it and read just after; the supervised ones ("auto", "auto k=8",
     "state_root auto") through ``sup``. Returns the launch counts of each
@@ -2261,7 +2634,21 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
         service_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
                         for name in SERVICE_SPARSE_PATHS}
         got["rebuild leased"] = rebuild_leased(run_path, rebuild, leased, svc_rebuild)
+        # the MerkleStage path, its state built outside the paths, its twin in
+        # the child process started with the smoke
         recorder.path = None
+        merkle = MerkleCell(args.accounts, args.slots, args.seed + 3, twin.result())
+        run_path("merkle stage", merkle.drive_stage)
+        log(f"main path merkle stage: {walls.pop('merkle stage'):.3f} s wall")
+        merkle.report("merkle stage", merkle.rows)
+        merkle.check_stage()
+        merkle.restore(1)
+        inc_walls = run_path("merkle incremental", merkle.drive_incremental)
+        log(f"main path merkle incremental: {walls.pop('merkle incremental'):.3f} s wall; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in inc_walls.items()))
+        merkle.report("merkle incremental", merkle.rows)
+        recorder.path = None
+    merkle.check_incremental()
     svc_sparse_snap = svc_sparse.snapshot()
     svc_sparse_waits = svc_sparse.lane_waits()
     svc_sparse.stop()
@@ -2419,6 +2806,12 @@ def slice_phase(args, storage_jobs, account_jobs, sup):
     profile_path("hot tip block", hot.block,
                  focus=("reveal_through", "harvest", "reveal_at", "lookup", "commit",
                         "keccak256"))
+    profile_path("merkle stage", merkle.drive_stage, prepare=lambda: merkle.restore(0),
+                 focus=("_storage_chunk", "_account_chunk", "_commit_subtries", "hash_batch",
+                        "commit_hashed_pipelined"))
+    profile_path("merkle incremental", merkle.drive_incremental,
+                 prepare=lambda: merkle.restore(1),
+                 focus=("_incremental", "compute", "hash_batch", "_scan_account_leaves"))
     return launches, recorder, hot
 
 
@@ -2888,13 +3281,22 @@ def profile_path(label: str, drive, prepare=None, focus=()) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--accounts", type=int, default=1_000_000)
-    ap.add_argument("--slots", type=int, default=400_000)
-    ap.add_argument("--state-accounts", type=int, default=100_000)
-    ap.add_argument("--state-slots", type=int, default=40_000)
+    ap.add_argument("--accounts", type=int, default=1_000_000,
+                    help="the MerkleStage cell's accounts")
+    ap.add_argument("--slots", type=int, default=400_000, help="the MerkleStage cell's slots")
+    ap.add_argument("--rebuild-accounts", type=int, default=250_000,
+                    help="the rebuild paths' accounts (cut from 1,000,000)")
+    ap.add_argument("--rebuild-slots", type=int, default=100_000,
+                    help="the rebuild paths' slots (cut from 400,000)")
+    ap.add_argument("--state-accounts", type=int, default=50_000,
+                    help="the state_root paths' accounts (cut from 100,000)")
+    ap.add_argument("--state-slots", type=int, default=20_000,
+                    help="the state_root paths' slots (cut from 40,000)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--warmup-child", metavar="DIR", default=None,
                     help="internal: one warm-up run on the compile cache under DIR")
+    ap.add_argument("--merkle-twin", metavar="OUT", default=None,
+                    help="internal: the MerkleStage cell's CPU twin, its result to OUT")
     args = ap.parse_args()
 
     import torch
@@ -2905,6 +3307,8 @@ def main() -> int:
     if args.warmup_child is not None:
         return warmup_child(args.warmup_child)
     sys.path.insert(0, HERE)
+    if args.merkle_twin is not None:
+        return merkle_twin(args.accounts, args.slots, args.seed, args.merkle_twin)
     from reth_tpu_torch.device import resolve
     from reth_tpu_torch.ops import _build
     from reth_tpu_torch.trie import turbo
@@ -2917,6 +3321,18 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build(srcs)
     log(f"built {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
+    twin = MerkleTwin(args)
+    try:
+        return smoke(args, t_start, srcs, paths, twin)
+    finally:
+        twin.stop()
+
+
+def smoke(args, t_start: float, srcs, paths, twin) -> int:
+    """Everything after the build: the checks, the main paths, the timings
+    and the drills (``twin``: the MerkleStage cell's twin, running)."""
+    import torch
+
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
     for s, p in zip(srcs[:2], paths[:2]):
         log_path = p.with_name(p.name + ".log")
@@ -2926,15 +3342,17 @@ def main() -> int:
     warmup_phase()
 
     if args.accounts != 1_000_000 or args.slots != 400_000:
-        log(f"size cut: {args.accounts} accounts / {args.slots} slots "
+        log(f"size cut: the MerkleStage cell at {args.accounts} accounts / {args.slots} slots "
             f"(the slice's size is 1,000,000 / 400,000)")
+    log(f"the rebuild paths at {args.rebuild_accounts} accounts / {args.rebuild_slots} slots "
+        f"(cut from 1,000,000 / 400,000, which the MerkleStage cell keeps)")
     t0 = time.perf_counter()
-    storage_jobs, account_jobs = build_state(args.accounts, args.slots, args.seed)
+    storage_jobs, account_jobs = build_state(args.rebuild_accounts, args.rebuild_slots, args.seed)
     log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
     sup = supervisor_startup()
     probe, check1 = kernel_checks(args, account_jobs, bound)
-    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup)
+    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup, twin)
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         if r["name"] == "subtrie_levels":

@@ -135,12 +135,16 @@ class TrieCommitter:
         seam for the mesh, not ported, and raises ``NotImplementedError``."""
         if mesh is not None:
             raise NotImplementedError("TrieCommitter(mesh=...) is not ported yet")
+        # the card this committer hashes on, checked when it hashes there;
+        # the rebuilds built from it (stages/merkle.py) run on it too
+        self.device = (resolve(device) if fused or hasher is None
+                       else torch.device(device))
         self.fused = fused
         self.supervisor = supervisor
         self.warmup = warmup
         self._engine = None
         if fused:
-            dev = resolve(device)
+            dev = self.device
             if supervisor is not None:
                 self._engine = SupervisedBackend(
                     supervisor, lambda: FusedLevelEngine(min_tier=min_tier, device=dev), device=dev)
@@ -222,16 +226,7 @@ class TrieCommitter:
         roots_idx: list[int] = []
         results = [TrieBuildResult(root=EMPTY_ROOT_HASH) for _ in jobs]
         for leaves, boundaries in jobs:
-            items: list[tuple[Nibbles, int, object]] = [(p, LEAF, v) for p, v in leaves]
-            for p, h in (boundaries or {}).items():
-                items.append((p, OPAQUE, h if isinstance(h, tuple) else (h, True)))
-            items.sort(key=lambda t: t[0])
-            for i in range(1, len(items)):
-                a, b = items[i - 1][0], items[i][0]
-                if a == b or (
-                    len(a) < len(b) and b[: len(a)] == a and items[i - 1][1] == OPAQUE
-                ):
-                    raise ValueError(f"conflicting trie items at {a.hex()}/{b.hex()}")
+            items = self._items(leaves, boundaries)
             if not items:
                 arenas.append(None)
                 roots_idx.append(-1)
@@ -260,10 +255,40 @@ class TrieCommitter:
                 self._collect_branches(arena, result)
         return results
 
+    def collapses(self, leaves: list[tuple[Nibbles, bytes]],
+                  boundaries: dict[Nibbles, bytes] | None) -> list[Nibbles]:
+        """Every boundary path the structure of ``leaves`` and ``boundaries``
+        collapses into, from one structure pass (no hashing). ``commit``
+        raises ``BoundaryCollapse`` at the first of them; a reveal of one
+        leaves the others as they were, so a caller may reveal them all at
+        once."""
+        items = self._items(leaves, boundaries)
+        found: list[Nibbles] = []
+        if items:
+            self._build([], items, 0, 0, len(items), b"", found)
+        return found
+
     # -- structure phase ----------------------------------------------------
 
-    def _build(self, arena, items, depth, lo, hi, at: Nibbles) -> int:
-        """Build the subtree for items[lo:hi]; all share ``at`` (= depth nibbles)."""
+    @staticmethod
+    def _items(leaves, boundaries) -> list[tuple[Nibbles, int, object]]:
+        """One job's leaves and boundaries as sorted structure items."""
+        items: list[tuple[Nibbles, int, object]] = [(p, LEAF, v) for p, v in leaves]
+        for p, h in (boundaries or {}).items():
+            items.append((p, OPAQUE, h if isinstance(h, tuple) else (h, True)))
+        items.sort(key=lambda t: t[0])
+        for i in range(1, len(items)):
+            a, b = items[i - 1][0], items[i][0]
+            if a == b or (
+                len(a) < len(b) and b[: len(a)] == a and items[i - 1][1] == OPAQUE
+            ):
+                raise ValueError(f"conflicting trie items at {a.hex()}/{b.hex()}")
+        return items
+
+    def _build(self, arena, items, depth, lo, hi, at: Nibbles, collapsed=None) -> int:
+        """Build the subtree for items[lo:hi]; all share ``at`` (= depth
+        nibbles). With a ``collapsed`` list, a collapse is recorded there
+        (the structure is then only a survey) instead of raised."""
         if hi - lo == 1:
             path, kind, payload = items[lo]
             if kind == LEAF:
@@ -276,13 +301,18 @@ class TrieCommitter:
             # A lone opaque subtree strictly below this point means the
             # surrounding structure collapsed into it — its node kind is
             # unknown, so the boundary must be revealed by the caller.
-            raise BoundaryCollapse(path)
+            if collapsed is None:
+                raise BoundaryCollapse(path)
+            collapsed.append(path)
+            arena.append(_Node(OPAQUE, at))
+            return len(arena) - 1
         # common prefix of all items below depth
         first = items[lo][0]
         last = items[hi - 1][0]  # sorted ⇒ min/max share the group prefix
         cpl = common_prefix_len(first[depth:], last[depth:])
         if cpl > 0:
-            child = self._build(arena, items, depth + cpl, lo, hi, first[: depth + cpl])
+            child = self._build(arena, items, depth + cpl, lo, hi, first[: depth + cpl],
+                                collapsed)
             arena.append(_Node(EXT, at, ext_path=first[depth : depth + cpl], child=child))
             return len(arena) - 1
         children = [-1] * 16
@@ -298,7 +328,8 @@ class TrieCommitter:
             j = i
             while j < hi and items[j][0][depth] == nib:
                 j += 1
-            children[nib] = self._build(arena, items, depth + 1, i, j, first[:depth] + bytes([nib]))
+            children[nib] = self._build(arena, items, depth + 1, i, j,
+                                        first[:depth] + bytes([nib]), collapsed)
             i = j
         arena.append(_Node(BRANCH, at, value=value, children=children))
         return len(arena) - 1

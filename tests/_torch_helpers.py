@@ -451,3 +451,111 @@ def arena_level(rng, n: int, slot0: int, srcs=()):
              if len(srcs) else None)
     return (np.frombuffer(b"".join(rows), dtype=np.uint8), row_off, row_len,
             np.arange(slot0, slot0 + n, dtype=np.int32), holes, 2)
+
+
+# -- the commitment stages' state and blocks (stages/, storage/) ---------------
+
+# one block after the clean rebuild: accounts rewritten (of them new), accounts
+# deleted together with their storage, slot writes over owners (of them set to
+# zero); chip_smoke.py's size, and a small one for the CPU tests
+STAGE_BLOCK = dict(accounts=2048, new=128, wiped=16, slots=4096, owners=512, zeroed=256)
+STAGE_BLOCK_SMALL = dict(accounts=24, new=4, wiped=2, slots=48, owners=8, zeroed=4)
+
+
+def stage_state(account_cls, n_accounts: int, n_slots: int, seed: int):
+    """Plain state: ``n_accounts`` random 20-byte addresses with
+    ``account_cls`` accounts, and ``n_slots`` slots spread over the first
+    ``n_accounts // 10`` (chip_smoke.py's ``plain_state``). Returns
+    (accounts by address, {owner: {slot: value}})."""
+    rng = np.random.default_rng(seed)
+    addrs = [bytes(a) for a in rng.integers(0, 256, size=(n_accounts, 20), dtype=np.uint8)]
+    balances = rng.integers(1, 1 << 60, size=n_accounts)
+    accounts = {a: account_cls(nonce=i % 300, balance=int(balances[i]))
+                for i, a in enumerate(addrs)}
+    owners = addrs[: max(1, n_accounts // 10)]
+    slots = rng.integers(0, 256, size=(n_slots, 32), dtype=np.uint8)
+    values = rng.integers(1, 1 << 60, size=n_slots)
+    storages: dict[bytes, dict[bytes, int]] = {}
+    for k in range(n_slots):
+        storages.setdefault(owners[k % len(owners)], {})[bytes(slots[k])] = int(values[k])
+    return accounts, storages
+
+
+def load_stage_state(factory, accounts: dict, storages: dict, header) -> None:
+    """The plain state into PlainAccountState / PlainStorageState through
+    the provider, with ``header`` (block 0)."""
+    with factory.provider_rw() as p:
+        for addr, acc in accounts.items():
+            p.put_account(addr, acc)
+        for addr, slots in storages.items():
+            for slot, value in slots.items():
+                p.put_storage(addr, slot, value)
+        p.insert_header(header)
+
+
+def stage_block(accounts: dict, storages: dict, b: int, seed: int, account_cls,
+                sizes: dict = STAGE_BLOCK):
+    """Block ``b``'s writes, seeded, on the plain state as the blocks before
+    left it, ``accounts`` and ``storages`` (a mirror, updated here): ``sizes
+    ["accounts"]`` accounts rewritten, ``sizes["new"]`` of them new;
+    ``sizes["wiped"]`` owners deleted with their storage; ``sizes["slots"]``
+    slot writes over ``sizes["owners"]`` other owners, the first
+    ``sizes["zeroed"]`` setting an existing slot to zero. Returns (account
+    writes [(addr, prev, new)], slot writes [(addr, slot, prev, new)], wiped
+    addresses); a deleted account's new is None, a new one's prev None."""
+    rng = np.random.default_rng(seed * 1000 + b)
+    owners = [a for a in storages if a in accounts and storages[a]]
+    live = list(accounts)
+    picks = rng.choice(len(owners), size=sizes["wiped"] + sizes["owners"], replace=False)
+    wiped = [owners[i] for i in picks[:sizes["wiped"]]]
+    writers = [owners[i] for i in picks[sizes["wiped"]:]]
+    n_old = sizes["accounts"] - sizes["new"]
+    rewritten = [live[i] for i in rng.choice(len(live), size=n_old + sizes["wiped"],
+                                             replace=False) if live[i] not in wiped][:n_old]
+    new = [bytes(a) for a in rng.integers(0, 256, size=(sizes["new"], 20), dtype=np.uint8)]
+    balances = rng.integers(1, 1 << 60, size=sizes["accounts"])
+    acct_writes = [(a, accounts.get(a), account_cls(nonce=b, balance=int(v)))
+                   for a, v in zip(rewritten + new, balances)]
+    acct_writes += [(a, accounts[a], None) for a in wiped]
+    slot_writes = []
+    for k in range(sizes["slots"]):
+        owner = writers[k % sizes["owners"]]
+        slots = storages[owner]
+        if k < sizes["zeroed"]:
+            slot = min(slots)
+            value = 0
+        else:
+            slot = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
+            value = int(rng.integers(1, 1 << 60))
+        slot_writes.append((owner, slot, slots.get(slot, 0), value))
+        if value:
+            slots[slot] = value
+        else:
+            slots.pop(slot)
+    for a in wiped:
+        slot_writes += [(a, slot, v, 0) for slot, v in sorted(storages.pop(a).items())]
+    for a, _prev, acc in acct_writes:
+        if acc is None:
+            accounts.pop(a)
+        else:
+            accounts[a] = acc
+    return acct_writes, slot_writes, wiped
+
+
+def apply_stage_block(factory, block, b: int, header=None, convert=lambda acc: acc) -> None:
+    """Block ``b``'s plain-state writes with their changesets
+    (``record_account_change`` / ``record_storage_change``), a wiped
+    account's storage cleared with it, and ``header`` when given.
+    ``convert`` maps the block's accounts onto the provider's account type."""
+    acct_writes, slot_writes, wiped = block
+    with factory.provider_rw() as p:
+        for addr, prev, acc in acct_writes:
+            p.record_account_change(b, addr, None if prev is None else convert(prev))
+            p.put_account(addr, None if acc is None else convert(acc))
+        for addr, slot, prev, value in slot_writes:
+            p.record_storage_change(b, addr, slot, prev)
+            p.put_storage(addr, slot, value)
+        for addr in wiped:
+            p.clear_account_storage(addr)
+        if header is not None:
+            p.insert_header(header)

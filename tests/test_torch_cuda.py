@@ -524,3 +524,69 @@ def test_failed_build_raises_from_service_and_warmup_on_card(monkeypatch, tmp_pa
     with pytest.raises(_build.BuildError):
         mgr.run()
     assert mgr.wedges == 0 and pw.FAILED not in mgr.states.values()
+
+
+@pytest.mark.cuda
+def test_commitment_stages_on_card(monkeypatch):
+    """The four commitment stages (MerkleUnwind, AccountHashing,
+    StorageHashing, MerkleStage, in default_stages' order) on the card at
+    20,000 accounts / 8,000 slots, chunked at 9,000 leaves: every row of the
+    four hashed and trie tables equal to the numpy twin's (hashing stages,
+    then the single-shot rebuild), keccak256_absorb, packed_level and
+    branch_level launched and subtrie_levels not, 0 fallbacks; then one
+    incremental block and its unwind, each against the twin."""
+    from _torch_helpers import apply_stage_block, load_stage_state, stage_block, stage_state
+
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.primitives.types import Header
+    from reth_tpu_torch.stages import (AccountHashingStage, MerkleStage, MerkleUnwindStage,
+                                       Pipeline, StorageHashingStage)
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.trie.incremental import full_state_root_turbo
+
+    require_card()
+    monkeypatch.delenv("RETH_TPU_SUBTRIE_LEVELS", raising=False)
+    tables = ("HashedAccounts", "HashedStorages", "AccountsTrie", "StoragesTrie")
+    accounts, storages = stage_state(Account, 20_000, 8_000, seed=45)
+    db, twin_db = MemDb(), MemDb()
+    card, twin = ProviderFactory(db), ProviderFactory(twin_db)
+    load_stage_state(card, accounts, storages, Header(number=0))
+    twin_db._tables = dict(db._tables)
+    tc = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    tc.turbo_backend = "numpy"
+    hashing = [AccountHashingStage(tc), StorageHashingStage(tc)]
+    Pipeline(twin, hashing).run(1)
+    with twin.provider_rw() as p:
+        header = Header(number=1, state_root=full_state_root_turbo(p, backend="numpy"))
+        p.insert_header(header)
+    with card.provider_rw() as p:
+        p.insert_header(header)
+    c = TrieCommitter(device="cuda")
+    merkle = MerkleStage(c, chunk_leaves=9_000)
+    stages = [MerkleUnwindStage(c), AccountHashingStage(c), StorageHashingStage(c), merkle]
+    wrappers = (tk.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    before = [w.launches for w in wrappers]
+    Pipeline(card, stages).run(1)
+    torch.cuda.synchronize()
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert all(launched[:3]) and launched[3] == 0, launched
+    assert merkle.fallbacks == 0
+    with card.provider() as p:
+        assert [p.stage_checkpoint(s.id) for s in stages] == [1, 1, 1, 1]
+        assert p.stage_progress(MerkleStage.id) is None
+    for name in tables:
+        assert db._tables[name] == twin_db._tables[name], name
+    at_block_1 = twin_db._tables
+    block = stage_block(accounts, storages, 2, 45, Account)
+    apply_stage_block(twin, block, 2)
+    Pipeline(twin, hashing).run(2)
+    with twin.provider_rw() as p:
+        header = Header(number=2, state_root=MerkleStage(tc)._incremental(p, 2, 2))
+        p.insert_header(header)
+    apply_stage_block(card, block, 2, header)
+    Pipeline(card, stages).run(2)
+    for name in tables:
+        assert db._tables[name] == twin_db._tables[name], name
+    Pipeline(card, stages).unwind(1)
+    for name in tables:
+        assert db._tables[name] == at_block_1[name], name

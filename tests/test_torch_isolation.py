@@ -22,6 +22,10 @@ from reth_tpu_torch.ops import hash_service as ths
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.ops import supervisor as tsup
 from reth_tpu_torch.ops import warmup as tw
+from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+from reth_tpu_torch.stages import hashing as thashing
+from reth_tpu_torch.stages import merkle as tmerkle
+from reth_tpu_torch.trie import incremental as tinc
 from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie.committer import TrieCommitter
@@ -53,7 +57,13 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.convert", "reth_tpu_torch.primitives.types",
                 "reth_tpu_torch.trie.sparse", "reth_tpu_torch.metrics", "reth_tpu_torch.tracing",
                 "reth_tpu_torch.ops.supervisor", "reth_tpu_torch.trie.hot_cache",
-                "reth_tpu_torch.ops.warmup", "reth_tpu_torch.ops.hash_service"):
+                "reth_tpu_torch.ops.warmup", "reth_tpu_torch.ops.hash_service",
+                "reth_tpu_torch.storage", "reth_tpu_torch.storage.kv",
+                "reth_tpu_torch.storage.tables", "reth_tpu_torch.storage.provider",
+                "reth_tpu_torch.etl", "reth_tpu_torch.trie.naive",
+                "reth_tpu_torch.trie.incremental", "reth_tpu_torch.stages",
+                "reth_tpu_torch.stages.api", "reth_tpu_torch.stages.hashing",
+                "reth_tpu_torch.stages.merkle"):
         assert mod in res["modules"]
 
 
@@ -81,7 +91,10 @@ def test_sources_name_no_jax_import():
     tsp.ParallelSparseCommitter.__init__, tsp.SparseTrie.root_hash_compute,
     tsp.SparseStateTrie.root, tsp.device_hasher, tsup.SupervisedBackend.__init__,
     tsup.SupervisedHasher.__init__, ths.HashService.__init__, tw.WarmupManager.__init__,
-    tw.build_shape,
+    tw.build_shape, tmerkle.MerkleStage.__init__, tmerkle.MerkleUnwindStage.__init__,
+    thashing.AccountHashingStage.__init__, thashing.StorageHashingStage.__init__,
+    tinc.IncrementalStateRoot.__init__, tinc.full_state_root, tinc.full_state_root_turbo,
+    tinc.verify_state_root,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -100,6 +113,13 @@ def test_cuda_without_a_card_raises():
         TrieCommitter()
     with pytest.raises(RuntimeError):
         tsp.ParallelSparseCommitter()
+    # the commitment stages: their committer and their rebuild on the card
+    for stage in (tmerkle.MerkleStage, tmerkle.MerkleUnwindStage,
+                  thashing.AccountHashingStage, thashing.StorageHashingStage):
+        with pytest.raises(RuntimeError):
+            stage()
+    with pytest.raises(RuntimeError):
+        tmerkle.MerkleStage(TrieCommitter(hasher=keccak256_batch_np))._turbo_committer()
     sup = tsup.DeviceSupervisor(probe_fn=lambda budget, injector=None: None)
     with pytest.raises(RuntimeError):
         TurboCommitter(backend="auto", supervisor=sup)
@@ -114,3 +134,19 @@ def test_cuda_without_a_card_raises():
         tw.build_warmup(registry=MetricsRegistry())
     with pytest.raises(ValueError):
         resolve("meta")
+
+
+def test_merkle_stage_rebuilds_on_the_device_route():
+    """A stage with no committer, or with one that sets no turbo_backend,
+    runs its rebuild on TurboCommitter(backend="device") on the committer's
+    card; turbo_backend="numpy" is the twin on request only."""
+    stage = tmerkle.MerkleStage(device="cpu")
+    assert stage.committer.device == torch.device("cpu")
+    turbo = stage._turbo_committer()
+    assert turbo.backend_kind == "device" and turbo.device == torch.device("cpu")
+    kw = tmerkle.MerkleStage(TrieCommitter(hasher=keccak256_batch_np))._turbo_kw()
+    assert (kw["backend"], kw["device"]) == ("device", torch.device("cuda"))
+    twin = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    twin.turbo_backend = "numpy"
+    assert tmerkle.MerkleStage(twin)._turbo_committer().backend_kind == "numpy"
+    assert stage.fallbacks == 0
