@@ -51,7 +51,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, eighteen main paths, the launch counters zeroed just before
+3. Slice phase, twenty-three main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -151,6 +151,35 @@
    writes timed apart) through Pipeline.run(2), run(3) (the incremental
    route, kernel 1 only) and Pipeline.unwind(1), the four tables after each
    step equal to the twin's at that block (block 1's after the unwind).
+   Then the live tip on the same database (LiveTip): blocks 2 and 3 as
+   BlockExecutionOutputs of the cell's own writes, each block's keys
+   streamed through SparseRootTask.on_state_update in LIVE_BURSTS (256)
+   seeded bursts, proved on a ProofWorkerPool (sparse_worker_count workers,
+   a fresh read view of the parent's published tables each: block 1 for
+   block 2, the incremental route's block 2 for block 3), revealed and
+   finished: "live tip", block 2 cold with a TrieNodeCache and a
+   DigestArena (kernels 1 and 4), preserved and absorbed; "live tip
+   cached", block 3 anchored cold on a fresh preserved trie, unblinding
+   from path 1's cache (cache_unblinds > 0), a fresh arena; "live tip
+   reused", block 3 on path 1's preserved trie (reused), cache and arena,
+   absorbed; "live tip service", block 3 cold through a HashService set up
+   as the reference's node sets it up (the committer's KeccakDevice as its
+   backend, its hasher the live lane's client), the classic finish, kernel
+   1 on the dispatcher (the live and proof lanes both move, no replay, and
+   "live tip cached" asks fewer proof targets); "proofs", a
+   ProofWorkerPool of 4 over block 1 answering 1,024 seeded targets (768
+   existing accounts, 256 of them storage owners with all their slots and
+   an absent slot each; 256 absent addresses), every proof verified against
+   header 1's root and the first 64 byte-identical to a host
+   ProofCalculator's (numpy hasher). Each block's root must be its header's
+   (the twin's), its exported branch updates written back onto the
+   parent's tables must leave AccountsTrie and StoragesTrie equal to the
+   incremental route's after the block, its storage roots HashedAccounts';
+   a SparseRootError fails the run and logs its cause; path 1's arena ends
+   with no fault, no leaked row and no pinned staging. Each block's walls
+   (hash, proof, reveal, finish, worker busy), proof targets, cache
+   unblinds, proof shards, finish retries, proof batches and launches are
+   logged.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -158,9 +187,12 @@
 4. For each main path, two more runs after the launch counts were read
    (the hot tip: two more blocks of its cached lineage; "merkle stage" from
    the database as the path found it, "merkle incremental" from block 1,
+   the live tip: block 2 on a fresh lineage of path 1's kind,
    each restored from a kept table map, which a MemDb publishes immutable):
    one under torch.profiler (the card's busy time, its host-to-device copy
-   time and idle share), one under cProfile (the host's time by function).
+   time and idle share), one under cProfile (the host's time by function;
+   "merkle stage" has no cProfile run since the live tip came: no room in
+   the time limit).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
@@ -171,9 +203,12 @@
    splice_level on the reference's padded layout; keccak256_absorb once more
    at the sparse finish's launches, the "sparse_absorb" row, and
    subtrie_levels at the fused finish's, the "sparse_subtrie" row, and at
-   the arena's, the "arena_subtrie" row, each chunk replayed on a copy of
-   the digest buffer as its launch found it, rows of earlier epochs
-   resident), its
+   the arena's, the "arena_subtrie" row, and keccak256_absorb and
+   subtrie_levels at the live tip's launches, the "live_tip_absorb" and
+   "live_tip_subtrie" rows; the arena's and the live tip's chunks are
+   replayed on a copy of the digest buffer as their launch found it, rows of
+   earlier epochs resident, and the live_tip_subtrie row has no step
+   breakdown and times its plain version once), its
    launch with the most rows and its launch at the median row count (for
    subtrie_levels, the chunk with the most rows over its levels and the
    median one), replayed on a random digest buffer, bit for bit against the
@@ -764,7 +799,8 @@ KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
 PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", "sparse",
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
-         "merkle incremental")
+         "merkle incremental", "live tip", "live tip cached", "live tip reused",
+         "live tip service", "proofs")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -777,7 +813,11 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "sparse service k=8": ("subtrie_levels",),
                 "rebuild leased": ("packed_level", "branch_level"),
                 "merkle stage": ("keccak256_absorb", "packed_level", "branch_level"),
-                "merkle incremental": ("keccak256_absorb",)}
+                "merkle incremental": ("keccak256_absorb",),
+                "live tip": ("keccak256_absorb", "subtrie_levels"),
+                "live tip cached": ("keccak256_absorb", "subtrie_levels"),
+                "live tip reused": ("keccak256_absorb", "subtrie_levels"),
+                "live tip service": ("keccak256_absorb",), "proofs": ("keccak256_absorb",)}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -788,11 +828,15 @@ DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 # the rows that time a kernel at another main path's launches: row -> kernel
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
               "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels",
-              "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb"}
+              "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb",
+              "live_tip_absorb": "keccak256_absorb", "live_tip_subtrie": "subtrie_levels"}
+# the rows held and timed at their two launches only: no step breakdown, and
+# the plain version (about a second a chunk) timed once
+STEPLESS_ROWS = ("live_tip_subtrie",)
 # the main paths whose kernel 4 launches keep a copy of the digest buffer as
 # it was before the launch (the arena's: rows of earlier epochs), so that the
 # timed replay starts from it
-KEEP_BUFFER_PATHS = ("sparse arena",)
+KEEP_BUFFER_PATHS = ("sparse arena", "live tip")
 # the one place the port may launch kernel 1 from
 KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
 
@@ -814,6 +858,12 @@ class _Recorded:
         self.fn.launches = value
 
     def __call__(self, *args):
+        # one launch at a time: the live tip's proof workers launch from
+        # several threads, and a wrapper's count is not locked
+        with self.recorder.lock:
+            return self._record(*args)
+
+    def _record(self, *args):
         rec = self.recorder
         if rec.path is None:  # between main paths: launch, record nothing
             return self.fn(*args)
@@ -824,7 +874,7 @@ class _Recorded:
         if self.fn.launches != before:
             if self.name == "keccak256_absorb":
                 rec.calls[rec.path][self.name].append(args)
-                caller = sys._getframe(1).f_code
+                caller = sys._getframe(2).f_code
                 rec.callers.add(f"{os.path.relpath(caller.co_filename, HERE)}:"
                                 f"{caller.co_qualname}")
             else:
@@ -853,6 +903,7 @@ class MainPathRecorder:
         self.path = PATHS[0]
         self.calls: dict[str, dict[str, list]] = {p: {k: [] for k in KERNELS} for p in PATHS}
         self.callers: set[str] = set()
+        self.lock = threading.Lock()
         self._saved: list = []
 
     def __enter__(self):
@@ -1036,6 +1087,12 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "incremental_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
                                level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
                                "reth_tpu/ops/keccak_pallas.py:96", "merkle incremental"),
+        "live_tip_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                            level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                            "reth_tpu/ops/keccak_pallas.py:96", "live tip"),
+        "live_tip_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
+                             lambda *a: subtrie_cost(bound, *a), level_src,
+                             "reth_tpu/ops/fused_commit.py:1046", "live tip"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -1090,13 +1147,14 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                 row["rows_per_block" if label == "median" else "largest_rows_per_block"] = rpb
             else:
                 ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
-            plain_ms = cuda_ms(plain, 5)
+            plain_ms = cuda_ms(plain, 1 if name in STEPLESS_ROWS else 5,
+                               warmup=0 if name in STEPLESS_ROWS else 2)
             b_ms, b_by, floor, desc = cost(*fargs)
             log(f"{name} at the main path's {label} launch ({recorder.rows(wrapper, rec)} rows, "
                 f"{desc}): bit-exact vs plain; "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"one-warp floor {floor:.4f} ms{extra}")
-            if wrapper == "subtrie_levels":
+            if wrapper == "subtrie_levels" and name not in STEPLESS_ROWS:
                 row.update(subtrie_steps(bound, fargs, b_k, ms, label, rng))
             if label == "median":
                 row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1685,6 +1743,347 @@ class MerkleCell:
         stage"; 1: block 1, before "merkle incremental")."""
         self.db._tables = self.snapshots[n]
         del self.rows[:]
+
+
+# the live tip on the MerkleStage cell's database: each block's keys (its
+# addresses and (address, slot) pairs) stream through
+# SparseRootTask.on_state_update in LIVE_BURSTS seeded bursts, one a
+# transaction; "proofs" asks PROOF_ACCOUNTS existing accounts (PROOF_OWNERS of
+# them storage owners, with all their slots and one absent slot each) and
+# PROOF_ABSENT absent addresses at block 1, the first PROOF_CHECKED targets
+# also proved on the host
+LIVE_BURSTS = 256
+PROOF_ACCOUNTS, PROOF_OWNERS, PROOF_ABSENT, PROOF_CHECKED = 768, 256, 256, 64
+LIVE_PATHS = ("live tip", "live tip cached", "live tip reused", "live tip service")
+
+
+class LiveTip:
+    """The live tip over the MerkleStage cell's database (``cell``, a
+    ``MerkleCell`` after "merkle incremental"): blocks 2 and 3 as
+    ``BlockExecutionOutput``s of the cell's own ``stage_block`` writes, each
+    proved from read views of its parent's published tables (block 1's
+    snapshot for block 2, the incremental route's block 2 for block 3; a
+    fresh view for each proof worker), revealed and finished by a
+    ``SparseRootTask`` on the card. Each block's root must be its header's
+    (the twin's); its exported branch updates, written back onto the
+    parent's tables (tests/_torch_helpers.py ``write_back_updates``), must
+    leave AccountsTrie and StoragesTrie equal, row for row, to the
+    incremental route's tables after the block, and its storage roots must
+    be those HashedAccounts holds there."""
+
+    def __init__(self, cell):
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        from _torch_helpers import stage_block_bursts, stage_block_output
+
+        from reth_tpu_torch.evm import BlockChanges, BlockExecutionOutput
+        from reth_tpu_torch.ops.fused_commit import DigestArena
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.hot_cache import TrieNodeCache
+        from reth_tpu_torch.trie.sparse import PreservedSparseTrie, sparse_worker_count
+
+        self.cell = cell
+        self.outputs = {b: stage_block_output(cell.blocks[b], BlockExecutionOutput, BlockChanges)
+                        for b in MERKLE_BLOCKS}
+        self.bursts = {b: stage_block_bursts(out, LIVE_BURSTS, seed=b)
+                       for b, out in self.outputs.items()}
+        self.parents = {2: cell.snapshots[1], 3: cell.after[2]}
+        self.workers = sparse_worker_count(None)
+        # path 1's lineage: its committer, preserved trie, node cache and arena
+        self.committer = TrieCommitter(device="cuda")
+        self.preserved = PreservedSparseTrie()
+        self.cache = TrieNodeCache()
+        self.arena = DigestArena()
+        self.results: dict[str, dict] = {}
+        out = self.outputs[2]
+        log(f"live tip: blocks {list(MERKLE_BLOCKS)}, each {len(out.post_accounts)} account "
+            f"writes ({sum(a is None for a in out.post_accounts.values())} deleted, "
+            f"{len(out.changes.wiped_storage)} storage wipes), "
+            f"{sum(len(s) for s in out.post_storage.values())} slot writes over "
+            f"{len(out.post_storage)} owners, in {LIVE_BURSTS} bursts; {self.workers} proof "
+            f"workers")
+
+    @staticmethod
+    def sync() -> None:
+        import torch
+
+        torch.cuda.synchronize()
+
+    @staticmethod
+    def view(tables):
+        """A read-only factory over a published table map."""
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+
+        db = MemDb()
+        db._tables = tables
+        return ProviderFactory(db)
+
+    def block(self, name: str, b: int, committer, preserved, cache=None, arena=None,
+              keep: bool = False) -> dict:
+        """Block ``b`` through a SparseRootTask: the proof pool over fresh
+        views of the parent's tables, the bursts, then ``finish``; the wall
+        runs from the first burst to the root. A SparseRootError fails the
+        run with its cause. With ``keep``, after the root matched: preserve
+        the trie under the header's hash and absorb into the cache."""
+        import torch
+
+        from reth_tpu_torch.engine import SparseRootError, SparseRootTask
+
+        out = self.outputs[b]
+        factory = self.view(self.parents[b])
+        parent, header = self.cell.headers[b - 1], self.cell.headers[b]
+        task = SparseRootTask(factory.provider(), parent.state_root, preserved, committer,
+                              parent_hash=parent.hash, provider_factory=factory.provider,
+                              workers=self.workers, hot_cache=cache, arena=arena)
+        self.sync()
+        t0 = time.perf_counter()
+        for burst in self.bursts[b]:
+            task.on_state_update(burst)
+        try:
+            root, digests, storage_roots = task.finish(out)
+        except SparseRootError as e:
+            cause = e.__cause__
+            log(f"live tip, {name}: SparseRootError {e}; its cause: {cause!r}")
+            raise AssertionError(f"live tip, {name}: the sparse path failed: {e} "
+                                 f"(cause {cause!r})") from e
+        self.sync()
+        wall = time.perf_counter() - t0
+        if root != header.state_root:
+            raise AssertionError(f"live tip, {name}: block {b}'s root {root.hex()} is not its "
+                                 f"header's {header.state_root.hex()} (the twin's)")
+        if keep:
+            task.preserve(header.hash)
+            task.absorb_into_cache(out, digests)
+        res = dict(name=name, b=b, task=task, wall=wall, digests=digests,
+                   storage_roots=storage_roots, updates=task.export_updates(out, digests))
+        self.results[name] = res
+        return res
+
+    def check(self, res: dict) -> None:
+        """The block's exported updates written back onto its parent's
+        tables: AccountsTrie and StoragesTrie equal to the incremental
+        route's after the block; its storage roots HashedAccounts'."""
+        from _torch_helpers import write_back_updates
+
+        name, b = res["name"], res["b"]
+        factory = self.view(self.parents[b])
+        with factory.provider_rw() as p:
+            write_back_updates(p, self.outputs[b], res["digests"], res["updates"])
+        got, want = factory.db._tables, self.cell.after[b]
+        for table in ("AccountsTrie", "StoragesTrie"):
+            if got.get(table) != want.get(table):
+                raise AssertionError(f"live tip, {name}: {table} written back from the sparse "
+                                     f"trie differs from the incremental route's at block {b}")
+        checked = 0
+        with self.view(want).provider() as p:
+            for a, sroot in res["storage_roots"].items():
+                acc = p.hashed_account(res["digests"][a])
+                if acc is not None:
+                    checked += 1
+                    if acc.storage_root != sroot:
+                        raise AssertionError(f"live tip, {name}: the storage root of {a.hex()} "
+                                             f"is not HashedAccounts' at block {b}")
+        acct, stor = res["updates"]
+        log(f"live tip, {name}: block {b}'s root is its header's; {len(acct)} account and "
+            f"{sum(len(u) for u in stor.values())} storage branch updates written back leave "
+            f"AccountsTrie ({len(want.get('AccountsTrie', {}))} rows) and StoragesTrie "
+            f"({len(want.get('StoragesTrie', {}))} keys) equal to the incremental route's; "
+            f"{checked} storage roots equal HashedAccounts'")
+
+    def report(self, res: dict, launches: dict | None = None) -> None:
+        task = res["task"]
+        m = task.overlap_metrics()
+        keys = ("hash", "proof", "reveal", "finish", "worker_busy", "proof_targets",
+                "cache_unblinds", "proof_shards")
+        log(f"live tip, {res['name']}: block {res['b']} in {res['wall']:.3f} s from the first "
+            f"burst to the root; " + ", ".join(f"{k} {m[k]}" for k in keys)
+            + f"; finish retries (spine fetches or cache unblinds) {task.retries}, proof batches "
+            f"{task.proof_batches}, reused {task.reused}"
+            + (f", launches {json.dumps(launches)}" if launches is not None else "")
+            + f"; commit {json.dumps(m.get('commit'))}")
+
+    def check_arena(self, arena, what: str) -> dict:
+        """No fault, no leaked row and no pinned staging after the arena's
+        epochs (as "sparse arena")."""
+        snap = arena.snapshot()
+        pinned = arena.engine.pinned_bytes() if arena.engine is not None else 0
+        if snap["faults"] or snap["leaked_rows"] or pinned:
+            raise AssertionError(f"live tip, {what}: the arena ends with a fault, a leaked row "
+                                 f"or pinned staging: {snap}, pinned {pinned} B")
+        log(f"live tip, {what}: arena {json.dumps(snap)}, pinned 0 B")
+        return snap
+
+    # -- the paths ------------------------------------------------------------
+
+    def cold(self) -> dict:
+        """Path "live tip": block 2 from a preserved trie holding nothing,
+        with the node cache and the arena (kernels 1 and 4); preserved and
+        absorbed once its root matched."""
+        return self.block("live tip", 2, self.committer, self.preserved, self.cache,
+                          self.arena, keep=True)
+
+    def cached(self) -> dict:
+        """Path "live tip cached": block 3 anchored cold on a fresh preserved
+        trie, unblinding from path 1's cache, on a fresh arena; no absorb."""
+        from reth_tpu_torch.ops.fused_commit import DigestArena
+        from reth_tpu_torch.trie.sparse import PreservedSparseTrie
+
+        self.cached_arena = DigestArena()
+        return self.block("live tip cached", 3, self.committer, PreservedSparseTrie(),
+                          self.cache, self.cached_arena)
+
+    def reused(self) -> dict:
+        """Path "live tip reused": block 3 on path 1's preserved trie, cache
+        and arena (a delta epoch on block 2's rows); absorbs."""
+        return self.block("live tip reused", 3, self.committer, self.preserved, self.cache,
+                          self.arena, keep=True)
+
+    def service(self) -> dict:
+        """Path "live tip service": block 3 cold through the shared hash
+        service set up as the reference's node sets it up (the committer's
+        KeccakDevice as the backend, its hasher the live lane's client; the
+        proofs ride the proof lane), no cache, no arena: the classic finish,
+        kernel 1 on the service's dispatcher."""
+        from reth_tpu_torch.metrics import MetricsRegistry
+        from reth_tpu_torch.ops.hash_service import HashService
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.sparse import PreservedSparseTrie
+
+        c = TrieCommitter(device="cuda")
+        svc = HashService(backend=c.hasher, registry=MetricsRegistry(), device="cuda")
+        c.hash_service = svc
+        c.hasher = svc.client("live")
+        try:
+            res = self.block("live tip service", 3, c, PreservedSparseTrie())
+        finally:
+            svc.stop()
+        res["lanes"] = {lane: svc.metrics._msgs[lane].value for lane in ("live", "proof")}
+        res["replays"] = svc.replays
+        return res
+
+    def profiled_block(self) -> dict:
+        """Path 1's block once more on a lineage of its own (a fresh
+        committer, preserved trie, cache and arena), for the profiles."""
+        from reth_tpu_torch.ops.fused_commit import DigestArena
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.hot_cache import TrieNodeCache
+        from reth_tpu_torch.trie.sparse import PreservedSparseTrie
+
+        return self.block("live tip (profiled)", 2, TrieCommitter(device="cuda"),
+                          PreservedSparseTrie(), TrieNodeCache(), DigestArena())
+
+    def proof_targets(self) -> dict:
+        """"proofs"' 1,024 targets at block 1, seeded and shuffled: existing
+        accounts (storage owners with all their slots and one absent slot
+        each among them) and absent addresses."""
+        tables = self.cell.snapshots[1]
+        rng = np.random.default_rng(61)
+        owner_rows = tables["PlainStorageState"]
+        owners, accounts = list(owner_rows), list(tables["PlainAccountState"])
+        picked = [owners[i] for i in rng.choice(len(owners), PROOF_OWNERS, replace=False)]
+        others = [a for a in (accounts[i] for i in rng.choice(
+            len(accounts), 2 * PROOF_ACCOUNTS, replace=False))
+            if a not in owner_rows][:PROOF_ACCOUNTS - PROOF_OWNERS]
+        targets = {a: [] for a in others}
+        for a in picked:
+            dups = owner_rows[a] if isinstance(owner_rows[a], list) else [owner_rows[a]]
+            targets[a] = [d[:32] for d in dups] + [bytes(rng.integers(0, 256, 32, np.uint8))]
+        for _ in range(PROOF_ABSENT):
+            targets[bytes(rng.integers(0, 256, 20, np.uint8))] = []
+        order = rng.permutation(len(targets))
+        items = list(targets.items())
+        return dict(items[i] for i in order)
+
+    def proofs(self) -> dict:
+        """Path "proofs": ``ProofWorkerPool`` over 4 workers, each a
+        ProofCalculator on a fresh view of block 1 and a card committer,
+        one multiproof of ``proof_targets``."""
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.proof import ProofCalculator, ProofWorkerPool
+
+        factory = self.view(self.cell.snapshots[1])
+        targets = self.proof_targets()
+        pool = ProofWorkerPool(lambda: ProofCalculator(factory.provider(),
+                                                       TrieCommitter(device="cuda")),
+                               workers=4)
+        t0 = time.perf_counter()
+        try:
+            proofs = pool.multiproof(targets)
+        finally:
+            pool.shutdown()
+        self.sync()
+        self.proof_run = dict(targets=targets, proofs=proofs, wall=time.perf_counter() - t0,
+                              shards=pool.shards_total)
+        return self.proof_run
+
+    def check_proofs(self) -> None:
+        """Every account and storage proof verifies against header 1's
+        root (absent accounts and slots as absent), and the first
+        PROOF_CHECKED targets' proofs are byte-identical to a host
+        ProofCalculator's (numpy hasher, device="cpu") on the same view."""
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.proof import (ProofCalculator, verify_account_proof,
+                                               verify_storage_proof)
+
+        run = self.proof_run
+        targets, proofs = run["targets"], run["proofs"]
+        root = self.cell.headers[1].state_root
+        t0 = time.perf_counter()
+        if sorted(proofs) != sorted(targets):
+            raise AssertionError("proofs: the pool answered other accounts than it was asked")
+        n_storage = nodes = snodes = absent = 0
+        for a, ap in proofs.items():
+            if not verify_account_proof(root, a, ap):
+                raise AssertionError(f"proofs: the account proof of {a.hex()} does not verify")
+            absent += ap.account is None
+            nodes += len(ap.proof)
+            if [sp.key for sp in ap.storage_proofs] != targets[a]:
+                raise AssertionError(f"proofs: {a.hex()}'s storage proofs are not in the "
+                                     f"request's order")
+            for sp in ap.storage_proofs:
+                n_storage += 1
+                snodes += len(sp.proof)
+                if not verify_storage_proof(ap.storage_root, sp):
+                    raise AssertionError(f"proofs: a storage proof of {a.hex()} does not verify")
+        if absent != PROOF_ABSENT:
+            raise AssertionError(f"proofs: {absent} absent accounts, {PROOF_ABSENT} asked")
+        first = dict(list(targets.items())[:PROOF_CHECKED])
+        host = ProofCalculator(self.view(self.cell.snapshots[1]).provider(),
+                               TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+        want = host.multiproof(first)
+        if any(proofs[a] != want[a] for a in first):
+            raise AssertionError(f"proofs: the first {PROOF_CHECKED} targets' proofs differ from "
+                                 f"the host ProofCalculator's")
+        log(f"proofs: {len(proofs)} account proofs ({absent} absent) and {n_storage} storage "
+            f"proofs in {run['wall']:.3f} s over {run['shards']} shards, "
+            f"{len(proofs) / run['wall']:.1f} account proofs/s, mean nodes a proof: "
+            f"{nodes / len(proofs):.2f} (account), {snodes / max(1, n_storage):.2f} (storage); "
+            f"every proof verifies against header 1's root ({time.perf_counter() - t0:.1f} s), "
+            f"the first {PROOF_CHECKED} targets' byte-identical to the host ProofCalculator's")
+
+    def finish_checks(self) -> None:
+        """The checks across paths: "live tip cached" unblinds from the
+        cache and asks fewer proof targets than "live tip service" (the same
+        block, cold, no cache); "live tip reused" reused path 1's trie;
+        "live tip service" moved the live and proof lanes with no replay;
+        path 1's arena and path 2's end clean."""
+        r = self.results
+        cached, service = r["live tip cached"]["task"], r["live tip service"]["task"]
+        if not cached.cache_unblinds or cached.proof_targets >= service.proof_targets:
+            raise AssertionError(f"live tip cached: cache_unblinds {cached.cache_unblinds}, "
+                                 f"proof_targets {cached.proof_targets} against "
+                                 f"{service.proof_targets} without the cache")
+        if not r["live tip reused"]["task"].reused or r["live tip"]["task"].reused:
+            raise AssertionError("live tip: path 3 did not reuse path 1's preserved trie")
+        lanes = r["live tip service"]["lanes"]
+        if not (lanes["live"] and lanes["proof"]) or r["live tip service"]["replays"]:
+            raise AssertionError(f"live tip service: lanes {lanes}, replays "
+                                 f"{r['live tip service']['replays']}")
+        self.check_arena(self.arena, "path 1's arena after blocks 2 and 3")
+        self.check_arena(self.cached_arena, "live tip cached's arena")
+        log(f"live tip: cached {cached.cache_unblinds} cache unblinds, {cached.proof_targets} "
+            f"proof targets against {service.proof_targets} without the cache; service lanes "
+            f"{json.dumps(lanes)}, 0 replays; reused on path 3")
 
 
 # the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
@@ -2647,8 +3046,20 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin):
         log(f"main path merkle incremental: {walls.pop('merkle incremental'):.3f} s wall; "
             + ", ".join(f"{k} {v:.3f} s" for k, v in inc_walls.items()))
         merkle.report("merkle incremental", merkle.rows)
+        # the live tip on the same database, its blocks' writes as outputs
+        recorder.path = None
+        live = LiveTip(merkle)
+        for name, drive in zip(LIVE_PATHS, (live.cold, live.cached, live.reused, live.service)):
+            res = run_path(name, drive)
+            walls.pop(name)
+            live.report(res, launches[name])
+            live.check(res)
+        run_path("proofs", live.proofs)
+        walls.pop("proofs")
         recorder.path = None
     merkle.check_incremental()
+    live.finish_checks()
+    live.check_proofs()
     svc_sparse_snap = svc_sparse.snapshot()
     svc_sparse_waits = svc_sparse.lane_waits()
     svc_sparse.stop()
@@ -2806,12 +3217,18 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin):
     profile_path("hot tip block", hot.block,
                  focus=("reveal_through", "harvest", "reveal_at", "lookup", "commit",
                         "keccak256"))
+    # its cProfile pass (114-154 s) is the first cut for room in the time limit
     profile_path("merkle stage", merkle.drive_stage, prepare=lambda: merkle.restore(0),
-                 focus=("_storage_chunk", "_account_chunk", "_commit_subtries", "hash_batch",
-                        "commit_hashed_pipelined"))
+                 host=False)
     profile_path("merkle incremental", merkle.drive_incremental,
                  prepare=lambda: merkle.restore(1),
                  focus=("_incremental", "compute", "hash_batch", "_scan_account_leaves"))
+    profile_path("live tip block", live.profiled_block,
+                 focus=("_process", "_reveal", "multiproof", "plan_subtrie", "on_spine",
+                        "_spine_nodes", "_finish_inner", "apply_output_to_trie",
+                        "spine_for_path", "storage_spine_for_path", "export_branch_updates",
+                        "_sorted_keys", "hash_batch", "keccak256"))
+    live.report(live.results["live tip (profiled)"])
     return launches, recorder, hot
 
 
@@ -3211,13 +3628,15 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
     return records
 
 
-def profile_path(label: str, drive, prepare=None, focus=()) -> None:
+def profile_path(label: str, drive, prepare=None, focus=(), host: bool = True) -> None:
     """Two more runs of a main path, after its counters were read (so
     their launches are not counted): one under torch.profiler for the
     card's busy time by kernel and copy, its host-to-device copy time and
     its idle share of the wall, one under cProfile for the host's time by
     function (and the cumulative time of the functions named in
-    ``focus``). ``prepare``, when given, runs before each, outside both. The
+    ``focus``); ``host=False`` leaves out the cProfile run (a path whose
+    run under cProfile the time limit has no room for). ``prepare``, when
+    given, runs before each, outside both. The
     profiler's kernel records are counted against the wrappers' launch
     counts; where it missed some, its device times are a lower bound."""
     import cProfile
@@ -3259,6 +3678,9 @@ def profile_path(label: str, drive, prepare=None, focus=()) -> None:
             f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
             log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
+    if not host:
+        log(f"host profile, {label}: not run (no room in the time limit)")
+        return
     if prepare is not None:
         prepare()
     prof_host = cProfile.Profile()

@@ -195,13 +195,16 @@ class SparseTrie:
 
     # -- reveal ---------------------------------------------------------------
 
-    def reveal(self, proof_nodes: list[bytes]) -> None:
+    def reveal(self, proof_nodes: list[bytes], by_hash: dict[bytes, bytes] | None = None) -> None:
         """Reveal the subtrees reachable from the current root through the
-        given proof nodes (spine nodes of one or more proofs)."""
+        given proof nodes (spine nodes of one or more proofs). ``by_hash``,
+        when given, is those nodes keyed by their keccak, hashed once by a
+        caller that reveals the same nodes into many tries."""
         if not proof_nodes:
             return
         stamp = self.stamp_reveals
-        by_hash = {keccak256(n): n for n in proof_nodes}
+        if by_hash is None:
+            by_hash = {keccak256(n): n for n in proof_nodes}
         if self.root is None or isinstance(self.root, _Blind):
             top = by_hash.get(self.root_hash)
             if top is None:
@@ -1212,11 +1215,12 @@ class SparseStateTrie:
         return st
 
     def reveal_storage(self, hashed_addr: bytes, storage_root: bytes,
-                       proof_nodes: list[bytes]) -> None:
+                       proof_nodes: list[bytes],
+                       by_hash: dict[bytes, bytes] | None = None) -> None:
         st = self.storage_tries.get(hashed_addr)
         if st is None or (st.root is None and st.root_hash != storage_root):
             st = self._new_trie(hashed_addr, storage_root)
-        st.reveal(proof_nodes)
+        st.reveal(proof_nodes, by_hash)
 
     def update_account(self, hashed_addr: bytes, account_rlp: bytes) -> None:
         self.account_trie.update(hashed_addr, account_rlp)
@@ -1262,7 +1266,10 @@ def export_branch_updates(trie: SparseTrie, changed_keys: list[bytes], old_branc
 
     ``old_branch(path)`` resolves the pre-state stored branch; it also
     carries over ``tree_mask`` bits for blinded children (their subtrees are
-    untouched by definition, so the old bit is still exact).
+    untouched by definition, so the old bit is still exact). Where the
+    branch itself is new, a blinded child's bit is whether the pre-state
+    stored a branch at the child's path. The reference leaves that bit
+    clear, which loses a stored branch under a split extension (ROADMAP C).
     """
     out: dict[bytes, BranchNode | None] = {}
     branches: dict[bytes, _Branch] = {}
@@ -1332,11 +1339,17 @@ def export_branch_updates(trie: SparseTrie, changed_keys: list[bytes], old_branc
             state_mask |= 1 << nibble
             if isinstance(c, _Blind):
                 # blinded child: its subtree is unchanged, so the old stored
-                # node's bit is still exact
+                # node's bit is still exact; a branch new at ``path`` (an
+                # insert split the extension above it) has no old node, and
+                # the blinded child a split leaves is that extension's child,
+                # a branch: stored at the child's own path
                 if not old_resolved:
                     old = old_at(path)
                     old_resolved = True
-                has_branch = bool(old is not None and (old.tree_mask >> nibble) & 1)
+                if old is not None:
+                    has_branch = bool((old.tree_mask >> nibble) & 1)
+                else:
+                    has_branch = old_at(path + bytes([nibble])) is not None
             else:
                 # an extension's child is always a branch (MPT)
                 has_branch = not isinstance(c, _Leaf)

@@ -559,3 +559,148 @@ def apply_stage_block(factory, block, b: int, header=None, convert=lambda acc: a
             p.clear_account_storage(addr)
         if header is not None:
             p.insert_header(header)
+
+
+# -- the live tip's block outputs and their write-back (engine/) ----------------
+
+
+def stage_block_output(block, output_cls, changes_cls, convert=lambda acc: acc):
+    """Block ``b``'s ``BlockExecutionOutput`` (``output_cls``, with a
+    ``changes_cls`` ``BlockChanges``) from ``stage_block``'s tuples:
+    ``changes.accounts`` / ``.storage`` the prior values, ``wiped_storage``
+    the deleted owners, ``post_accounts`` (None for a deleted account) and
+    ``post_storage`` the new ones. A wiped owner's storage is in
+    ``wiped_storage`` alone: its cleared slots are no slot writes.
+    ``convert`` maps the block's accounts onto the package's account type."""
+    acct_writes, slot_writes, wiped = block
+    changes = changes_cls(wiped_storage=set(wiped))
+    out = output_cls(changes=changes)
+    for addr, prev, acc in acct_writes:
+        changes.accounts.setdefault(addr, None if prev is None else convert(prev))
+        out.post_accounts[addr] = None if acc is None else convert(acc)
+    for addr, slot, prev, value in slot_writes:
+        if addr in changes.wiped_storage:
+            continue
+        changes.storage.setdefault(addr, {}).setdefault(slot, prev)
+        out.post_storage.setdefault(addr, {})[slot] = value
+    return out
+
+
+def stage_block_bursts(out, n: int, seed: int) -> list[list]:
+    """The keys a block's execution touches, as ``SparseRootTask.
+    on_state_update`` takes them (addresses and ``(address, slot)`` pairs),
+    shuffled with ``seed`` and cut into ``n`` bursts, one a transaction."""
+    keys = list(out.post_accounts) + [(a, s) for a, slots in out.post_storage.items()
+                                      for s in slots]
+    order = np.random.default_rng(seed).permutation(len(keys))
+    return [[keys[i] for i in part] for part in np.array_split(order, n)]
+
+
+def write_back_updates(provider, out, digest_map, updates) -> None:
+    """``SparseRootTask.export_updates``' result onto ``provider``'s trie
+    tables, as the reference's engine tree writes a sparse block
+    (``reth_tpu/engine/tree.py`` ``_write_sparse_output``, its trie half): a
+    wiped owner's stored branches first, then the account branch puts and
+    deletes, then the storage branch puts and deletes."""
+    account_updates, storage_updates = updates
+    for a in out.changes.wiped_storage:
+        provider.delete_storage_branches_with_prefix(digest_map[a], b"")
+    for path, node in account_updates.items():
+        if node is None:
+            provider.delete_account_branch(path)
+        else:
+            provider.put_account_branch(path, node)
+    for ha, upd in storage_updates.items():
+        for path, node in upd.items():
+            if node is None:
+                provider.delete_storage_branch(ha, path)
+            else:
+                provider.put_storage_branch(ha, path, node)
+
+
+class StageDb:
+    """One package's MemDb at ``stage_state``'s plain state, for the proof
+    and live-tip tests: the hashing stages and the single-shot numpy
+    rebuild (header 1), then each block's writes, hashing stages and
+    ``MerkleStage._incremental`` (the block's header root and tables), as
+    chip_smoke.py's MerkleStage twin builds them. ``port=False`` builds the
+    JAX package's (imported here, so that this module stays free of it).
+    Both run the numpy route on the host: these databases are the tests'
+    inputs, and the stage tests hold the routes themselves. ``tables[b]`` is
+    the published table map after block ``b`` (immutable: a free
+    snapshot), ``roots[b]`` its state root."""
+
+    def __init__(self, port: bool, accounts: dict, storages: dict):
+        if port:
+            from reth_tpu_torch import stages
+            from reth_tpu_torch.primitives import types
+            from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+            from reth_tpu_torch.stages import merkle
+            from reth_tpu_torch.storage import kv, provider
+            from reth_tpu_torch.trie import incremental
+            from reth_tpu_torch.trie.committer import TrieCommitter
+
+            self.committer = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+            self.convert = lambda acc: acc
+        else:
+            from reth_tpu import stages
+            from reth_tpu.primitives import types
+            from reth_tpu.primitives.keccak import keccak256_batch_np
+            from reth_tpu.stages import merkle
+            from reth_tpu.storage import kv, provider
+            from reth_tpu.trie import incremental
+            from reth_tpu.trie.committer import TrieCommitter
+
+            self.committer = TrieCommitter(hasher=keccak256_batch_np)
+            self.convert = lambda acc: types.Account(acc.nonce, acc.balance, acc.storage_root,
+                                                     acc.code_hash)
+        self.port, self.kv, self.provider, self.types = port, kv, provider, types
+        self.stages, self.merkle = stages, merkle
+        self.committer.turbo_backend = "numpy"
+        self.hashing = [stages.AccountHashingStage(self.committer),
+                        stages.StorageHashingStage(self.committer)]
+        self.db = kv.MemDb()
+        self.factory = provider.ProviderFactory(self.db)
+        load_stage_state(self.factory, {a: self.convert(acc) for a, acc in accounts.items()},
+                         storages, types.Header(number=0))
+        stages.Pipeline(self.factory, self.hashing).run(1)
+        with self.factory.provider_rw() as p:
+            root = incremental.full_state_root_turbo(p, backend="numpy")
+            p.insert_header(types.Header(number=1, state_root=root))
+        self.roots = {1: root}
+        self.tables = {1: self.db._tables}
+
+    def advance(self, block, b: int) -> bytes:
+        """Block ``b``'s writes, hashing stages and incremental root."""
+        apply_stage_block(self.factory, block, b, convert=self.convert)
+        self.stages.Pipeline(self.factory, self.hashing).run(b)
+        with self.factory.provider_rw() as p:
+            root = self.merkle.MerkleStage(self.committer)._incremental(p, b, b)
+            p.insert_header(self.types.Header(number=b, state_root=root))
+        self.roots[b] = root
+        self.tables[b] = self.db._tables
+        return root
+
+    def at(self, b: int):
+        """A fresh MemDb over the tables after block ``b``, and its factory:
+        writes to it leave this database as it is."""
+        db = self.kv.MemDb()
+        db._tables = self.tables[b]
+        return db, self.provider.ProviderFactory(db)
+
+
+def stage_pair(n_accounts: int, n_slots: int, seed: int, blocks=(), sizes: dict = STAGE_BLOCK,
+               packages=(False, True)):
+    """One ``StageDb`` for each of ``packages`` (False: the JAX package's,
+    True: the port's) at one seeded state, each taken through ``blocks``
+    (``stage_block`` at ``sizes``); and the blocks' tuples by number."""
+    from reth_tpu_torch.primitives.types import Account
+
+    accounts, storages = stage_state(Account, n_accounts, n_slots, seed)
+    dbs = [StageDb(port, accounts, storages) for port in packages]
+    made = {}
+    for b in blocks:
+        made[b] = stage_block(accounts, storages, b, seed, Account, sizes)
+        roots = {db.advance(made[b], b) for db in dbs}
+        assert len(roots) == 1, f"block {b}: the packages' incremental roots differ"
+    return (*dbs, made)

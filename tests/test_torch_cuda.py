@@ -590,3 +590,45 @@ def test_commitment_stages_on_card(monkeypatch):
     Pipeline(card, stages).unwind(1)
     for name in tables:
         assert db._tables[name] == at_block_1[name], name
+
+
+@pytest.mark.cuda
+def test_live_tip_on_card_matches_cpu():
+    """The live tip on the card: a SparseRootTask with a DigestArena over a
+    2,000-account database (block 2 of STAGE_BLOCK_SMALL, seven bursts, the
+    proof pool) gives the incremental route's root, and the digests,
+    storage roots and exported branch updates of the same task on the CPU,
+    launching kernels 1 and 4; a multiproof on the card equals the CPU's."""
+    from _torch_helpers import (STAGE_BLOCK_SMALL, stage_block_bursts, stage_block_output,
+                                stage_pair)
+
+    from reth_tpu_torch.engine import SparseRootTask
+    from reth_tpu_torch.evm import BlockChanges, BlockExecutionOutput
+    from reth_tpu_torch.trie.proof import ProofCalculator
+
+    require_card()
+    db, blocks = stage_pair(2000, 800, 5, blocks=(2,), sizes=STAGE_BLOCK_SMALL, packages=(True,))
+    out = stage_block_output(blocks[2], BlockExecutionOutput, BlockChanges)
+    _, factory = db.at(1)
+    runs = []
+    for device in ("cpu", "cuda"):
+        before = (tk.keccak256_words_masked.launches, fc.subtrie_levels.launches)
+        task = SparseRootTask(factory.provider(), db.roots[1], tsp.PreservedSparseTrie(),
+                              TrieCommitter(device=device), provider_factory=factory.provider,
+                              workers=4, arena=fc.DigestArena())
+        for burst in stage_block_bursts(out, 7, seed=2):
+            task.on_state_update(burst)
+        root, digests, storage_roots = task.finish(out)
+        torch.cuda.synchronize()
+        acct, stor = task.export_updates(out, digests)
+        runs.append((root, dict(digests), storage_roots, acct, stor))
+        launched = (tk.keccak256_words_masked.launches - before[0],
+                    fc.subtrie_levels.launches - before[1])
+        assert all(launched) == (device == "cuda"), launched
+        assert task.sparse_committer.arena.faults == 0
+    assert runs[0] == runs[1]
+    assert runs[1][0] == db.roots[2]
+    targets = {a: list(out.post_storage.get(a, {}))[:3] for a in list(out.post_accounts)[:16]}
+    proofs = [ProofCalculator(factory.provider(), TrieCommitter(device=device)).multiproof(targets)
+              for device in ("cpu", "cuda")]
+    assert proofs[0] == proofs[1]

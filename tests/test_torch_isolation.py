@@ -16,6 +16,7 @@ import torch
 
 from reth_tpu_torch import convert
 from reth_tpu_torch.device import resolve
+from reth_tpu_torch.engine.sparse_root import SparseRootTask
 from reth_tpu_torch.metrics import MetricsRegistry
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import hash_service as ths
@@ -23,9 +24,12 @@ from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.ops import supervisor as tsup
 from reth_tpu_torch.ops import warmup as tw
 from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+from reth_tpu_torch.primitives.types import EMPTY_ROOT_HASH
 from reth_tpu_torch.stages import hashing as thashing
 from reth_tpu_torch.stages import merkle as tmerkle
+from reth_tpu_torch.storage import MemDb, ProviderFactory
 from reth_tpu_torch.trie import incremental as tinc
+from reth_tpu_torch.trie import proof as tproof
 from reth_tpu_torch.trie import sparse as tsp
 from reth_tpu_torch.trie import state_root as tsr
 from reth_tpu_torch.trie.committer import TrieCommitter
@@ -63,7 +67,10 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.etl", "reth_tpu_torch.trie.naive",
                 "reth_tpu_torch.trie.incremental", "reth_tpu_torch.stages",
                 "reth_tpu_torch.stages.api", "reth_tpu_torch.stages.hashing",
-                "reth_tpu_torch.stages.merkle"):
+                "reth_tpu_torch.stages.merkle", "reth_tpu_torch.trie.proof",
+                "reth_tpu_torch.evm", "reth_tpu_torch.evm.state", "reth_tpu_torch.evm.executor",
+                "reth_tpu_torch.engine", "reth_tpu_torch.engine.stateless",
+                "reth_tpu_torch.engine.sparse_root"):
         assert mod in res["modules"]
 
 
@@ -94,7 +101,7 @@ def test_sources_name_no_jax_import():
     tw.build_shape, tmerkle.MerkleStage.__init__, tmerkle.MerkleUnwindStage.__init__,
     thashing.AccountHashingStage.__init__, thashing.StorageHashingStage.__init__,
     tinc.IncrementalStateRoot.__init__, tinc.full_state_root, tinc.full_state_root_turbo,
-    tinc.verify_state_root,
+    tinc.verify_state_root, tproof.ProofCalculator.__init__,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -132,6 +139,14 @@ def test_cuda_without_a_card_raises():
         tw.WarmupManager(registry=MetricsRegistry())
     with pytest.raises(RuntimeError):
         tw.build_warmup(registry=MetricsRegistry())
+    # the live tip: proofs on the default committer, and the task's finish
+    # on its committer's device (a committer given a hasher keeps "cuda")
+    provider = ProviderFactory(MemDb()).provider()
+    with pytest.raises(RuntimeError):
+        tproof.ProofCalculator(provider)
+    with pytest.raises(RuntimeError):
+        SparseRootTask(provider, EMPTY_ROOT_HASH, tsp.PreservedSparseTrie(),
+                       TrieCommitter(hasher=keccak256_batch_np))
     with pytest.raises(ValueError):
         resolve("meta")
 
