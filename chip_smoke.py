@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py [--accounts N] [--slots N] [--rebuild-accounts N] [--rebuild-slots N]
                           [--state-accounts N] [--state-slots N]
+                          [--sync-accounts N] [--sync-slots N]
 
 1. Builds every native source of the port from this checkout (the two CUDA
-   kernel libraries with nvcc, the trie sweep with g++, all at once), and
-   prints ptxas's registers, stack frame and spills per kernel function; a
+   kernel libraries with nvcc, the trie sweep and the secp256k1 batch with
+   g++, all at once), and prints ptxas's registers, stack frame and spills
+   per kernel function; a
    stack frame or a spill in keccak256_absorb, a level kernel or
    subtrie_levels fails the run, and so does a non-coherent (.CONSTANT)
    128-bit load, a digest load, in subtrie_levels' SASS. The bound's
@@ -51,7 +53,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, twenty-three main paths, the launch counters zeroed just before
+3. Slice phase, twenty-four main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -180,6 +182,31 @@
    (hash, proof, reveal, finish, worker busy), proof targets, cache
    unblinds, proof shards, finish retries, proof batches and launches are
    logged.
+   Then "sync" (SyncCell), the staged sync of a chain sealed on the host:
+   right after the build, beside the merkle twin, a second child process
+   (chip_smoke.py --sync-chain, sync_chain) builds tests/_torch_helpers.py
+   SyncChain on the port: plain_state(--sync-accounts, --sync-slots, 47) =
+   250,000 accounts and 100,000 slots (cut from the MerkleStage cell's
+   1,000,000 / 400,000: the child roots the whole state on the host at
+   every block), 1,024 wallets, an ERC-20-shaped token holding every wallet,
+   a storage writer and a precompile caller; then 8 blocks of SYNC_BLOCK at
+   a 30,000,000 gas limit (100 ETH transfers of types 0, 1 and 2, 40 to new
+   addresses; 100 token transfers, 25 to new holders; 30 writer calls of 4
+   slot writes and 1 zeroed; 12 calls of precompiles 0x01, 0x02, 0x05, 0x06,
+   0x07, 0x09; 2 CREATEs of a 6,000-byte contract; 1 type-4 transaction; 16
+   withdrawals: 245 transactions, about 12.4 Mgas), each sealed by
+   executing it and rooting the state on the numpy twin. On the card:
+   init_genesis (device="cuda"), import_chain with
+   EthBeaconConsensus(device="cuda"), Pipeline(factory,
+   default_stages(device="cuda")).run(8), unwind(4), one block's execution
+   under cProfile (block 5 on the unwound state, read-only), run(8) again
+   under torch.profiler (busy time, idle share). MerkleStage and the Merkle
+   unwind validate headers 8 and 4 (the child's roots); after the re-sync
+   every non-empty table equals the first sync's row for row, every
+   checkpoint is 8, every recovered sender is the signing wallet's and
+   MerkleStage made 0 fallbacks. Each step's and each stage's wall,
+   senders/s, the Execution stage's Mgas/s and transactions/s and the
+   rebuild's hashed nodes/s are logged.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -191,12 +218,14 @@
    each restored from a kept table map, which a MemDb publishes immutable):
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function;
-   "merkle stage" has no cProfile run since the live tip came: no room in
-   the time limit).
+   "merkle stage" has no cProfile run since the live tip came, and neither
+   it nor "merkle incremental" has profiled runs since the sync path came:
+   no room in the time limit; "sync" is profiled inside its own path).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
-   also at "merkle incremental"'s launches, the "incremental_absorb" row
+   also at "merkle incremental"'s launches, the "incremental_absorb" row,
+   and at "sync"'s, the "sync_absorb" row
    ("merkle stage"'s are state_root's shape, 16,384 one-block rows); and
    packed_level once more at state_root's
    template levels, the "template_levels" row, whose plain version is
@@ -800,7 +829,7 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
-         "live tip service", "proofs")
+         "live tip service", "proofs", "sync")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -817,7 +846,8 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "live tip": ("keccak256_absorb", "subtrie_levels"),
                 "live tip cached": ("keccak256_absorb", "subtrie_levels"),
                 "live tip reused": ("keccak256_absorb", "subtrie_levels"),
-                "live tip service": ("keccak256_absorb",), "proofs": ("keccak256_absorb",)}
+                "live tip service": ("keccak256_absorb",), "proofs": ("keccak256_absorb",),
+                "sync": ("keccak256_absorb", "packed_level", "branch_level")}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -829,7 +859,8 @@ DRILL_ACCOUNTS, DRILL_SLOTS = 30_000, 12_000
 ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_absorb",
               "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels",
               "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb",
-              "live_tip_absorb": "keccak256_absorb", "live_tip_subtrie": "subtrie_levels"}
+              "live_tip_absorb": "keccak256_absorb", "live_tip_subtrie": "subtrie_levels",
+              "sync_absorb": "keccak256_absorb"}
 # the rows held and timed at their two launches only: no step breakdown, and
 # the plain version (about a second a chunk) timed once
 STEPLESS_ROWS = ("live_tip_subtrie",)
@@ -1093,6 +1124,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "live_tip_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
                              lambda *a: subtrie_cost(bound, *a), level_src,
                              "reth_tpu/ops/fused_commit.py:1046", "live tip"),
+        "sync_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                        level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                        "reth_tpu/ops/keccak_pallas.py:96", "sync"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -1418,14 +1452,15 @@ MERKLE_BLOCKS = (2, 3)
 MERKLE_TABLES = ("HashedAccounts", "HashedStorages", "AccountsTrie", "StoragesTrie")
 
 
-def table_digests(db) -> dict:
-    """Each of the four tables of ``db``: its row count and the SHA-256 of
-    its rows in key order (each key and value length-prefixed; a DUPSORT
-    key's values in order), so that two databases compare row for row."""
+def table_digests(db, names=MERKLE_TABLES) -> dict:
+    """Each table of ``names`` (the MerkleStage cell's four by default) in
+    ``db``: its row count and the SHA-256 of its rows in key order (each key
+    and value length-prefixed; a DUPSORT key's values in order), so that two
+    databases compare row for row."""
     import hashlib
 
     out = {}
-    for name in MERKLE_TABLES:
+    for name in names:
         rows = db._tables.get(name, {})
         h = hashlib.sha256()
         n = 0
@@ -1519,44 +1554,6 @@ def merkle_twin(n_accounts: int, n_slots: int, seed: int, out_path: str) -> int:
     with open(out_path, "w") as f:
         json.dump(out, f)
     return 0
-
-
-class MerkleTwin:
-    """The twin's child process (``merkle_twin``), started at once; ``result``
-    waits for it, logs its output and returns its JSON. ``stop`` ends it."""
-
-    def __init__(self, args):
-        base = os.path.join(HERE, "reth_tpu_torch", "build")
-        os.makedirs(base, exist_ok=True)
-        self.out = os.path.join(base, f"merkle-twin-{os.getpid()}.json")
-        self.log = self.out[:-5] + ".log"
-        with open(self.log, "w") as f:
-            self.proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--merkle-twin", self.out,
-                 "--accounts", str(args.accounts), "--slots", str(args.slots),
-                 "--seed", str(args.seed + 3)], stdout=f, stderr=subprocess.STDOUT, cwd=HERE)
-        self.t0 = time.perf_counter()
-
-    def result(self) -> dict:
-        t0 = time.perf_counter()
-        rc = self.proc.wait()
-        with open(self.log) as f:
-            for line in f.read().splitlines():
-                log(f"  (twin) {line}")
-        if rc != 0:
-            raise AssertionError(f"the merkle twin's child process exited {rc}")
-        with open(self.out) as f:
-            res = json.load(f)
-        for path in (self.out, self.log):
-            os.remove(path)
-        log(f"merkle twin: child process done after {time.perf_counter() - self.t0:.1f} s "
-            f"(waited {time.perf_counter() - t0:.1f} s for it)")
-        return res
-
-    def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
 
 
 class TimedStage:
@@ -2084,6 +2081,348 @@ class LiveTip:
         log(f"live tip: cached {cached.cache_unblinds} cache unblinds, {cached.proof_targets} "
             f"proof targets against {service.proof_targets} without the cache; service lanes "
             f"{json.dumps(lanes)}, 0 replays; reused on path 3")
+
+
+# the staged sync ("sync"): a chain sealed on the host in a child process
+# (tests/_torch_helpers.py SyncChain: SYNC_WALLETS wallets, SYNC_BLOCKS blocks
+# of SYNC_BLOCK, on plain_state(--sync-accounts, --sync-slots, SYNC_SEED)),
+# then on the card init_genesis, import_chain and default_stages to the tip,
+# the unwind to SYNC_UNWIND_TO and the re-sync
+SYNC_WALLETS, SYNC_BLOCKS, SYNC_SEED, SYNC_UNWIND_TO = 1024, 8, 47, 4
+
+
+def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
+    """The "sync" path's chain, in a child process of its own
+    (``--sync-chain``), started with the smoke so that it runs beside the
+    card's earlier paths: the port's ChainBuilder seals each block by
+    executing it and rooting the whole state on TrieCommitter(
+    hasher=keccak256_batch_np, device="cpu"), the numpy twin, never the card.
+    Writes the genesis header, the genesis alloc's plain fields, the chain
+    file (``export_rlp``), each block's signing addresses, roots, gas and
+    the seal walls to ``out_path`` as JSON."""
+    import types
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_helpers import SYNC_BLOCK, SyncChain
+
+    from reth_tpu_torch import testing
+    from reth_tpu_torch.convert import alloc_to_fields
+    from reth_tpu_torch.primitives import keccak, secp256k1
+    from reth_tpu_torch.primitives import types as ptypes
+    from reth_tpu_torch.trie.committer import TrieCommitter
+
+    pkg = types.SimpleNamespace(testing=testing, types=ptypes, keccak=keccak,
+                                secp256k1=secp256k1)
+    t0 = time.perf_counter()
+    chain = SyncChain(pkg, n_accounts, n_slots, SYNC_SEED, SYNC_WALLETS, SYNC_BLOCKS,
+                      SYNC_BLOCK, TrieCommitter(hasher=keccak.keccak256_batch_np, device="cpu"),
+                      seal=False)
+    b = chain.builder
+    walls = {"genesis": time.perf_counter() - t0}
+    log(f"sync chain: genesis of {len(b.accounts_at_genesis)} accounts and "
+        f"{sum(len(s) for s in b.storage_at_genesis.values())} slots rooted in "
+        f"{walls['genesis']:.3f} s, root {b.genesis.state_root.hex()}")
+    for _ in range(SYNC_BLOCKS):
+        t0 = time.perf_counter()
+        blk = chain.block()
+        h = blk.header
+        walls[h.number] = time.perf_counter() - t0
+        log(f"sync chain: block {h.number} sealed in {walls[h.number]:.3f} s: "
+            f"{len(blk.transactions)} transactions, {h.gas_used} gas, "
+            f"{len(blk.withdrawals)} withdrawals, root {h.state_root.hex()}")
+    fields = alloc_to_fields(b.accounts_at_genesis, b.storage_at_genesis, b.codes_at_genesis)
+    out = {
+        "genesis": b.genesis.encode().hex(), "genesis_hash": b.genesis.hash.hex(),
+        "alloc": {a.hex(): [f["nonce"], str(f["balance"]), f.get("code", b"").hex(),
+                            {k.hex(): str(v) for k, v in f.get("storage", {}).items()}]
+                  for a, f in fields.items()},
+        "chain": b.export_rlp().hex(),
+        "senders": {n: [a.hex() for a in s] for n, s in chain.senders.items()},
+        "roots": {blk.header.number: blk.header.state_root.hex() for blk in b.blocks},
+        "walls": walls,
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class ChildProcess:
+    """One of the smoke's child processes (``flag OUT`` plus ``extra``
+    arguments), started at once; ``result`` waits for it, logs its output
+    under ``name`` and returns its JSON. ``stop`` ends it."""
+
+    def __init__(self, name: str, flag: str, extra: list[str]):
+        base = os.path.join(HERE, "reth_tpu_torch", "build")
+        os.makedirs(base, exist_ok=True)
+        self.name = name
+        self.out = os.path.join(base, f"{flag.strip('-')}-{os.getpid()}.json")
+        self.log = self.out[:-5] + ".log"
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, self.out, *extra],
+                stdout=f, stderr=subprocess.STDOUT, cwd=HERE)
+        self.t0 = time.perf_counter()
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        with open(self.log) as f:
+            for line in f.read().splitlines():
+                log(f"  ({self.name}) {line}")
+        if rc != 0:
+            raise AssertionError(f"the {self.name}'s child process exited {rc}")
+        with open(self.out) as f:
+            res = json.load(f)
+        for path in (self.out, self.log):
+            os.remove(path)
+        log(f"{self.name}: child process done after {time.perf_counter() - self.t0:.1f} s "
+            f"(waited {time.perf_counter() - t0:.1f} s for it)")
+        return res
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def device_profile(label: str, drive) -> dict:
+    """``drive`` under torch.profiler: the card's busy time by kernel and
+    copy, its host-to-device copy time and its idle share of the wall,
+    logged and returned. The profiler's kernel records are counted against
+    the wrappers' launch counts; where it missed some, its device times are
+    a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from reth_tpu_torch.ops import fused_commit as fc
+    from reth_tpu_torch.ops import keccak as ok
+
+    wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    torch.cuda.synchronize()
+    before = sum(w.launches for w in wrappers)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = sum(w.launches for w in wrappers) - before
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    seen = sum(r[2] for r in rows if r[0].split("(")[0] in [k + "_kernel" for k in KERNELS])
+    busy_us = sum(r[1] for r in rows)
+    if seen < launched:
+        log(f"profiled {label}: the profiler recorded {seen} of {launched} kernel launches; the "
+            f"device times below are a lower bound")
+    if busy_us == 0:
+        log(f"profiled {label}: {wall:.3f} s wall; device time not measured "
+            f"(the profiler recorded no device activity)")
+        return {"wall_s": wall, "busy_ms": None, "idle_share": None}
+    h2d = [r for r in rows if "HtoD" in r[0]]
+    idle = 1 - busy_us / 1e6 / wall
+    log(f"profiled {label}: {wall:.3f} s wall, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f}; host-to-device "
+        f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
+    return {"wall_s": wall, "busy_ms": busy_us / 1e3, "idle_share": idle}
+
+
+def host_profile(label: str, fn, *args, focus=()):
+    """``fn(*args)`` under cProfile, the card synchronized before the clock
+    stops: its wall, the ten functions by own time and the cumulative time
+    of the functions named in ``focus``, logged; returns what ``fn``
+    returned."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    out = prof.runcall(fn, *args)
+    torch.cuda.synchronize()
+    log(f"host profile, {label} ({time.perf_counter() - t0:.3f} s wall under cProfile, all "
+        f"threads: cumulative times of concurrent threads overlap), top functions by own time:")
+    stats = pstats.Stats(prof)
+    for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in sorted(
+            stats.stats.items(), key=lambda kv: -kv[1][2])[:10]:
+        log(f"  host {tottime:8.3f} s own, {cumtime:8.3f} s cum, {ncalls:8d} calls  "
+            f"{os.path.basename(fname)}:{line} {func}")
+    for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in stats.stats.items():
+        if func in focus:
+            log(f"  host {cumtime:8.3f} s cum, {ncalls:8d} calls  {os.path.basename(fname)}:{line} "
+                f"{func} (asked for)")
+    return out
+
+
+class SyncCell:
+    """The "sync" path on a port ``MemDb``: the chain the child sealed on the
+    host (``sync_chain``), synced on the card through the entry points an
+    operator's ``reth import`` + ``stage run`` call: ``init_genesis``
+    (device="cuda"), ``import_chain`` with ``EthBeaconConsensus(
+    device="cuda")`` (every block pre-validated, its transactions and
+    withdrawals roots on kernel 1), ``Pipeline(factory, default_stages(
+    device="cuda")).run(SYNC_BLOCKS)`` (senders by the native batch,
+    execution on the host with post-validation on kernel 1, the hashing
+    stages on kernel 1, MerkleStage from checkpoint 0 on kernels 2 and 3
+    against the child's header root, tx lookup, both history indexes,
+    Finish), ``unwind(SYNC_UNWIND_TO)`` (the Merkle unwind against that
+    header's root) and ``run(SYNC_BLOCKS)`` again under torch.profiler.
+    Between the unwind and the re-sync, one block's execution under
+    cProfile, read-only."""
+
+    def __init__(self, res: dict):
+        from reth_tpu_torch.convert import alloc_from_fields, blocks_from_rlp
+        from reth_tpu_torch.primitives.types import Header
+
+        t0 = time.perf_counter()
+        fields = {bytes.fromhex(a): {"nonce": n, "balance": int(bal), "code": bytes.fromhex(c),
+                                     "storage": {bytes.fromhex(k): int(v) for k, v in st.items()}}
+                  for a, (n, bal, c, st) in res["alloc"].items()}
+        self.accounts, self.storage, self.codes = alloc_from_fields(fields)
+        self.genesis = Header.decode(bytes.fromhex(res["genesis"]))
+        self.blocks = blocks_from_rlp(bytes.fromhex(res["chain"]))
+        self.senders = {int(b): [bytes.fromhex(a) for a in s] for b, s in res["senders"].items()}
+        self.roots = {int(b): r for b, r in res["roots"].items()}
+        if self.genesis.hash.hex() != res["genesis_hash"] or [
+                blk.header.state_root.hex() for blk in self.blocks] != [
+                self.roots[b] for b in range(1, SYNC_BLOCKS + 1)]:
+            raise AssertionError("sync: the chain file does not carry the child's seal")
+        self.n_txs = sum(len(blk.transactions) for blk in self.blocks)
+        self.gas = {blk.header.number: blk.header.gas_used for blk in self.blocks}
+        self.rows: list[dict] = []
+        self.walls: dict[str, float] = {}
+        log(f"sync: the child's chain loaded in {time.perf_counter() - t0:.1f} s: "
+            f"{len(self.accounts)} genesis accounts, {sum(len(s) for s in self.storage.values())} "
+            f"slots, {len(self.blocks)} blocks of {self.n_txs} transactions and "
+            f"{sum(self.gas.values())} gas")
+
+    def drive(self) -> None:
+        """Path "sync", each step's wall kept in ``walls``."""
+        import torch
+
+        from reth_tpu_torch.consensus import EthBeaconConsensus
+        from reth_tpu_torch.stages import Pipeline, default_stages
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+        from reth_tpu_torch.storage.genesis import import_chain, init_genesis
+
+        def step(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.walls[name] = time.perf_counter() - t0
+            return out
+
+        self.db = MemDb()
+        self.factory = ProviderFactory(self.db)
+        step("init_genesis", lambda: init_genesis(
+            self.factory, self.genesis, self.accounts, storage=self.storage, codes=self.codes,
+            device="cuda"))
+        step("import", lambda: import_chain(self.factory, self.blocks,
+                                            EthBeaconConsensus(device="cuda")))
+        self.stages = default_stages(device="cuda")
+        self.merkle = self.stages[5]
+        self.pipeline = Pipeline(self.factory, [TimedStage(s, self.rows) for s in self.stages])
+        step("run", self.pipeline.run, SYNC_BLOCKS)
+        self.first = self.db._tables
+        self.first_rows = len(self.rows)
+        step("unwind", self.pipeline.unwind, SYNC_UNWIND_TO)
+        self.profile_block(SYNC_UNWIND_TO + 1)
+        self.resync = step("re-sync", device_profile, "sync re-sync",
+                           lambda: self.pipeline.run(SYNC_BLOCKS))
+        # the step's wall less the profiler's own processing after the run
+        self.walls["re-sync profiler processing"] = self.walls["re-sync"] - self.resync["wall_s"]
+        self.walls["re-sync"] = self.resync["wall_s"]
+
+    def profile_block(self, n: int) -> None:
+        """Block ``n``'s execution on the state of block ``n - 1`` (the
+        unwound database, read-only) under cProfile, with the child's
+        senders; its output is dropped."""
+        from reth_tpu_torch.evm import BlockExecutor, EvmConfig
+        from reth_tpu_torch.evm.executor import ProviderStateSource
+
+        with self.factory.provider() as p:
+            hashes = {h: p.canonical_hash(h) for h in range(max(0, n - 256), n)}
+            executor = BlockExecutor(ProviderStateSource(p), EvmConfig())
+            out = host_profile(f"sync, block {n}'s execution", executor.execute,
+                               self.blocks[n - 1], self.senders[n], hashes)
+        if out.gas_used != self.gas[n]:
+            raise AssertionError(f"sync: block {n} re-executed to {out.gas_used} gas, its "
+                                 f"header says {self.gas[n]}")
+
+    def check(self) -> None:
+        """The re-synced tables equal the first sync's, row for row (every
+        table the stages write, by row counts and SHA-256 of the rows in key
+        order); every checkpoint at the tip; the recovered senders the
+        signing wallets'; 0 MerkleStage fallbacks."""
+        from reth_tpu_torch.storage import MemDb
+        from reth_tpu_torch.storage.tables import be64
+
+        first, now = MemDb(), self.db
+        first._tables = self.first
+        names = sorted(n for n, t in self.first.items() if t)
+        want, got = table_digests(first, names), table_digests(now, names)
+        if got != want or sorted(n for n, t in now._tables.items() if t) != names:
+            raise AssertionError(f"sync: the re-synced tables differ from the first sync's: "
+                                 f"{got} against {want}")
+        with self.factory.provider() as p:
+            checkpoints = {s.id: p.stage_checkpoint(s.id) for s in self.stages}
+            recovered = {}
+            for n in range(1, SYNC_BLOCKS + 1):
+                idx = p.block_body_indices(n)
+                recovered[n] = [p.tx.get("TransactionSenders", be64(t))
+                                for t in range(idx.first_tx_num, idx.next_tx_num)]
+        if set(checkpoints.values()) != {SYNC_BLOCKS}:
+            raise AssertionError(f"sync: checkpoints {checkpoints}")
+        if recovered != self.senders:
+            raise AssertionError("sync: a recovered sender is not the signing wallet's address")
+        if self.merkle.fallbacks:
+            raise AssertionError(f"sync: {self.merkle.fallbacks} MerkleStage fallbacks")
+        log(f"sync: after the re-sync every row of {len(names)} tables equals the first sync's ("
+            + ", ".join(f"{n} {want[n][0]}" for n in names) + f"); checkpoints "
+            f"{json.dumps(checkpoints)}; all {self.n_txs} recovered senders the signing wallets'; "
+            f"all {SYNC_BLOCKS} blocks passed the card's consensus checks (transactions and "
+            f"withdrawals roots at import, receipts root, gas and bloom after execution); "
+            f"0 MerkleStage fallbacks; MerkleStage met header {SYNC_BLOCKS}'s root "
+            f"{self.roots[SYNC_BLOCKS]} and the unwind header {SYNC_UNWIND_TO}'s "
+            f"{self.roots[SYNC_UNWIND_TO]} (the child's seal on the host)")
+
+    def report(self, launches: dict) -> None:
+        """Each step's and each stage's wall; senders/s, the Execution stage's
+        Mgas/s and transactions/s, the MerkleStage rebuild's hashed nodes/s;
+        kernel launches by kernel."""
+        for r in self.rows:
+            line = f"sync: {r['stage']} {r['kind']} {r['wall_s']:.4f} s"
+            if r.get("commit"):
+                c = r["commit"]
+                line += (f"; commit {c['wall_s']} s = sweep {c['sweep_s']} / pack {c['pack_s']} / "
+                         f"dispatch {c['dispatch_s']} / fetch {c['fetch_s']} s, hashed by "
+                         f"{c['backend']}, {r['nodes']} hashed nodes")
+            log(line)
+        for what, rows in (("sync", self.rows[:self.first_rows]),
+                           ("re-sync", [r for r in self.rows[self.first_rows:]
+                                        if r["kind"] != "unwind"])):
+            walls: dict[str, float] = {}
+            for r in rows:
+                walls[r["stage"]] = walls.get(r["stage"], 0.0) + r["wall_s"]
+            blocks = range(1, SYNC_BLOCKS + 1) if what == "sync" else range(
+                SYNC_UNWIND_TO + 1, SYNC_BLOCKS + 1)
+            txs = sum(len(self.blocks[b - 1].transactions) for b in blocks)
+            gas = sum(self.gas[b] for b in blocks)
+            ex = walls["Execution"]
+            extra = (f"; SenderRecovery {txs / walls['SenderRecovery']:.1f} senders/s, Execution "
+                     f"{gas / ex / 1e6:.3f} Mgas/s and {txs / ex:.1f} transactions/s "
+                     f"({len(blocks)} blocks, {txs} transactions, {gas} gas)")
+            nodes = sum(r.get("nodes", 0) for r in rows if r["stage"] == "MerkleExecute")
+            if nodes:
+                extra += (f", MerkleExecute {nodes} hashed nodes, "
+                          f"{nodes / walls['MerkleExecute']:.1f} hashed nodes/s")
+            log(f"sync, {what}: stage walls " + ", ".join(
+                f"{sid} {w:.3f} s" for sid, w in walls.items()) + extra)
+        log("sync: step walls " + ", ".join(f"{k} {v:.3f} s" for k, v in self.walls.items())
+            + f"; launches {json.dumps(launches)}")
 
 
 # the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
@@ -2923,7 +3262,7 @@ def control_drills() -> list[dict]:
     return out
 
 
-def slice_phase(args, storage_jobs, account_jobs, sup, twin):
+def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
     """The main paths (``PATHS``), each with the launch counts zeroed just
     before it and read just after; the supervised ones ("auto", "auto k=8",
     "state_root auto") through ``sup``. Returns the launch counts of each
@@ -3056,6 +3395,14 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin):
             live.check(res)
         run_path("proofs", live.proofs)
         walls.pop("proofs")
+        # the staged sync, its chain sealed on the host by the child process
+        # started with the smoke
+        recorder.path = None
+        sync = SyncCell(chain.result())
+        run_path("sync", sync.drive)
+        log(f"main path sync: {walls.pop('sync'):.3f} s wall")
+        sync.report(launches["sync"])
+        sync.check()
         recorder.path = None
     merkle.check_incremental()
     live.finish_checks()
@@ -3217,12 +3564,8 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin):
     profile_path("hot tip block", hot.block,
                  focus=("reveal_through", "harvest", "reveal_at", "lookup", "commit",
                         "keccak256"))
-    # its cProfile pass (114-154 s) is the first cut for room in the time limit
-    profile_path("merkle stage", merkle.drive_stage, prepare=lambda: merkle.restore(0),
-                 host=False)
-    profile_path("merkle incremental", merkle.drive_incremental,
-                 prepare=lambda: merkle.restore(1),
-                 focus=("_incremental", "compute", "hash_batch", "_scan_account_leaves"))
+    # "merkle stage" and "merkle incremental" have no profiled runs since the
+    # sync path came (their findings stand in PERF.md): no room in the time limit
     profile_path("live tip block", live.profiled_block,
                  focus=("_process", "_reveal", "multiproof", "plan_subtrie", "on_spine",
                         "_spine_nodes", "_finish_inner", "apply_output_to_trie",
@@ -3628,77 +3971,18 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
     return records
 
 
-def profile_path(label: str, drive, prepare=None, focus=(), host: bool = True) -> None:
+def profile_path(label: str, drive, prepare=None, focus=()) -> None:
     """Two more runs of a main path, after its counters were read (so
-    their launches are not counted): one under torch.profiler for the
-    card's busy time by kernel and copy, its host-to-device copy time and
-    its idle share of the wall, one under cProfile for the host's time by
-    function (and the cumulative time of the functions named in
-    ``focus``); ``host=False`` leaves out the cProfile run (a path whose
-    run under cProfile the time limit has no room for). ``prepare``, when
-    given, runs before each, outside both. The
-    profiler's kernel records are counted against the wrappers' launch
-    counts; where it missed some, its device times are a lower bound."""
-    import cProfile
-    import pstats
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from reth_tpu_torch.ops import fused_commit as fc
-    from reth_tpu_torch.ops import keccak as ok
-
-    wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    their launches are not counted): one under torch.profiler
+    (``device_profile``), one under cProfile (``host_profile``, with the
+    cumulative time of the functions named in ``focus``). ``prepare``, when
+    given, runs before each, outside both."""
     if prepare is not None:
         prepare()
-    torch.cuda.synchronize()
-    before = sum(w.launches for w in wrappers)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        drive()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launched = sum(w.launches for w in wrappers) - before
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    seen = sum(r[2] for r in rows if r[0].split("(")[0] in [k + "_kernel" for k in KERNELS])
-    busy_us = sum(r[1] for r in rows)
-    if seen < launched:
-        log(f"profiled {label}: the profiler recorded {seen} of {launched} kernel launches; the "
-            f"device times below are a lower bound")
-    if busy_us == 0:
-        log(f"profiled {label}: {wall:.3f} s wall; device time not measured "
-            f"(the profiler recorded no device activity)")
-    else:
-        h2d = [r for r in rows if "HtoD" in r[0]]
-        log(f"profiled {label}: {wall:.3f} s wall, device busy "
-            f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e6 / wall:.4f}; host-to-device "
-            f"{sum(r[1] for r in h2d) / 1e3:.3f} ms in {sum(r[2] for r in h2d)} copies")
-        for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
-            log(f"  device {us / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
-    if not host:
-        log(f"host profile, {label}: not run (no room in the time limit)")
-        return
+    device_profile(label, drive)
     if prepare is not None:
         prepare()
-    prof_host = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof_host.runcall(drive)
-    torch.cuda.synchronize()
-    log(f"host profile, {label} ({time.perf_counter() - t0:.3f} s wall under "
-        f"cProfile, all threads: cumulative times of concurrent threads overlap), top functions "
-        f"by own time:")
-    stats = pstats.Stats(prof_host)
-    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]
-    for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in top:
-        log(f"  host {tottime:8.3f} s own, {cumtime:8.3f} s cum, {ncalls:8d} calls  "
-            f"{os.path.basename(fname)}:{line} {func}")
-    for (fname, line, func), (_cc, ncalls, tottime, cumtime, _callers) in stats.stats.items():
-        if func in focus:
-            log(f"  host {cumtime:8.3f} s cum, {ncalls:8d} calls  {os.path.basename(fname)}:{line} "
-                f"{func} (asked for)")
+    host_profile(label, drive, focus=focus)
 
 
 def main() -> int:
@@ -3714,11 +3998,17 @@ def main() -> int:
                     help="the state_root paths' accounts (cut from 100,000)")
     ap.add_argument("--state-slots", type=int, default=20_000,
                     help="the state_root paths' slots (cut from 40,000)")
+    ap.add_argument("--sync-accounts", type=int, default=250_000,
+                    help="the sync path's genesis accounts (cut from 1,000,000)")
+    ap.add_argument("--sync-slots", type=int, default=100_000,
+                    help="the sync path's genesis slots (cut from 400,000)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--warmup-child", metavar="DIR", default=None,
                     help="internal: one warm-up run on the compile cache under DIR")
     ap.add_argument("--merkle-twin", metavar="OUT", default=None,
                     help="internal: the MerkleStage cell's CPU twin, its result to OUT")
+    ap.add_argument("--sync-chain", metavar="OUT", default=None,
+                    help="internal: seal the sync path's chain on the host, to OUT")
     args = ap.parse_args()
 
     import torch
@@ -3731,6 +4021,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if args.merkle_twin is not None:
         return merkle_twin(args.accounts, args.slots, args.seed, args.merkle_twin)
+    if args.sync_chain is not None:
+        return sync_chain(args.sync_accounts, args.sync_slots, args.sync_chain)
     from reth_tpu_torch.device import resolve
     from reth_tpu_torch.ops import _build
     from reth_tpu_torch.trie import turbo
@@ -3739,20 +4031,28 @@ def main() -> int:
     resolve("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    srcs = [_build.CUDA_SRC_DIR / n for n in _build.KERNEL_SOURCES] + [turbo._SRC]
+    srcs = [_build.CUDA_SRC_DIR / n for n in _build.KERNEL_SOURCES] + [
+        turbo._SRC, _build.PKG_DIR / "csrc" / "secp256k1.cpp"]
     t0 = time.perf_counter()
     paths = _build.build(srcs)
     log(f"built {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    twin = MerkleTwin(args)
+    twin = ChildProcess("merkle twin", "--merkle-twin",
+                        ["--accounts", str(args.accounts), "--slots", str(args.slots),
+                         "--seed", str(args.seed + 3)])
+    chain = ChildProcess("sync chain", "--sync-chain",
+                         ["--sync-accounts", str(args.sync_accounts),
+                          "--sync-slots", str(args.sync_slots)])
     try:
-        return smoke(args, t_start, srcs, paths, twin)
+        return smoke(args, t_start, srcs, paths, twin, chain)
     finally:
         twin.stop()
+        chain.stop()
 
 
-def smoke(args, t_start: float, srcs, paths, twin) -> int:
+def smoke(args, t_start: float, srcs, paths, twin, chain) -> int:
     """Everything after the build: the checks, the main paths, the timings
-    and the drills (``twin``: the MerkleStage cell's twin, running)."""
+    and the drills (``twin``: the MerkleStage cell's twin, running;
+    ``chain``: the "sync" path's chain, being sealed)."""
     import torch
 
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
@@ -3774,7 +4074,7 @@ def smoke(args, t_start: float, srcs, paths, twin) -> int:
 
     sup = supervisor_startup()
     probe, check1 = kernel_checks(args, account_jobs, bound)
-    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup, twin)
+    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup, twin, chain)
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         if r["name"] == "subtrie_levels":

@@ -1,8 +1,12 @@
-"""Moving the rebuild's inputs and state onto the device.
+"""Moving the rebuild's inputs and state onto the device, and a chain and
+its genesis state across from another implementation.
 
 The state commitment has no learned weights: what it carries is its input
 (bench-shaped jobs: ``(n, 32)`` u8 hashed keys plus aligned RLP value
-bytes) and its resident ``(S, 32)`` u8 digest buffer.
+bytes) and its resident ``(S, 32)`` u8 digest buffer. A chain crosses by
+its consensus encoding (``blocks_from_rlp``: the chain file
+``ChainBuilder.export_rlp`` writes), its genesis state by plain fields
+(``alloc_from_fields`` / ``alloc_to_fields``).
 """
 
 from __future__ import annotations
@@ -11,6 +15,9 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .primitives.keccak import keccak256
+from .primitives.rlp import rlp_decode_prefix
+from .primitives.types import KECCAK_EMPTY, Account, Block
 
 
 def jobs_to_device(jobs: list[tuple[np.ndarray, list[bytes]]],
@@ -45,3 +52,54 @@ def digest_buffer_from_numpy(buf: np.ndarray,
     if arr.dtype != np.uint8 or arr.ndim != 2 or arr.shape[1] != 32:
         raise ValueError(f"digest buffer must be (S, 32) uint8, got {arr.dtype} {arr.shape}")
     return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(resolve(device))
+
+
+def blocks_from_rlp(data: bytes) -> list[Block]:
+    """The blocks of a chain file: concatenated block RLP, as
+    ``ChainBuilder.export_rlp`` writes it and ``reth import`` reads it."""
+    data = bytes(data)
+    blocks, pos = [], 0
+    while pos < len(data):
+        _item, used = rlp_decode_prefix(data[pos:])
+        blocks.append(Block.decode(data[pos:pos + used]))
+        pos += used
+    return blocks
+
+
+def alloc_from_fields(fields: dict[bytes, dict]
+                      ) -> tuple[dict[bytes, Account], dict[bytes, dict[bytes, int]],
+                                 dict[bytes, bytes]]:
+    """A genesis alloc from plain fields: ``address -> {"nonce", "balance",
+    "code", "storage"}`` (each optional; ``storage`` maps 32-byte slots to
+    ints). Returns ``(accounts, storage, codes)`` as ``init_genesis`` and
+    ``ChainBuilder`` take them: an account's ``code_hash`` is its code's
+    keccak, its storage root is left for the state root to compute."""
+    accounts, storage, codes = {}, {}, {}
+    for addr, f in fields.items():
+        code = bytes(f.get("code", b""))
+        code_hash = keccak256(code) if code else KECCAK_EMPTY
+        if code:
+            codes[code_hash] = code
+        accounts[addr] = Account(nonce=int(f.get("nonce", 0)),
+                                 balance=int(f.get("balance", 0)), code_hash=code_hash)
+        slots = {bytes(k): int(v) for k, v in (f.get("storage") or {}).items()}
+        if slots:
+            storage[addr] = slots
+    return accounts, storage, codes
+
+
+def alloc_to_fields(accounts: dict[bytes, Account],
+                    storage: dict[bytes, dict[bytes, int]] | None = None,
+                    codes: dict[bytes, bytes] | None = None) -> dict[bytes, dict]:
+    """The plain fields of a genesis alloc: :func:`alloc_from_fields`'s
+    inverse (an account's code is looked up by its ``code_hash``)."""
+    storage, codes = storage or {}, codes or {}
+    out = {}
+    for addr, acc in accounts.items():
+        f = {"nonce": acc.nonce, "balance": acc.balance}
+        if acc.code_hash != KECCAK_EMPTY:
+            f["code"] = codes[acc.code_hash]
+        if storage.get(addr):
+            f["storage"] = dict(storage[addr])
+        out[addr] = f
+    return out

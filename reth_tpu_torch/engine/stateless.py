@@ -5,8 +5,8 @@ and what it needs: the sparse-trie state-root strategy's update → rehash
 step (the reference's `sparse_trie.rs:126-259`), which the live tip
 (``engine/sparse_root.py``) finishes every block with. Stateless
 validation (``WitnessStateSource``, ``StatelessChain``) re-executes the
-block, and the EVM is not ported yet (ROADMAP A item 7): both raise
-``NotImplementedError``.
+block on the port's EVM from a witness; it is not ported yet (ROADMAP A
+item 7, the next slice's item 3): both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from ..primitives.rlp import decode_int, encode_int, rlp_decode, rlp_encode
 from ..primitives.types import Account
 from ..trie.sparse import BlindedNodeError, SparseStateTrie, SparseTrie
 
-_NO_EVM = "stateless validation re-executes the block: the EVM is not ported yet (ROADMAP A item 7)"
+_NO_EVM = ("stateless validation (a witness state source for the EVM) is not ported yet "
+           "(ROADMAP A item 7: the next slice's item 3)")
 
 
 class StatelessValidationError(Exception):

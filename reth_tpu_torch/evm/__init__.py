@@ -1,13 +1,19 @@
-"""Block execution's output types: what the live tip reads from an executed
-block.
+"""Block execution on the host: interpreter, journaled state, block executor.
 
-Of the JAX package's ``evm`` only the two output dataclasses are ported,
-``BlockChanges`` and ``BlockExecutionOutput``; the interpreter, the
-journaled state and the block executor are not ported yet (ROADMAP A item
-7).
+A copy of the JAX package's ``evm``. Reference analogue: the revm v41
+interpreter (external crate) plus reth's glue (crates/revm,
+crates/evm/evm, crates/ethereum/evm). Execution stays on the host by
+design: the card runs the state commitment, and this package produces the
+state changes and receipts that feed the hashing and Merkle stages.
 """
 
-from .executor import BlockExecutionOutput
-from .state import BlockChanges
+from .executor import BlockExecutionOutput, BlockExecutor, EvmConfig
+from .state import BlockChanges, EvmState
 
-__all__ = ["BlockChanges", "BlockExecutionOutput"]
+__all__ = [
+    "EvmState",
+    "BlockChanges",
+    "BlockExecutor",
+    "BlockExecutionOutput",
+    "EvmConfig",
+]

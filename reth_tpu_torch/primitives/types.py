@@ -4,9 +4,7 @@ A copy of the JAX package's ``primitives/types.py`` (alloy-consensus types +
 `EthPrimitives`; encodings follow Ethereum consensus RLP, post-merge through
 Cancun/Prague, trailing-optional header fields included only when set), plus
 ``encode_account``, the state tables' account encoding. Signature recovery
-(``Authorization.recover_authority``, ``Transaction.recover_sender``,
-``recover_senders``) needs secp256k1 and is not ported yet: it raises
-``NotImplementedError`` (ROADMAP A item 7, the EVM).
+goes through the port's ``primitives/secp256k1.py``.
 """
 
 from __future__ import annotations
@@ -26,8 +24,6 @@ EMPTY_OMMER_ROOT_HASH = keccak256(rlp_encode([]))
 
 B256_ZERO = b"\x00" * 32
 ADDRESS_ZERO = b"\x00" * 20
-
-_RECOVERY = "signature recovery (secp256k1) is not ported yet (ROADMAP A item 7)"
 
 
 @dataclass(frozen=True)
@@ -216,7 +212,8 @@ class Authorization:
         ]))
 
     def recover_authority(self) -> bytes:
-        raise NotImplementedError(_RECOVERY)
+        from .secp256k1 import ecrecover
+        return ecrecover(self.signing_hash(), self.y_parity, self.r, self.s)
 
     def rlp_fields(self) -> list:
         return [encode_int(self.chain_id), self.address, encode_int(self.nonce),
@@ -397,15 +394,23 @@ class Transaction:
         return GAS_PER_BLOB * len(self.blob_versioned_hashes)
 
     def recover_sender(self) -> bytes:
-        raise NotImplementedError(_RECOVERY)
+        from .secp256k1 import ecrecover
+        return ecrecover(self.signing_hash(), self.y_parity, self.r, self.s)
 
 
 GAS_PER_BLOB = 1 << 17  # EIP-4844
 
 
 def recover_senders(txs, allow_high_s: bool = False) -> list[bytes | None]:
-    """Batched sender recovery for a transaction sequence: not ported yet."""
-    raise NotImplementedError(_RECOVERY)
+    """Batched sender recovery for a transaction sequence (one threaded
+    native dispatch; see primitives.secp256k1.ecrecover_batch). The single
+    place that maps signature fields to recovery inputs."""
+    from .secp256k1 import ecrecover_batch
+
+    return ecrecover_batch(
+        [(tx.signing_hash(), tx.y_parity, tx.r, tx.s) for tx in txs],
+        allow_high_s=allow_high_s,
+    )
 
 
 @dataclass(frozen=True)

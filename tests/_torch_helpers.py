@@ -704,3 +704,249 @@ def stage_pair(n_accounts: int, n_slots: int, seed: int, blocks=(), sizes: dict 
         roots = {db.advance(made[b], b) for db in dbs}
         assert len(roots) == 1, f"block {b}: the packages' incremental roots differ"
     return (*dbs, made)
+
+
+# -- the staged-sync chain (chip_smoke.py "sync", tests/test_torch_execution.py) --
+#
+# A genesis of ``stage_state`` accounts plus funded wallets and three
+# hand-assembled contracts, and blocks shaped like a mainnet block at a
+# 30,000,000 gas limit, sealed by executing them (``ChainBuilder``). Every
+# function takes the package it builds with (``pkg``: an object with the
+# package's ``testing``, ``types``, ``keccak`` and ``secp256k1`` modules), so
+# the same code builds the chain on either package.
+
+# the full block (chip_smoke.py) and the tests' small one: ETH transfers
+# (types 0, 1, 2 in turn; ``fresh`` of them to new addresses), token
+# transfers (``new_holders`` of them to new holders), storage-writer calls,
+# precompile calls, CREATE deploys of a ``runtime``-byte contract, type-4
+# transactions with one authorization each, and withdrawals
+SYNC_BLOCK = dict(transfers=100, fresh=40, token=100, new_holders=25, writes=30, precompiles=12,
+                  creates=2, runtime=6000, setcode=1, withdrawals=16)
+SYNC_BLOCK_SMALL = dict(transfers=6, fresh=2, token=4, new_holders=1, writes=2, precompiles=6,
+                        creates=1, runtime=96, setcode=1, withdrawals=2)
+SYNC_CHAIN_ID = 1
+TOKEN_SUPPLY = 10**24  # each wallet's token balance at genesis
+WALLET_WEI = 10**21
+
+
+def _push(n: int, width: int) -> bytes:
+    return bytes([0x5F + width]) + n.to_bytes(width, "big")
+
+
+def token_code(transfer_topic: bytes) -> bytes:
+    """An ERC-20-shaped ``transfer(to, amount)``: calldata is two words, the
+    balances mapping sits at slot 0 (``keccak(pad32(holder) . pad32(0))``).
+    Reverts when the caller's balance is short; else two SSTOREs and a LOG3
+    (topic ``transfer_topic``, from, to; data the amount)."""
+    head = bytes.fromhex(
+        "335f52"        # mstore(0, caller)
+        "5f602052"      # mstore(32, 0)
+        "60405f20"      # s_from = keccak(0, 64)
+        "8054"          # bal_from = sload(s_from)
+        "602035"        # amount
+        "808210"        # bal_from < amount
+    )
+    rest_head = bytes.fromhex(
+        "57"            # jumpi(revert, short)
+        "900390"        # s_from, bal_from - amount -> new, s_from
+        "55"            # sstore(s_from, new)
+        "5f355f52"      # mstore(0, to)
+        "60405f20"      # s_to
+        "8054602035019055"  # sstore(s_to, sload(s_to) + amount)
+        "6020355f52"    # mstore(0, amount)
+        "5f3533"        # topic2 = to, topic1 = caller
+    ) + b"\x7f" + transfer_topic + bytes.fromhex("60205fa300")  # log3(0, 32, ...); stop
+    dest = len(head) + 2 + len(rest_head)
+    return head + _push(dest, 1) + rest_head + bytes.fromhex("5b5f5ffd")
+
+
+# sstore(cd[0], v), sstore(cd[1], v), sstore(cd[2], v), sstore(cd[3], v),
+# sstore(cd[4], 0) with v = cd[5]: four slot writes and one slot zeroed
+WRITER_CODE = bytes.fromhex("60a035" "805f3555" "80602035" "55" "80604035" "55" "80606035" "55"
+                            "505f60803555" "00")
+# staticcall(gas, cd[0], input = cd[32:], out = 32 bytes at 0), then
+# sstore(cd[0], mload(0)): the precompile's first output word lands in the
+# slot named by its address
+CALLER_CODE = bytes.fromhex("602036038060205f37" "60205f825f5f355afa" "5f515f3555" "00")
+# blake2f's EIP-152 vector at 12 rounds
+BLAKE2F_INPUT = bytes.fromhex(
+    "0000000c48c9bdf267e6096a3ba7ca8485ae67bb2bf894fe72f36e3cf1361d5f3af54fa5"
+    "d182e6ad7f520e511f6c3e2b8c68059b6bbd41fbabd9831f79217e1319cde05b"
+    "6162630000000000000000000000000000000000000000000000000000000000"
+    "0000000000000000000000000000000000000000000000000000000000000000"
+    "0000000000000000000000000000000000000000000000000000000000000000"
+    "0000000000000000000000000000000000000000000000000000000000000000"
+    "0300000000000000" "0000000000000000" "01")
+SYNC_PRECOMPILES = (1, 2, 5, 6, 7, 9)
+
+
+def initcode_for(runtime: bytes) -> bytes:
+    """Initcode that returns ``runtime`` (up to 65,535 bytes)."""
+    n = len(runtime)
+    return _push(n, 2) + bytes.fromhex("600c5f39") + _push(n, 2) + bytes.fromhex("5ff3") + runtime
+
+
+def _word(n: int) -> bytes:
+    return n.to_bytes(32, "big")
+
+
+def _address(a: bytes) -> bytes:
+    return b"\x00" * 12 + a
+
+
+def token_slot(keccak, holder: bytes) -> bytes:
+    return keccak(_address(holder) + _word(0))
+
+
+class SyncChain:
+    """The staged-sync chain, built on ``pkg``: ``stage_state(n_accounts,
+    n_slots, seed)`` plus ``n_wallets`` wallets (keys from the seed, 10^21
+    wei each), the token (every wallet a holder), the storage writer (its
+    slots to zero prefilled) and the precompile caller; then ``n_blocks``
+    blocks of ``sizes``, each sealed by ``pkg.testing.ChainBuilder`` on
+    ``committer`` (with ``seal=False`` the caller seals them, one ``block()``
+    call each). ``senders[b]`` lists block b's signing addresses in order."""
+
+    TOKEN = b"\x70" * 19 + b"\x01"
+    WRITER = b"\x70" * 19 + b"\x02"
+    CALLER = b"\x70" * 19 + b"\x03"
+
+    def __init__(self, pkg, n_accounts: int, n_slots: int, seed: int, n_wallets: int,
+                 n_blocks: int, sizes: dict, committer, seal: bool = True):
+        t, keccak = pkg.types, pkg.keccak.keccak256
+        self.pkg, self.sizes, self.seed = pkg, sizes, seed
+        rng = np.random.default_rng(seed)
+        keys = rng.integers(1, 1 << 62, size=n_wallets + n_blocks, dtype=np.int64)
+        self.wallets = [pkg.testing.Wallet(int(k) * 7919 + 1) for k in keys[:n_wallets]]
+        # the type-4 authorities: one fresh wallet a block, never a sender
+        self.authorities = [pkg.testing.Wallet(int(k) * 7919 + 3) for k in keys[n_wallets:]]
+        accounts, storages = stage_state(t.Account, n_accounts, n_slots, seed)
+        topic = keccak(b"Transfer(address,address,uint256)")
+        self.codes = {self.TOKEN: token_code(topic), self.WRITER: WRITER_CODE,
+                      self.CALLER: CALLER_CODE}
+        for addr, code in self.codes.items():
+            accounts[addr] = t.Account(nonce=1, code_hash=keccak(code))
+        for w in self.wallets:
+            accounts[w.address] = t.Account(balance=WALLET_WEI)
+        storages[self.TOKEN] = {token_slot(keccak, w.address): TOKEN_SUPPLY for w in self.wallets}
+        # one prefilled slot for each writer call to zero
+        n_zero = sizes["writes"] * n_blocks + sizes["setcode"] * n_blocks
+        storages[self.WRITER] = {_word(i + 1): i + 1 for i in range(n_zero)}
+        self.zero_slots = [_word(i + 1) for i in range(n_zero)]
+        self.builder = pkg.testing.ChainBuilder(
+            accounts, storages, {keccak(c): c for c in self.codes.values()},
+            chain_id=SYNC_CHAIN_ID, committer=committer)
+        self.existing = list(accounts)[: max(1, n_accounts)]
+        self.senders: dict[int, list[bytes]] = {}
+        self.withdrawal_index = 0
+        for _ in range(n_blocks if seal else 0):
+            self.block()
+
+    def _sender(self, i: int):
+        return self.wallets[i % len(self.wallets)]
+
+    def _precompile_input(self, idx: int, rng, wallet) -> bytes:
+        keccak = self.pkg.keccak.keccak256
+        if idx == 1:
+            h = keccak(bytes(rng.integers(0, 256, size=32, dtype=np.uint8)))
+            parity, r, s = self.pkg.secp256k1.sign(h, wallet.priv)
+            return h + _word(27 + parity) + _word(r) + _word(s)
+        if idx == 2:
+            return bytes(rng.integers(0, 256, size=64, dtype=np.uint8))
+        if idx == 5:
+            base, exp, mod = (int(x) for x in rng.integers(1, 1 << 62, size=3))
+            return _word(32) * 3 + _word(base) + _word(exp) + _word(mod | 1)
+        if idx == 6:
+            return _word(1) + _word(2) + _word(1) + _word(2)
+        if idx == 7:
+            return _word(1) + _word(2) + _word(int(rng.integers(1, 1 << 62)))
+        return BLAKE2F_INPUT
+
+    def block(self):
+        """Seal the next block: its transactions in the order ETH transfers,
+        token transfers, writer calls, precompile calls, deploys, type 4."""
+        t, sz = self.pkg.types, self.sizes
+        b = self.builder.tip.number + 1
+        rng = np.random.default_rng(self.seed * 1000 + b)
+        txs, senders = [], []
+        i = 0
+
+        def fresh() -> bytes:
+            return bytes(rng.integers(0, 256, size=20, dtype=np.uint8))
+
+        def signed(w, tx):
+            txs.append(w.sign_tx(tx))
+            senders.append(w.address)
+
+        for k in range(sz["transfers"]):
+            w = self._sender(i)
+            i += 1
+            to = fresh() if k < sz["fresh"] else self._sender(i + 7).address
+            value = int(rng.integers(1, 10**15))
+            if k % 3 == 0:
+                tx = t.Transaction(tx_type=0, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                   gas_price=50 * 10**9, gas_limit=21_000, to=to, value=value)
+            elif k % 3 == 1:
+                tx = t.Transaction(tx_type=1, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                   gas_price=50 * 10**9, gas_limit=21_000, to=to, value=value)
+            else:
+                tx = t.Transaction(tx_type=2, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                   max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                   gas_limit=21_000, to=to, value=value)
+            signed(w, tx)
+        for k in range(sz["token"]):
+            w = self._sender(i)
+            i += 1
+            to = fresh() if k < sz["new_holders"] else self._sender(i + 3).address
+            data = _word(int.from_bytes(to, "big")) + _word(int(rng.integers(1, 10**9)))
+            signed(w, t.Transaction(tx_type=2, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                    max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                    gas_limit=100_000, to=self.TOKEN, data=data))
+        for k in range(sz["writes"]):
+            w = self._sender(i)
+            i += 1
+            signed(w, t.Transaction(tx_type=2, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                    max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                    gas_limit=200_000, to=self.WRITER,
+                                    data=self._writer_data(rng)))
+        for k in range(sz["precompiles"]):
+            w = self._sender(i)
+            i += 1
+            idx = SYNC_PRECOMPILES[k % len(SYNC_PRECOMPILES)]
+            data = _word(idx) + self._precompile_input(idx, rng, w)
+            signed(w, t.Transaction(tx_type=2, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                    max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                    gas_limit=200_000, to=self.CALLER, data=data))
+        for k in range(sz["creates"]):
+            w = self._sender(i)
+            i += 1
+            runtime = self.codes[self.TOKEN] + bytes(
+                rng.integers(0, 256, size=max(0, sz["runtime"] - len(self.codes[self.TOKEN])),
+                             dtype=np.uint8))
+            signed(w, t.Transaction(tx_type=2, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                    max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                    gas_limit=1_500_000, to=None, data=initcode_for(runtime)))
+        for k in range(sz["setcode"]):
+            w = self._sender(i)
+            i += 1
+            authority = self.authorities[(b - 1) % len(self.authorities)]
+            auth = authority.authorize(self.WRITER, nonce=authority.nonce, chain_id=SYNC_CHAIN_ID)
+            authority.nonce += 1
+            signed(w, t.Transaction(tx_type=4, chain_id=SYNC_CHAIN_ID, nonce=w.nonce,
+                                    max_fee_per_gas=100 * 10**9, max_priority_fee_per_gas=10**9,
+                                    gas_limit=300_000, to=authority.address,
+                                    data=self._writer_data(rng), authorization_list=(auth,)))
+        withdrawals = []
+        for k in range(sz["withdrawals"]):
+            addr = (self._sender(k).address if k % 2 else
+                    self.existing[int(rng.integers(0, len(self.existing)))])
+            withdrawals.append(t.Withdrawal(self.withdrawal_index, 1000 + k, addr,
+                                            int(rng.integers(1, 10**9))))
+            self.withdrawal_index += 1
+        self.senders[b] = senders
+        return self.builder.build_block(txs, withdrawals=tuple(withdrawals))
+
+    def _writer_data(self, rng) -> bytes:
+        slots = [bytes(rng.integers(0, 256, size=32, dtype=np.uint8)) for _ in range(4)]
+        return (b"".join(slots) + self.zero_slots.pop(0)
+                + _word(int(rng.integers(1, 1 << 62))))

@@ -15,6 +15,11 @@ import pytest
 import torch
 
 from reth_tpu_torch import convert
+from reth_tpu_torch import stages as tstages
+from reth_tpu_torch import testing as ttesting
+from reth_tpu_torch.consensus import EthBeaconConsensus
+from reth_tpu_torch.stages import execution as texecution
+from reth_tpu_torch.storage import genesis as tgenesis
 from reth_tpu_torch.device import resolve
 from reth_tpu_torch.engine.sparse_root import SparseRootTask
 from reth_tpu_torch.metrics import MetricsRegistry
@@ -70,7 +75,15 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.stages.merkle", "reth_tpu_torch.trie.proof",
                 "reth_tpu_torch.evm", "reth_tpu_torch.evm.state", "reth_tpu_torch.evm.executor",
                 "reth_tpu_torch.engine", "reth_tpu_torch.engine.stateless",
-                "reth_tpu_torch.engine.sparse_root"):
+                "reth_tpu_torch.engine.sparse_root", "reth_tpu_torch.evm.interpreter",
+                "reth_tpu_torch.evm.spec", "reth_tpu_torch.chainspec",
+                "reth_tpu_torch.primitives.secp256k1", "reth_tpu_torch.primitives.pairing",
+                "reth_tpu_torch.primitives.bls12381", "reth_tpu_torch.primitives.kzg",
+                "reth_tpu_torch.primitives.blake2", "reth_tpu_torch.consensus",
+                "reth_tpu_torch.consensus.validation", "reth_tpu_torch.storage.genesis",
+                "reth_tpu_torch.stages.execution", "reth_tpu_torch.stages.sender_recovery",
+                "reth_tpu_torch.stages.tx_lookup", "reth_tpu_torch.stages.index_history",
+                "reth_tpu_torch.stages.finish", "reth_tpu_torch.testing"):
         assert mod in res["modules"]
 
 
@@ -101,7 +114,9 @@ def test_sources_name_no_jax_import():
     tw.build_shape, tmerkle.MerkleStage.__init__, tmerkle.MerkleUnwindStage.__init__,
     thashing.AccountHashingStage.__init__, thashing.StorageHashingStage.__init__,
     tinc.IncrementalStateRoot.__init__, tinc.full_state_root, tinc.full_state_root_turbo,
-    tinc.verify_state_root, tproof.ProofCalculator.__init__,
+    tinc.verify_state_root, tproof.ProofCalculator.__init__, tstages.default_stages,
+    EthBeaconConsensus.__init__, texecution.ExecutionStage.__init__, tgenesis.init_genesis,
+    ttesting.ChainBuilder.__init__,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -147,8 +162,38 @@ def test_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError):
         SparseRootTask(provider, EMPTY_ROOT_HASH, tsp.PreservedSparseTrie(),
                        TrieCommitter(hasher=keccak256_batch_np))
+    # the staged sync: every stage that builds a committer, the consensus,
+    # genesis and the chain builder hash on the card by default
+    with pytest.raises(RuntimeError):
+        tstages.default_stages()
+    with pytest.raises(RuntimeError):
+        EthBeaconConsensus()
+    with pytest.raises(RuntimeError):
+        texecution.ExecutionStage()
+    with pytest.raises(RuntimeError):
+        tgenesis.init_genesis(ProviderFactory(MemDb()), None, {})
+    with pytest.raises(RuntimeError):
+        ttesting.ChainBuilder({})
     with pytest.raises(ValueError):
         resolve("meta")
+
+
+def test_default_stages_build_on_the_device():
+    """default_stages(device=) hands its device to every stage that builds a
+    committer (the consensus of the execution stage among them), in the
+    reference's order; a given committer is shared as it is."""
+    made = tstages.default_stages(device="cpu")
+    assert [s.id for s in made] == [
+        "SenderRecovery", "Execution", "MerkleUnwind", "AccountHashing", "StorageHashing",
+        "MerkleExecute", "TransactionLookup", "IndexStorageHistory", "IndexAccountHistory",
+        "Finish"]
+    devices = [made[1].consensus.committer.device, made[2].committer.device,
+               made[5].committer.device] + [s.hasher.__self__.device for s in made[3:5]]
+    assert set(devices) == {torch.device("cpu")}
+    twin = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    given = tstages.default_stages(committer=twin, device="cpu")
+    assert given[2].committer is twin and given[5].committer is twin
+    assert given[3].hasher is keccak256_batch_np
 
 
 def test_merkle_stage_rebuilds_on_the_device_route():
