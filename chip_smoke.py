@@ -5,8 +5,9 @@
                           [--sync-accounts N] [--sync-slots N]
 
 1. Builds every native source of the port from this checkout (the two CUDA
-   kernel libraries with nvcc, the trie sweep and the secp256k1 batch with
-   g++, all at once), and prints ptxas's registers, stack frame and spills
+   kernel libraries with nvcc, the trie sweep, the secp256k1 batch and the
+   native executor with g++, all at once), and prints ptxas's registers,
+   stack frame and spills
    per kernel function; a
    stack frame or a spill in keccak256_absorb, a level kernel or
    subtrie_levels fails the run, and so does a non-coherent (.CONSTANT)
@@ -53,7 +54,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, twenty-four main paths, the launch counters zeroed just before
+3. Slice phase, twenty-seven main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -207,6 +208,36 @@
    MerkleStage made 0 fallbacks. Each step's and each stage's wall,
    senders/s, the Execution stage's Mgas/s and transactions/s and the
    rebuild's hashed nodes/s are logged.
+   Then the engine tree (EngineCell) on that chain, each variant from a
+   MemDb restored from the sync path's table map right after its
+   init_genesis: EngineTree(factory, TrieCommitter(device="cuda"),
+   EthBeaconConsensus(committer, device="cuda"), EvmConfig(),
+   persistence_threshold=2, device="cuda"), on_new_payload then
+   on_forkchoice_updated for each of the chain's blocks, then one more fcU
+   with a threshold of 0: "engine", the sparse strategy with hot state
+   (kernel 1: consensus roots, key hashing, proofs, reveals; kernel 4: the
+   arena's delta finish); "engine parallel", the same with the optimistic
+   scheduler on the native core (csrc/evmexec.cpp, g++) and the two-deep
+   import pipeline (payload N+1 sent from a second thread once N is in its
+   root phase, block_pipeline.import_chain); "engine pipelined",
+   PipelinedStateRoot and IncrementalStateRoot (kernel 1 only). Each
+   status must be VALID at its header's hash and root (the child's seal),
+   each sparse root "sparse" (0 fallbacks), "engine parallel" must take
+   native ranks in every block and adopt a speculation with none aborted,
+   no prehash batch may fail, the arena must end with no fault, leaked row
+   or pinned staging, and persisted to block 8 the plain, hashed and trie
+   tables and Bytecodes must equal the sync's first sync row for row. Each
+   block's newPayload wall by the tree's phases (from its block timeline),
+   the sparse task's walls, overlap, proof targets and finish retries, the
+   optimistic scheduler's ranks, launches (on "engine parallel", whose
+   blocks overlap, those of each block's window: from the previous
+   newPayload's return to its own), the fcU and persistence walls and the
+   import's Mgas/s are logged. Its drills run after the profiled
+   runs of step 4 (each counts an arena fault, which the main paths may
+   not): a) RETH_TPU_FAULT_SPARSE_ABORT=1 on block 1 falls back to the
+   incremental committer, VALID at the header's root; b) a launch fault in
+   the arena's delta finish on block 2 raises out of on_new_payload (a
+   LaunchError cause, one arena fault, no fallback).
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -220,12 +251,16 @@
    time and idle share), one under cProfile (the host's time by function;
    "merkle stage" has no cProfile run since the live tip came, and neither
    it nor "merkle incremental" has profiled runs since the sync path came:
-   no room in the time limit; "sync" is profiled inside its own path).
+   no room in the time limit; "sync" is profiled inside its own path; the
+   engine: block 1 of a fresh "engine" tree under torch.profiler, then
+   block 2 under cProfile).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
    also at "merkle incremental"'s launches, the "incremental_absorb" row,
-   and at "sync"'s, the "sync_absorb" row
+   at "sync"'s, the "sync_absorb" row, and at "engine"'s, the
+   "engine_absorb" row, with subtrie_levels at "engine"'s arena launches,
+   the "engine_subtrie" row, replayed on the arena's buffer as found
    ("merkle stage"'s are state_root's shape, 16,384 one-block rows); and
    packed_level once more at state_root's
    template levels, the "template_levels" row, whose plain version is
@@ -829,7 +864,7 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
-         "live tip service", "proofs", "sync")
+         "live tip service", "proofs", "sync", "engine", "engine parallel", "engine pipelined")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -847,7 +882,10 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "live tip cached": ("keccak256_absorb", "subtrie_levels"),
                 "live tip reused": ("keccak256_absorb", "subtrie_levels"),
                 "live tip service": ("keccak256_absorb",), "proofs": ("keccak256_absorb",),
-                "sync": ("keccak256_absorb", "packed_level", "branch_level")}
+                "sync": ("keccak256_absorb", "packed_level", "branch_level"),
+                "engine": ("keccak256_absorb", "subtrie_levels"),
+                "engine parallel": ("keccak256_absorb", "subtrie_levels"),
+                "engine pipelined": ("keccak256_absorb",)}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -860,14 +898,15 @@ ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_abs
               "sparse_subtrie": "subtrie_levels", "arena_subtrie": "subtrie_levels",
               "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb",
               "live_tip_absorb": "keccak256_absorb", "live_tip_subtrie": "subtrie_levels",
-              "sync_absorb": "keccak256_absorb"}
+              "sync_absorb": "keccak256_absorb", "engine_absorb": "keccak256_absorb",
+              "engine_subtrie": "subtrie_levels"}
 # the rows held and timed at their two launches only: no step breakdown, and
 # the plain version (about a second a chunk) timed once
-STEPLESS_ROWS = ("live_tip_subtrie",)
+STEPLESS_ROWS = ("live_tip_subtrie", "engine_subtrie")
 # the main paths whose kernel 4 launches keep a copy of the digest buffer as
 # it was before the launch (the arena's: rows of earlier epochs), so that the
 # timed replay starts from it
-KEEP_BUFFER_PATHS = ("sparse arena", "live tip")
+KEEP_BUFFER_PATHS = ("sparse arena", "live tip", "engine")
 # the one place the port may launch kernel 1 from
 KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
 
@@ -1127,6 +1166,12 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "sync_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
                         level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
                         "reth_tpu/ops/keccak_pallas.py:96", "sync"),
+        "engine_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                          level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                          "reth_tpu/ops/keccak_pallas.py:96", "engine"),
+        "engine_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
+                           lambda *a: subtrie_cost(bound, *a), level_src,
+                           "reth_tpu/ops/fused_commit.py:1046", "engine"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -2320,6 +2365,7 @@ class SyncCell:
         step("init_genesis", lambda: init_genesis(
             self.factory, self.genesis, self.accounts, storage=self.storage, codes=self.codes,
             device="cuda"))
+        self.genesis_tables = self.db._tables  # the engine paths start from it
         step("import", lambda: import_chain(self.factory, self.blocks,
                                             EthBeaconConsensus(device="cuda")))
         self.stages = default_stages(device="cuda")
@@ -2423,6 +2469,384 @@ class SyncCell:
                 f"{sid} {w:.3f} s" for sid, w in walls.items()) + extra)
         log("sync: step walls " + ", ".join(f"{k} {v:.3f} s" for k, v in self.walls.items())
             + f"; launches {json.dumps(launches)}")
+
+
+# the engine paths: the sync path's chain imported by EngineTree from the sync
+# path's genesis tables, each variant all of its blocks
+ENGINE_PATHS = ("engine", "engine parallel", "engine pipelined")
+# the tables the engine's persistence must leave equal to the first sync's
+ENGINE_TABLES = ("PlainAccountState", "PlainStorageState", "Bytecodes", "HashedAccounts",
+                 "HashedStorages", "AccountsTrie", "StoragesTrie")
+# the engine's kernels, each by the module attribute the port calls it through
+ENGINE_KERNELS = (("keccak256_absorb", "reth_tpu_torch.ops.keccak", "keccak256_words_masked"),
+                  ("subtrie_levels", "reth_tpu_torch.ops.fused_commit", "subtrie_levels"))
+# the tree's phases of one newPayload, as its spans name them
+ENGINE_PHASES = ("validate", "prepare", "recover_senders", "root_task_start", "execute",
+                 "adopt_speculation", "post_validate", "write_overlay", "state_root", "finalize")
+
+
+def engine_launches() -> dict:
+    """The engine's kernels' launch counts now. Under the recorder a
+    wrapper counts inside its lock, so the counts are read inside it too:
+    no launch of another thread is half counted."""
+    import importlib
+
+    fns = {name: getattr(importlib.import_module(mod), attr)
+           for name, mod, attr in ENGINE_KERNELS}
+    recorder = getattr(fns["keccak256_absorb"], "recorder", None)
+    lock = recorder.lock if recorder is not None else threading.Lock()
+    with lock:
+        return {name: fn.launches for name, fn in fns.items()}
+
+
+class EngineCell:
+    """The "engine" paths: the sync path's chain (``sync``, a ``SyncCell``
+    after its path) imported through the entry points a consensus client
+    calls, ``EngineTree.on_new_payload`` then ``on_forkchoice_updated`` for
+    each block, on a MemDb restored from the sync path's tables right after
+    its ``init_genesis``. The node's configuration: ``EngineTree(factory,
+    TrieCommitter(device="cuda"), EthBeaconConsensus(committer,
+    device="cuda"), EvmConfig(), persistence_threshold=2, device="cuda")``;
+    after the last block one more fcU with a threshold of 0 persists the
+    chain to its tip. "engine": the sparse strategy with hot state (kernel 1
+    for the consensus roots, key hashing, proofs and reveals; kernel 4 for
+    the arena's delta finish); "engine parallel": the same with the
+    optimistic scheduler on the native core and the two-deep import
+    pipeline, payload N+1 sent from a second thread once N is in its root
+    phase (``block_pipeline.import_chain``); "engine pipelined":
+    ``PipelinedStateRoot`` and ``IncrementalStateRoot`` (kernel 1 only)."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.blocks = sync.blocks
+        self.results: dict[str, dict] = {}
+
+    def tree(self, **kw):
+        from reth_tpu_torch.consensus import EthBeaconConsensus
+        from reth_tpu_torch.engine import EngineTree
+        from reth_tpu_torch.evm import EvmConfig
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+        from reth_tpu_torch.trie.committer import TrieCommitter
+
+        db = MemDb()
+        db._tables = self.sync.genesis_tables  # published maps are immutable
+        committer = TrieCommitter(device="cuda")
+        tree = EngineTree(ProviderFactory(db), committer,
+                          EthBeaconConsensus(committer, device="cuda"), EvmConfig(),
+                          persistence_threshold=2, device="cuda", **kw)
+        return self.instrument(tree)
+
+    @staticmethod
+    def instrument(tree):
+        """Keep, per block, what the tree computes and then overwrites: the
+        sparse task (its finish retries), ``last_sparse`` right after the
+        root closes, the optimistic scheduler's stats, the pipelined route's
+        failed prehash batches, and each persistence advance's wall."""
+        rec = tree.smoke = {"tasks": [], "sparse": [], "exec": [], "prehash_failed": 0,
+                            "persist_s": [], "returned": {}}
+        new_payload = tree.on_new_payload
+        start, close = tree._start_sparse_root, tree._sparse_root_or_fallback
+        job, metrics, persist = (tree._state_root_job, tree._record_exec_metrics,
+                                 tree._advance_persistence)
+
+        def on_new_payload(blk, *a, **kw):
+            st = new_payload(blk, *a, **kw)
+            # the launch counts at the block's last return (a SYNCING
+            # answer is retried)
+            rec["returned"][blk.hash] = (time.perf_counter(), engine_launches())
+            return st
+
+        def start_sparse_root(*a, **kw):
+            task = start(*a, **kw)
+            rec["tasks"].append(task)
+            return task
+
+        def sparse_root_or_fallback(*a):
+            root = close(*a)
+            rec["sparse"].append(dict(tree.last_sparse, retries=a[2].retries))
+            return root
+
+        def state_root_job(overlay, out, root_job=None):
+            root = job(overlay, out, root_job)
+            if root_job is not None:
+                rec["prehash_failed"] += root_job.batches_failed
+            return root
+
+        def record_exec_metrics(bal=None, optimistic=None):
+            if optimistic is not None:
+                rec["exec"].append(dict(optimistic))
+            return metrics(bal=bal, optimistic=optimistic)
+
+        def advance_persistence():
+            t0 = time.perf_counter()
+            persist()
+            rec["persist_s"].append(time.perf_counter() - t0)
+
+        tree.on_new_payload = on_new_payload
+        tree._start_sparse_root = start_sparse_root
+        tree._sparse_root_or_fallback = sparse_root_or_fallback
+        tree._state_root_job = state_root_job
+        tree._record_exec_metrics = record_exec_metrics
+        tree._advance_persistence = advance_persistence
+        return tree
+
+    @staticmethod
+    def phases(block_hash: bytes, since: float) -> dict:
+        """The tree's phase walls (ms) of one block, from its timeline's
+        spans that started at or after ``since`` (a block's timeline is
+        keyed by its hash, which every variant imports again)."""
+        from reth_tpu_torch import tracing
+
+        out = {}
+        for r in tracing.block_timeline(block_hash.hex()) or []:
+            if r["ts"] >= since and r["kind"] == "span" and (
+                    r["name"] in ENGINE_PHASES or r["name"] == "speculate.exec"):
+                out[r["name"]] = round(out.get(r["name"], 0.0) + r["dur_ms"], 3)
+        return out
+
+    def drive(self, path: str) -> dict:
+        """One variant over all the chain's blocks; returns its record."""
+        import torch
+
+        from reth_tpu_torch import tracing
+        from reth_tpu_torch.engine.block_pipeline import import_chain
+
+        kw = {"engine": dict(state_root_strategy="sparse", hot_state=True),
+              "engine parallel": dict(state_root_strategy="sparse", hot_state=True,
+                                      parallel_exec=True, pipeline_depth=2),
+              "engine pipelined": dict(state_root_strategy="pipelined", hot_state=False)}[path]
+        blocks = self.blocks
+        tree = self.tree(**kw)
+        res = {"blocks": [], "statuses": []}
+        tracing.set_trace_enabled(True)
+        since = time.time()
+        try:
+            t_path = time.perf_counter()
+            if path == "engine parallel":
+                start = engine_launches()
+                statuses = import_chain(tree, blocks)
+                torch.cuda.synchronize()
+                res["import_s"] = time.perf_counter() - t_path
+                res["statuses"] = [(s.status.value, s.latest_valid_hash) for s in statuses]
+                # the blocks overlap, so a block's launches are those of its
+                # window: from the previous return to its own, in return order
+                returned = tree.smoke["returned"]
+                window, prev = {}, start
+                for blk in sorted(blocks, key=lambda b: returned[b.hash][0]):
+                    now = returned[blk.hash][1]
+                    window[blk.hash] = {k: now[k] - prev[k] for k in now}
+                    prev = now
+                for blk in blocks:
+                    res["blocks"].append({"number": blk.header.number,
+                                          "window_launches": window[blk.hash],
+                                          "phases": self.phases(blk.hash, since)})
+            else:
+                for blk in blocks:
+                    before = engine_launches()
+                    t0 = time.perf_counter()
+                    st = tree.on_new_payload(blk)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fcu = tree.on_forkchoice_updated(blk.hash)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    res["statuses"].append((st.status.value, st.latest_valid_hash))
+                    if fcu.status.value != "VALID":
+                        raise AssertionError(f"{path}: fcU to block {blk.header.number}: {fcu}")
+                    res["blocks"].append({
+                        "number": blk.header.number, "new_payload_s": t1 - t0,
+                        "fcu_s": t2 - t1, "phases": self.phases(blk.hash, since),
+                        "launches": {k: v - before[k]
+                                     for k, v in engine_launches().items()}})
+                res["import_s"] = sum(b["new_payload_s"] for b in res["blocks"])
+            t0 = time.perf_counter()
+            tree.persistence_threshold = 0
+            fcu = tree.on_forkchoice_updated(blocks[-1].hash)
+            torch.cuda.synchronize()
+            res["persist_tip_s"] = time.perf_counter() - t0
+            res["path_s"] = time.perf_counter() - t_path
+        finally:
+            tracing.set_trace_enabled(False)
+        if fcu.status.value != "VALID":
+            raise AssertionError(f"{path}: the persisting fcU: {fcu}")
+        res["tree"] = tree
+        self.results[path] = res
+        return res
+
+    def check(self, path: str) -> None:
+        """Every status VALID at its header's hash and root (the child's
+        seal); 0 sparse fallbacks; native ranks and an adopted speculation on
+        "engine parallel", no speculation aborted; 0 failed prehash batches;
+        the arena with no fault, leaked row or pinned staging; persisted to
+        the tip, the tables of ENGINE_TABLES equal the sync path's first sync
+        at SYNC_BLOCKS row for row."""
+        from reth_tpu_torch.storage import MemDb
+
+        res = self.results[path]
+        tree, rec = res["tree"], res["tree"].smoke
+        blocks = self.blocks
+        want = [("VALID", blk.hash) for blk in blocks]
+        if res["statuses"] != want:
+            raise AssertionError(f"{path}: statuses {res['statuses']}, want VALID at each hash")
+        for blk in blocks:
+            if blk.header.state_root.hex() != self.sync.roots[blk.header.number]:
+                raise AssertionError(f"{path}: block {blk.header.number}'s root is not the seal's")
+        if path != "engine pipelined":
+            strategies = [m["strategy"] for m in rec["sparse"]]
+            if strategies != ["sparse"] * len(blocks) or tree.sparse_fallbacks:
+                raise AssertionError(f"{path}: sparse strategies {strategies}, "
+                                     f"{tree.sparse_fallbacks} fallbacks")
+            arena = tree.hot_arena
+            snap = arena.snapshot()
+            pinned = arena.engine.pinned_bytes() if arena.engine is not None else 0
+            if snap["faults"] or snap["leaked_rows"] or pinned:
+                raise AssertionError(f"{path}: a fault, a leaked row or pinned staging in the "
+                                     f"arena: {snap}, {pinned} B pinned")
+            res["arena"] = snap
+        elif rec["sparse"] or tree.last_sparse is not None:
+            raise AssertionError(f"{path}: a sparse root on the pipelined strategy")
+        if rec["prehash_failed"]:
+            raise AssertionError(f"{path}: {rec['prehash_failed']} failed prehash batches")
+        if path == "engine parallel":
+            pipe = tree.pipeline.stats_snapshot()
+            res["pipeline"] = pipe
+            natives = [e["native"] for e in rec["exec"]]
+            if (len(rec["exec"]) != len(blocks) or not all(natives)
+                    or any(e["fallback"] for e in rec["exec"])):
+                raise AssertionError(f"{path}: the optimistic scheduler's stats {rec['exec']}")
+            if not pipe["adopted"] or pipe["aborted"] or pipe["prehash_failed"]:
+                raise AssertionError(f"{path}: the import pipeline {pipe}")
+        if tree.persisted_number != len(blocks):
+            raise AssertionError(f"{path}: persisted to {tree.persisted_number}")
+        first = MemDb()
+        first._tables = self.sync.first
+        want_t = table_digests(first, ENGINE_TABLES)
+        got_t = table_digests(tree.factory.db, ENGINE_TABLES)
+        if got_t != want_t:
+            raise AssertionError(f"{path}: tables at {SYNC_BLOCKS} differ from the first "
+                                 f"sync's: {got_t} against {want_t}")
+        res["tables"] = {n: want_t[n][0] for n in ENGINE_TABLES}
+
+    def report(self, path: str, launches: dict) -> None:
+        """Each block's newPayload wall by phase, its sparse task's walls,
+        overlap, proof targets and finish retries, launches, the fcU and
+        persistence walls; the import's Mgas/s."""
+        res = self.results[path]
+        rec = res["tree"].smoke
+        blocks = self.blocks
+        for i, b in enumerate(res["blocks"]):
+            line = f"{path}: block {b['number']}"
+            if "new_payload_s" in b:
+                line += (f" newPayload {b['new_payload_s']:.4f} s, fcU {b['fcu_s']:.4f} s, "
+                         f"launches {json.dumps(b['launches'])}")
+            else:
+                line += (" launches in its window (from the previous newPayload's return to "
+                         f"its own) {json.dumps(b['window_launches'])}")
+            line += f"; phases (ms) {json.dumps(b['phases'])}"
+            if i < len(rec["sparse"]):
+                m = rec["sparse"][i]
+                line += (f"; sparse: proof {m['proof']} s (summed over the pool), reveal "
+                         f"{m['reveal']} s, finish {m['finish']} s, hash {m['hash']} s, worker "
+                         f"busy {m['worker_busy']} s, exec wall {m['exec_wall']} s, overlap "
+                         f"{m['overlap_fraction']}, proof targets {m['proof_targets']}, cache "
+                         f"unblinds {m['cache_unblinds']}, finish retries {m['retries']}, "
+                         f"proof shards {m['proof_shards']}, reused {m['reused']}")
+            if i < len(rec["exec"]):
+                e = rec["exec"][i]
+                line += (f"; optimistic: native {e['native']}, python {e['python']}, "
+                         f"speculative {e['speculative']}, serial reruns {e['serial_rerun']}, "
+                         f"rounds {e['rounds']}, wall {e.get('wall_s')}")
+            log(line)
+        gas = sum(blk.header.gas_used for blk in blocks)
+        log(f"{path}: {len(blocks)} blocks, {sum(len(b.transactions) for b in blocks)} "
+            f"transactions, {gas} gas imported in {res['import_s']:.3f} s "
+            f"({gas / res['import_s'] / 1e6:.3f} Mgas/s of import); persistence advances "
+            f"{[round(x, 4) for x in rec['persist_s']]} s, the persisting fcU "
+            f"{res['persist_tip_s']:.3f} s; path {res['path_s']:.3f} s; launches "
+            f"{json.dumps(launches)}"
+            + (f"; arena {json.dumps(res['arena'])}" if "arena" in res else "")
+            + (f"; pipeline {json.dumps(res['pipeline'])}" if "pipeline" in res else "")
+            + (f"; tables equal to the first sync's ({json.dumps(res['tables'])} rows)"
+               if "tables" in res else ""))
+
+    def profile(self) -> None:
+        """Outside the main paths: block 1 of a fresh "engine" tree under
+        torch.profiler, then block 2 under cProfile."""
+        tree = self.tree(state_root_strategy="sparse", hot_state=True)
+        b1, b2 = self.blocks[0], self.blocks[1]
+
+        def payload(blk):
+            st = tree.on_new_payload(blk)
+            if (st.status.value, st.latest_valid_hash) != ("VALID", blk.hash):
+                raise AssertionError(f"engine (profiled): block {blk.header.number}: {st}")
+            tree.on_forkchoice_updated(blk.hash)
+
+        device_profile("engine block 1", lambda: payload(b1))
+        host_profile("engine block 2", payload, b2,
+                     focus=("on_new_payload", "_execute_into_overlay", "execute",
+                            "_sparse_root_or_fallback", "finish", "_finish_inner",
+                            "multiproof", "_reveal", "_write_sparse_output",
+                            "export_updates", "validate_block_post_execution",
+                            "_sorted_keys", "hash_batch", "recover_senders"))
+
+    def drills(self) -> list[dict]:
+        """a) RETH_TPU_FAULT_SPARSE_ABORT=1 on block 1 of a fresh "engine"
+        tree: the sparse commit aborts, the tree reruns the block on the
+        incremental committer, VALID at the header's root, strategy
+        "fallback"; b) block 2 of another, its arena's delta finish given a
+        launch fault (``_build.check_launch`` of a CUDA error, as a failed
+        launch of kernel 4 reports it): on_new_payload raises it, with no
+        fallback and one arena fault."""
+        import torch
+
+        from reth_tpu_torch.engine import SparseRootError
+        from reth_tpu_torch.ops import _build
+        from reth_tpu_torch.ops import fused_commit as fc
+
+        out = []
+        b1, b2 = self.blocks[0], self.blocks[1]
+        os.environ["RETH_TPU_FAULT_SPARSE_ABORT"] = "1"
+        try:
+            tree = self.tree(state_root_strategy="sparse", hot_state=True)
+            t0 = time.perf_counter()
+            st = tree.on_new_payload(b1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ["RETH_TPU_FAULT_SPARSE_ABORT"]
+        if ((st.status.value, st.latest_valid_hash) != ("VALID", b1.hash)
+                or tree.last_sparse["strategy"] != "fallback" or tree.sparse_fallbacks != 1):
+            raise AssertionError(f"engine drill a): {st}, {tree.last_sparse}, "
+                                 f"{tree.sparse_fallbacks} fallbacks")
+        out.append({"drill": "sparse abort", "rung": "fallback", "wall_s": round(wall, 4),
+                    "error": tree.last_sparse["error"][:80]})
+        tree = self.tree(state_root_strategy="sparse", hot_state=True)
+        if tree.on_new_payload(b1).status.value != "VALID":
+            raise AssertionError("engine drill b): block 1 did not validate")
+        tree.on_forkchoice_updated(b1.hash)
+        real = fc.subtrie_levels
+
+        def failing(*_a):
+            _build.check_launch(700, "subtrie_levels")
+
+        fc.subtrie_levels = failing
+        try:
+            tree.on_new_payload(b2)
+        except SparseRootError as e:
+            cause = e.__cause__
+        else:
+            raise AssertionError("engine drill b): a launch fault in the arena's finish did "
+                                 "not raise out of on_new_payload")
+        finally:
+            fc.subtrie_levels = real
+        torch.cuda.synchronize()
+        if (not isinstance(cause, _build.LaunchError) or tree.sparse_fallbacks
+                or tree.hot_arena.faults != 1 or b2.hash in tree.blocks):
+            raise AssertionError(f"engine drill b): cause {cause!r}, {tree.sparse_fallbacks} "
+                                 f"fallbacks, {tree.hot_arena.faults} arena faults")
+        out.append({"drill": "arena launch fault", "rung": "raised",
+                    "error": f"{type(cause).__name__}: {cause}"[:80]})
+        return out
 
 
 # the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
@@ -3403,6 +3827,14 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
         log(f"main path sync: {walls.pop('sync'):.3f} s wall")
         sync.report(launches["sync"])
         sync.check()
+        # the engine tree over the sync path's genesis tables and chain
+        recorder.path = None
+        engine = EngineCell(sync)
+        for name in ENGINE_PATHS:
+            run_path(name, lambda: engine.drive(name))
+            walls.pop(name)
+            engine.check(name)
+            engine.report(name, launches[name])
         recorder.path = None
     merkle.check_incremental()
     live.finish_checks()
@@ -3572,6 +4004,10 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
                         "spine_for_path", "storage_spine_for_path", "export_branch_updates",
                         "_sorted_keys", "hash_batch", "keccak256"))
     live.report(live.results["live tip (profiled)"])
+    engine.profile()
+    # after the main paths' fallback count: drill a) counts an arena fault
+    # (the injected abort), and b) one more
+    log(f"engine drills: {json.dumps(engine.drills())}")
     return launches, recorder, hot
 
 
@@ -4032,7 +4468,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     srcs = [_build.CUDA_SRC_DIR / n for n in _build.KERNEL_SOURCES] + [
-        turbo._SRC, _build.PKG_DIR / "csrc" / "secp256k1.cpp"]
+        turbo._SRC, _build.PKG_DIR / "csrc" / "secp256k1.cpp",
+        _build.PKG_DIR / "csrc" / "evmexec.cpp"]
     t0 = time.perf_counter()
     paths = _build.build(srcs)
     log(f"built {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")

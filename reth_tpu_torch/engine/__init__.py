@@ -1,17 +1,25 @@
-"""Engine (live tip): the sparse-trie state-root strategy.
+"""Engine (live tip): in-memory block tree, payload validation, forkchoice.
 
-Of the JAX package's ``engine`` the live tip's state-root job is ported:
-``SparseRootTask`` (``sparse_root.py``), which streams a block's touched
-keys, fetches multiproofs from the parent's database, reveals them into a
-sparse trie and finishes on the card, and ``apply_output_to_trie``
-(``stateless.py``), the delta it finishes with. The engine tree that drives
-it, its strategy choice, the incremental fallback and the write-back of the
-exported trie updates are not ported yet (ROADMAP A item 11); stateless
-validation needs the EVM (A item 7).
+A copy of the JAX package's ``engine``: the tree (``tree.py EngineTree``:
+``on_new_payload`` / ``on_forkchoice_updated``, orphan buffering, invalid
+ancestors, reorgs, deep-reorg unwinds and persistence), its state-root
+strategies (``sparse_root.py SparseRootTask`` on the card, or
+``pipelined_root.py PipelinedStateRoot`` with the incremental committer),
+the execution cache and prewarm, the parallel executors (``bal.py``,
+``optimistic.py`` and the native core ``native_exec.py``), the cross-block
+import pipeline (``block_pipeline.py``), and the middleware (``util.py``,
+``invalid_hooks.py``). Each pending block's entire effect is one overlay
+layer (``storage/overlay.py``); persistence applies layers in canonical
+order.
+
+Not ported yet (ROADMAP A): ``local.py`` (it needs ``payload/``), stateless
+validation (``stateless.py WitnessStateSource`` / ``StatelessChain``) and
+``witness.py``.
 """
 
 from .sparse_root import SparseRootError, SparseRootTask
 from .stateless import StatelessValidationError, apply_output_to_trie
+from .tree import EngineTree, ExecutedBlock, PayloadStatus
 
-__all__ = ["SparseRootError", "SparseRootTask", "StatelessValidationError",
-           "apply_output_to_trie"]
+__all__ = ["EngineTree", "ExecutedBlock", "PayloadStatus", "SparseRootError",
+           "SparseRootTask", "StatelessValidationError", "apply_output_to_trie"]

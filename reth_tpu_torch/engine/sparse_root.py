@@ -29,9 +29,9 @@ Two departures from the reference, with its results:
 
 Any failure to close (an unresolvable blind, a commit that raises) ends in
 ``SparseRootError``, which keeps the failure as its ``__cause__``. The
-reference's engine tree answers it by rerunning the block on the
-incremental committer; the tree is not ported yet (ROADMAP A item 11), so
-here nothing falls back.
+engine tree (``tree.py``) answers it by rerunning the block on the
+incremental committer, as the reference does, unless that cause is a
+kernel fault (``ops/_build.is_kernel_fault``), which it raises.
 
 Reference analogue: `SparseTrieCacheTask` + the proof-worker pools
 (crates/engine/tree/src/tree/state_root_strategy/sparse_trie.rs:126-259,

@@ -6,7 +6,7 @@ step (the reference's `sparse_trie.rs:126-259`), which the live tip
 (``engine/sparse_root.py``) finishes every block with. Stateless
 validation (``WitnessStateSource``, ``StatelessChain``) re-executes the
 block on the port's EVM from a witness; it is not ported yet (ROADMAP A
-item 7, the next slice's item 3): both raise ``NotImplementedError``.
+item 7, the next slice's item 1): both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..primitives.types import Account
 from ..trie.sparse import BlindedNodeError, SparseStateTrie, SparseTrie
 
 _NO_EVM = ("stateless validation (a witness state source for the EVM) is not ported yet "
-           "(ROADMAP A item 7: the next slice's item 3)")
+           "(ROADMAP A item 7: the next slice's item 1)")
 
 
 class StatelessValidationError(Exception):

@@ -10,8 +10,12 @@ fused engines' launches and the k-level engine's fault ladder),
 ``SupervisorMetrics`` (the breaker, failovers, watchdog timeouts and
 probes), ``HotStateMetrics`` (the hot-state plane's node cache and
 device digest arena), ``HashServiceMetrics`` (the shared hash service's
-lanes) and ``WarmupMetrics`` (the warm-up manager's menu and compile
-cache). The module-level instances record into the process-wide
+lanes), ``WarmupMetrics`` (the warm-up manager's menu and compile
+cache), and the engine's three: ``ExecMetrics`` (the optimistic scheduler
+and the BAL wave executor), ``EngineTreeMetrics`` (the invalid-header
+cache, the orphan buffer, reorgs and cancelled inserts) and
+``BlockPipelineMetrics`` (the cross-block import pipeline). The
+module-level instances record into the process-wide
 ``REGISTRY``, as in the reference. The node's process and build-identity
 gauges are not ported.
 """
@@ -612,3 +616,255 @@ class WarmupMetrics:
 
     def set_cache_entries(self, n: int) -> None:
         self._cache_entries.set(n)
+
+
+class ExecMetrics:
+    """Parallel-execution observability: the optimistic scheduler
+    (engine/optimistic.py — exec_parallel_*) and the BAL wave executor
+    (engine/bal.py — exec_bal_*, previously computed but only stashed on
+    ``EngineTree.last_bal_stats``). One place to compare BAL-hinted vs
+    optimistic scheduling efficiency in production: how many ranks ran
+    native/parallel, how many invalidated and re-ran serially, how many
+    keys the async storage layer prefetched, and whether a block fell
+    all the way back to the serial executor."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._blocks = reg.counter(
+            "exec_parallel_blocks_total",
+            "blocks executed by the optimistic scheduler")
+        self._rounds = reg.counter(
+            "exec_parallel_rounds_total", "native speculation rounds run")
+        self._native = reg.counter(
+            "exec_parallel_native_txs_total",
+            "ranks committed from the native wave core")
+        self._python = reg.counter(
+            "exec_parallel_python_txs_total",
+            "ranks committed through the Python interpreter")
+        self._speculative = reg.counter(
+            "exec_parallel_speculative_commits_total",
+            "ranks whose validation-clean speculation committed directly")
+        self._serial_rerun = reg.counter(
+            "exec_parallel_serial_reruns_total",
+            "invalidated ranks re-executed against the merged view")
+        self._conflicts = reg.counter(
+            "exec_parallel_conflicts_total",
+            "native ranks demoted to an in-core serial re-run")
+        self._misses = reg.counter(
+            "exec_parallel_misses_total",
+            "native rounds stopped by a snapshot miss")
+        self._prefetched = reg.counter(
+            "exec_parallel_prefetched_keys_total",
+            "keys the async storage layer fetched in the background")
+        self._fallbacks = reg.counter(
+            "exec_parallel_fallbacks_total",
+            "blocks that fell back to the serial executor")
+        self._wall = reg.histogram(
+            "exec_parallel_wall_seconds",
+            "optimistic scheduler wall clock per block")
+        self._bal_waves = reg.counter("exec_bal_waves_total")
+        self._bal_parallel = reg.counter(
+            "exec_bal_parallel_txs_total",
+            "txs committed from conflict-free waves")
+        self._bal_serial = reg.counter(
+            "exec_bal_serial_txs_total",
+            "txs demoted to serial re-execution")
+        self._bal_native = reg.counter(
+            "exec_bal_native_txs_total", "txs executed by the native core")
+        self.last: dict | None = None      # optimistic, for the events line
+        self.last_bal: dict | None = None  # BAL, for the events line
+
+    def record_optimistic(self, stats: dict) -> None:
+        self._blocks.increment()
+        self._rounds.increment(stats.get("rounds", 0))
+        self._native.increment(stats.get("native", 0))
+        self._python.increment(stats.get("python", 0))
+        self._speculative.increment(stats.get("speculative", 0))
+        self._serial_rerun.increment(stats.get("serial_rerun", 0))
+        self._conflicts.increment(stats.get("conflicts", 0))
+        self._misses.increment(stats.get("misses", 0))
+        self._prefetched.increment(stats.get("prefetched", 0))
+        if stats.get("fallback"):
+            self._fallbacks.increment()
+        if "wall_s" in stats:
+            self._wall.record(stats["wall_s"])
+        self.last = dict(stats)
+
+    def record_bal(self, stats: dict) -> None:
+        self._bal_waves.increment(stats.get("waves", 0))
+        self._bal_parallel.increment(stats.get("parallel", 0))
+        self._bal_serial.increment(stats.get("serial", 0))
+        self._bal_native.increment(stats.get("native", 0))
+        self.last_bal = dict(stats)
+
+
+exec_metrics = ExecMetrics()
+
+
+class EngineTreeMetrics:
+    """Consensus-robustness observability for the engine tree
+    (engine/tree.py + engine/block_buffer.py): invalid-header cache
+    occupancy vs its bound (an invalid-payload flood must plateau, not
+    grow), orphan-buffer depth and evictions, reorg cadence/depth, storm
+    detections with their backoff state, and in-flight inserts cancelled
+    by a competing forkchoiceUpdated — the numbers that say whether a
+    hostile CL is actually hurting the node."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._invalid = reg.gauge(
+            "tree_invalid_cached",
+            "invalid-header cache entries (bounded LRU)")
+        self._invalid_evictions = reg.counter(
+            "tree_invalid_evictions_total",
+            "invalid-cache entries evicted at the bound")
+        self._orphans = reg.gauge(
+            "tree_orphans_buffered",
+            "blocks buffered awaiting an unknown parent")
+        self._orphan_evictions = reg.counter(
+            "tree_orphan_evictions_total",
+            "buffered orphans evicted (bound or TTL)")
+        self._orphan_replays = reg.counter(
+            "tree_orphan_replays_total",
+            "buffered children replayed when their parent arrived")
+        self._reorgs = reg.counter("tree_reorgs_total")
+        self._deep_reorgs = reg.counter(
+            "tree_deep_reorgs_total",
+            "reorgs that unwound the persisted chain")
+        self._depth = reg.histogram(
+            "tree_reorg_depth", "blocks abandoned per reorg",
+            buckets=(1, 2, 3, 5, 8, 13, 21, 34))
+        self._storms = reg.counter(
+            "tree_reorg_storms_total",
+            "reorg-storm detections (flight recorder dumped)")
+        self._backoff = reg.gauge(
+            "tree_reorg_backoff_active",
+            "1 while reorg-storm backoff disables speculation")
+        self._cancelled = reg.counter(
+            "tree_payloads_cancelled_total",
+            "in-flight inserts aborted by a forkchoice reorg")
+        # events-line fragment state (node/events.py tree[...])
+        self.last: dict = {}
+
+    def set_invalid(self, n: int, cap: int) -> None:
+        self._invalid.set(n)
+        self.last["invalid"] = n
+        self.last["invalid_cap"] = cap
+
+    def invalid_evicted(self) -> None:
+        self._invalid_evictions.increment()
+        self.last["invalid_evicted"] = self.last.get("invalid_evicted", 0) + 1
+
+    def set_orphans(self, n: int) -> None:
+        self._orphans.set(n)
+        self.last["orphans"] = n
+
+    def orphan_evicted(self) -> None:
+        self._orphan_evictions.increment()
+        self.last["orphans_evicted"] = self.last.get("orphans_evicted", 0) + 1
+
+    def orphans_replayed(self, n: int = 1) -> None:
+        self._orphan_replays.increment(n)
+        self.last["replayed"] = self.last.get("replayed", 0) + n
+
+    def record_reorg(self, depth: int, deep: bool = False) -> None:
+        self._reorgs.increment()
+        if deep:
+            self._deep_reorgs.increment()
+        self._depth.record(depth)
+        self.last["reorgs"] = self.last.get("reorgs", 0) + 1
+        self.last["max_depth"] = max(self.last.get("max_depth", 0), depth)
+
+    def storm(self) -> None:
+        self._storms.increment()
+        self.last["storms"] = self.last.get("storms", 0) + 1
+
+    def set_backoff(self, active: bool) -> None:
+        self._backoff.set(1 if active else 0)
+        self.last["backoff"] = bool(active)
+
+    def payload_cancelled(self) -> None:
+        self._cancelled.increment()
+        self.last["cancelled"] = self.last.get("cancelled", 0) + 1
+
+
+tree_metrics = EngineTreeMetrics()
+
+
+class BlockPipelineMetrics:
+    """Cross-block import pipeline observability
+    (engine/block_pipeline.py): speculations started/adopted/aborted
+    (aborts labeled by ladder rung), commit-window cadence, the measured
+    exec-inside-commit overlap fraction, and double-buffer sub-mesh
+    leases — the numbers that say whether back-to-back import is
+    actually overlapping exec with commit and why speculations die."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._reg = reg
+        self._depth = reg.gauge(
+            "block_pipeline_depth", "configured import pipeline depth")
+        self._started = reg.counter(
+            "block_pipeline_speculations_total",
+            "speculative next-block executions started")
+        self._adopted = reg.counter(
+            "block_pipeline_committed_total",
+            "speculations adopted after the parent committed VALID")
+        self._aborted = reg.counter(
+            "block_pipeline_aborted_total",
+            "speculations discarded (any abort-ladder rung)")
+        self._abort_reason: dict[str, Counter] = {}
+        self._windows = reg.counter(
+            "block_pipeline_commit_windows_total",
+            "commit windows published by the insert path")
+        self._window_wall = reg.histogram(
+            "block_pipeline_commit_window_seconds",
+            "commit-window wall clock (open to close)")
+        self._overlap = reg.histogram(
+            "block_pipeline_overlap_fraction",
+            "speculative exec wall inside the parent's commit window")
+        self._leases = reg.counter(
+            "block_pipeline_submesh_leases_total",
+            "double-buffer sub-mesh leases taken for speculation")
+        # events-line fragment state (node/events.py pipe[...])
+        self.last: dict = {}
+
+    def set_depth(self, depth: int) -> None:
+        self._depth.set(depth)
+        self.last["depth"] = depth
+
+    def window_opened(self) -> None:
+        self._windows.increment()
+
+    def window_closed(self, ok: bool, wall: float) -> None:
+        self._window_wall.record(wall)
+
+    def speculation_started(self) -> None:
+        self._started.increment()
+        self.last["spec"] = self.last.get("spec", 0) + 1
+
+    def speculation_adopted(self, overlap_fraction: float) -> None:
+        self._adopted.increment()
+        self._overlap.record(overlap_fraction)
+        self.last["adopted"] = self.last.get("adopted", 0) + 1
+        self.last["overlap"] = overlap_fraction
+
+    def speculation_aborted(self, reason: str) -> None:
+        self._aborted.increment()
+        c = self._abort_reason.get(reason)
+        if c is None:
+            c = self._reg.counter(
+                "block_pipeline_aborted_reason_total",
+                "speculations discarded, by abort-ladder rung",
+                labels={"reason": reason})
+            self._abort_reason[reason] = c
+        c.increment()
+        self.last["aborted"] = self.last.get("aborted", 0) + 1
+        self.last["last_abort"] = reason
+
+    def lease_taken(self, devices: int) -> None:
+        self._leases.increment()
+        self.last["lease_devices"] = devices
+
+
+block_pipeline_metrics = BlockPipelineMetrics()

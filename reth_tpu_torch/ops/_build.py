@@ -36,7 +36,7 @@ CUDA_SRC_DIR = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = ("keccak.cu", "fused_level.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}  # source -> its loaded library
@@ -164,8 +164,42 @@ def load_kernel(name: str, build_missing: bool = True) -> ctypes.CDLL:
     return load(CUDA_SRC_DIR / name, build_missing)
 
 
+class LaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error."""
+
+
 def check_launch(err: int, kernel: str) -> None:
-    """Raise if a kernel's C entry returned a CUDA error (its launch was
-    refused or an earlier asynchronous fault surfaced)."""
+    """Raise :class:`LaunchError` if a kernel's C entry returned a CUDA
+    error (its launch was refused or an earlier asynchronous fault
+    surfaced)."""
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+        raise LaunchError(f"{kernel}: CUDA error {err} at launch")
+
+
+def _device_error_types() -> tuple:
+    """PyTorch's own types of a device fault, those this build has."""
+    import torch
+
+    return tuple(t for t in (getattr(torch, "AcceleratorError", None),
+                             getattr(torch, "OutOfMemoryError", None)) if t is not None)
+
+
+def is_kernel_fault(err: BaseException | None) -> bool:
+    """Whether ``err`` or an error in its ``__cause__`` / ``__context__``
+    chain is a kernel fault: a failed build (:class:`BuildError`) or a
+    device fault, that is a refused launch (:class:`LaunchError`), one of
+    PyTorch's device errors (``torch.AcceleratorError``,
+    ``torch.OutOfMemoryError``), or a ``RuntimeError`` / ``AssertionError``
+    whose message names CUDA in any case (an illegal address, a device
+    mismatch, no card). Paths that keep the reference's fallbacks re-raise
+    these instead of taking a slower route."""
+    device_errors = _device_error_types()
+    seen: set[int] = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        if isinstance(err, (BuildError, LaunchError) + device_errors):
+            return True
+        if isinstance(err, (RuntimeError, AssertionError)) and "cuda" in str(err).lower():
+            return True
+        err = err.__cause__ or err.__context__
+    return False

@@ -1227,7 +1227,8 @@ class DigestArena:
     def on_fault(self, err: BaseException) -> None:
         """An epoch died in flight (a device fault, ``ArenaFault``, any
         exception of the committer's arena finish): count it and evict; the
-        caller reruns the same commit on the classic finish."""
+        caller reruns the same commit on the classic finish, or raises a
+        kernel fault (``_build.is_kernel_fault``)."""
         self.faults += 1
         fused_metrics.record_fallback()
         tracing.fault_event("hotstate_arena_fault", target="ops::fused_commit",

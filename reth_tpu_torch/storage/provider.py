@@ -404,6 +404,7 @@ class ProviderFactory:
         if static_files is not None:
             raise NotImplementedError(_NO_STATIC_FILES)
         self.db = db
+        self.static_files = None
 
     def provider(self) -> DatabaseProvider:
         return DatabaseProvider(self.db.tx())

@@ -8,9 +8,13 @@ flight recorder that a fault drill snapshots to JSONL (``fault_event``,
 ``flight_dump``). Records have the reference's fields and names, so the same
 drill leaves the same record.
 
+Since the engine tree: per-block timelines (``trace_block``, the root span
+of one block's import, and ``ensure_timeline`` for spans recorded before it
+opens) and their wall-budget summaries (``block_summary``).
+
 Not ported here (they belong to the node): the OTLP and Chrome exporters,
-per-block timelines and wall-budget summaries, and cross-process
-correlation (wire form, fault observers, merged dumps).
+the operator's one-line budget and the health engine's summary window, and
+cross-process correlation (wire form, fault observers, merged dumps).
 
 Span recording is off unless ``RETH_TPU_TRACE`` is set truthy or
 ``set_trace_enabled(True)`` ran; then ``span()`` costs one DEBUG log call.
@@ -27,7 +31,7 @@ import os
 import tempfile
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from pathlib import Path
 
 _FALSY = ("", "0", "false", "off", "no")
@@ -172,6 +176,147 @@ def event(target: str, name: str, **fields) -> None:
 def _record(rec: dict, always: bool = False) -> None:
     if _TRACE_ON or always:
         _RECORDER.record(rec)
+    trace = rec.get("trace")
+    if trace is None:
+        return
+    with _TL_LOCK:
+        tl = _TIMELINES.get(trace)
+        if tl is not None and len(tl) < _MAX_TIMELINE_RECORDS:
+            tl.append(rec)
+
+
+# -- per-block timelines -------------------------------------------------------
+
+_TL_LOCK = threading.Lock()
+_TIMELINES: OrderedDict[str, list] = OrderedDict()
+_SUMMARIES: OrderedDict[str, dict] = OrderedDict()
+_MAX_TRACES = 64
+_MAX_TIMELINE_RECORDS = 8192
+
+
+@contextlib.contextmanager
+def trace_block(trace_id: str, name: str = "block",
+                target: str = "engine::block", **fields):
+    """Root span of one block lifecycle: ``trace_id`` (the block hash
+    hex) seeds every child span on this thread and every explicitly
+    propagated context; closing computes the wall-budget summary."""
+    if not _TRACE_ON:
+        yield None
+        return
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = TraceContext(trace_id, None)  # trace seed: root has no parent
+    with _TL_LOCK:
+        _TIMELINES.setdefault(trace_id, [])
+        _TIMELINES.move_to_end(trace_id)
+        while len(_TIMELINES) > _MAX_TRACES:
+            dead, _ = _TIMELINES.popitem(last=False)
+            _SUMMARIES.pop(dead, None)
+    try:
+        with span(target, name, **fields) as ctx:
+            yield ctx
+    finally:
+        _tls.ctx = prev
+        _finalize_block(trace_id)
+
+
+def ensure_timeline(trace_id: str) -> None:
+    """Pre-register a trace timeline so spans recorded BEFORE the block's
+    root ``trace_block`` opens still land in it — cross-block speculation
+    executes N+1 while N commits, ahead of N+1's own lifecycle."""
+    if not _TRACE_ON:
+        return
+    with _TL_LOCK:
+        _TIMELINES.setdefault(trace_id, [])
+        _TIMELINES.move_to_end(trace_id)
+        while len(_TIMELINES) > _MAX_TRACES:
+            dead, _ = _TIMELINES.popitem(last=False)
+            _SUMMARIES.pop(dead, None)
+
+
+def block_timeline(trace_id: str) -> list[dict] | None:
+    """All records of one trace (block), oldest first; None if unknown."""
+    with _TL_LOCK:
+        tl = _TIMELINES.get(trace_id)
+        return list(tl) if tl is not None else None
+
+
+def _sum_field(records, names, field) -> float:
+    return sum(float(r["fields"].get(field, 0.0)) for r in records
+               if r["name"] in names)
+
+
+def _summarize(trace_id: str, records: list[dict]) -> dict | None:
+    root = next((r for r in records
+                 if r["kind"] == "span" and r["parent"] is None), None)
+    if root is None:
+        return None
+
+    def dur_of(name: str) -> float:
+        return sum(r["dur_ms"] for r in records
+                   if r["kind"] == "span" and r["name"] == name)
+
+    spans = [r for r in records if r["kind"] == "span"]
+    # accounted wall: union of direct-child intervals over the root span
+    children = sorted(((r["ts"], r["ts"] + r["dur_ms"] / 1e3)
+                       for r in spans if r["parent"] == root["span"]))
+    covered, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi in children:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                covered += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        covered += cur_hi - cur_lo
+    total_ms = root["dur_ms"]
+    summary = {
+        "trace": trace_id,
+        "number": root["fields"].get("number"),
+        # closing wall-clock time: the health engine's block-wall SLO rule
+        # windows summaries by when the block finished
+        "ts": root["ts"] + total_ms / 1e3,
+        "total_ms": total_ms,
+        "prewarm_ms": round(dur_of("prewarm"), 3),
+        # an adopted speculation ran its execute leg as speculate.exec
+        # inside the parent's commit window; count it as the exec wall
+        "exec_ms": round(dur_of("execute") or dur_of("speculate.exec"), 3),
+        "root_ms": round(dur_of("state_root"), 3),
+        # hash-service attribution: queue-wait vs device dispatch (with no
+        # service the direct hash.dispatch spans carry the dispatch wall)
+        "wait_ms": round(_sum_field(records, ("hashsvc.request",), "wait_ms"), 3),
+        "dispatch_ms": round(
+            _sum_field(records, ("hashsvc.request",), "service_ms")
+            if any(r["name"] == "hashsvc.request" for r in records)
+            else dur_of("hash.dispatch"), 3),
+        "encode_ms": round(dur_of("sparse.encode"), 3),
+        "spans": len(spans),
+        "coverage": round(covered * 1e3 / total_ms, 4) if total_ms else 1.0,
+    }
+    return summary
+
+
+def _finalize_block(trace_id: str) -> None:
+    records = block_timeline(trace_id)
+    if not records:
+        return
+    summary = _summarize(trace_id, records)
+    if summary is None:
+        return
+    with _TL_LOCK:
+        _SUMMARIES[trace_id] = summary
+        while len(_SUMMARIES) > _MAX_TRACES:
+            _SUMMARIES.popitem(last=False)
+
+
+def block_summary(trace_id: str) -> dict | None:
+    """Wall-budget summary of one closed block trace."""
+    with _TL_LOCK:
+        s = _SUMMARIES.get(trace_id)
+    if s is not None:
+        return s
+    records = block_timeline(trace_id)
+    return _summarize(trace_id, records) if records else None
 
 
 # -- flight recorder ----------------------------------------------------------

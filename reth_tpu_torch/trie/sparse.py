@@ -28,7 +28,11 @@ dirty rows, and a child whose digest is still resident from an earlier
 commit is spliced from its slot on the card (the delta finish). The plane's
 host half, reveal-ref stamping and the hooks ``node_at`` / ``blind_hash_at``
 / ``reveal_at`` / ``harvest_spine``, serves ``trie/hot_cache.py
-TrieNodeCache``.
+TrieNodeCache``. One departure from the reference, whose arena reruns any
+failed epoch on the classic finish: a kernel fault in an epoch (a failed
+build, a launch error, a CUDA runtime error; ``ops/_build.is_kernel_fault``)
+raises out of the commit after the arena evicts and counts it, whoever owns
+the arena, so no fault of kernel 4 turns into a quiet rerun on kernel 1.
 
 A hasher bound to the shared hash service's live lane
 (``ops/hash_service.py HashClient``) is used as the reference uses it: the
@@ -58,6 +62,7 @@ import torch
 from .. import tracing
 from ..device import resolve
 from ..metrics import hotstate_metrics, sparse_commit_metrics
+from ..ops._build import is_kernel_fault
 from ..ops.fused_commit import SubtrieFusedEngine
 from ..ops.keccak import KeccakDevice
 from ..primitives.keccak import RATE, keccak256
@@ -739,14 +744,15 @@ class ParallelSparseCommitter:
     card across commits, at ``subtrie_levels`` depths per launch (8 when
     unset). Only the commit's dirty rows stage; clean and blinded children
     whose digests are still resident splice from their slots. If another
-    finish holds the arena, or the epoch fails in any way (the arena evicts
-    and counts the fault), the same commit reruns on the finish it would
-    take without the arena, on the same device.
+    finish holds the arena, or the epoch fails for a cause that is no
+    kernel fault (the arena evicts and counts the fault), the same commit
+    reruns on the finish it would take without the arena, on the same
+    device.
 
     All run on ``device`` (the card by default; ``device="cpu"`` runs the
     kernels' plain versions). There is no fallback to the CPU: a failed
-    build or launch raises out of ``commit`` (under the arena, out of the
-    rerun). Roots are bit-identical to the serial path. Per-commit state is
+    build or launch raises out of ``commit``, under the arena too (the
+    arena evicts and counts it first). Roots are bit-identical to the serial path. Per-commit state is
     local; the pool and the arena are shared.
     """
 
@@ -874,8 +880,9 @@ class ParallelSparseCommitter:
             self.last = {**stats, "wall_s": 0.0}
             return roots
         if self.arena is not None and getattr(hasher, "commit_window", None) is None:
-            # the hot-state delta finish; None: contended, or a fault the
-            # arena counted and evicted for, and the same commit reruns below
+            # the hot-state delta finish; None: contended, or a fault (no
+            # kernel fault) the arena counted and evicted for, and the same
+            # commit reruns below
             delta = self._commit_fused_arena(live, roots, stats, t_wall)
             if delta is not None:
                 return delta
@@ -998,9 +1005,10 @@ class ParallelSparseCommitter:
         on the card for the next block.
 
         Returns None, and the caller reruns the same commit on the finish
-        it takes without the arena, when the arena is contended or anything
-        fails in the epoch (the arena evicts first, so no partial epoch is
-        ever referenced). The engine is built on ``self.device`` with its
+        it takes without the arena, when the arena is contended or the epoch
+        fails for a cause that is no kernel fault; a kernel fault raises.
+        Either way the arena evicts first, so no partial epoch is ever
+        referenced. The engine is built on ``self.device`` with its
         ladder off, outside any catch but the owner's. Roots are
         bit-identical either way: a resident splice writes the exact digest
         bytes the literal ref would have carried."""
@@ -1070,6 +1078,8 @@ class ParallelSparseCommitter:
             arena.on_fault(e)
             if not isinstance(e, Exception) or isinstance(e, InjectedSparseAbort):
                 raise  # injected aborts and interrupts keep their meaning
+            if is_kernel_fault(e):
+                raise  # no classic rerun hides a failed build or a device fault
             return None
         finally:
             arena.release()

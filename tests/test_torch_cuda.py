@@ -684,3 +684,71 @@ def test_staged_sync_on_card_matches_cpu():
             launches = tk.keccak256_words_masked.launches - before
     assert dbs["cuda"] == dbs["cpu"]
     assert launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["sparse", "pipelined"])
+def test_engine_tree_on_card_matches_cpu(strategy):
+    """The staged-sync chain at a small size (SYNC_BLOCK_SMALL), sealed on the
+    host, imported by EngineTree(device="cuda") and EngineTree(device="cpu")
+    (newPayload then forkchoiceUpdated each block, hot state on, persisted to
+    the tip): every status VALID at the header's root, the same rows in every
+    table, and the strategy's kernels launched on the card: kernel 1 on both
+    strategies, kernel 4 (the hot-state arena's delta finish) on the sparse
+    one."""
+    import types
+
+    from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain
+    from reth_tpu_torch import testing
+    from reth_tpu_torch.engine import EngineTree
+    from reth_tpu_torch.primitives import keccak as pkeccak
+    from reth_tpu_torch.primitives import secp256k1, types as ptypes
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import init_genesis
+
+    require_card()
+    pkg = types.SimpleNamespace(testing=testing, types=ptypes, keccak=pkeccak,
+                                secp256k1=secp256k1)
+    chain = SyncChain(pkg, n_accounts=200, n_slots=80, seed=47, n_wallets=4, n_blocks=3,
+                      sizes=SYNC_BLOCK_SMALL,
+                      committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu")).builder
+    dbs, launched = {}, {}
+    for device in ("cuda", "cpu"):
+        db = MemDb()
+        factory = ProviderFactory(db)
+        init_genesis(factory, chain.genesis, dict(chain.accounts_at_genesis),
+                     storage=chain.storage_at_genesis, codes=chain.codes_at_genesis,
+                     committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+        tree = EngineTree(factory, device=device, state_root_strategy=strategy,
+                          hot_state=True, persistence_threshold=2)
+        before = (tk.keccak256_words_masked.launches, fc.subtrie_levels.launches)
+        for blk in chain.blocks[1:]:
+            st = tree.on_new_payload(blk)
+            assert (st.status.value, st.latest_valid_hash) == ("VALID", blk.hash)
+            if strategy == "sparse":
+                assert tree.last_sparse["strategy"] == "sparse"
+            assert tree.on_forkchoice_updated(blk.hash).status.value == "VALID"
+        tree.persistence_threshold = 0
+        tree.on_forkchoice_updated(chain.tip.hash)
+        torch.cuda.synchronize()
+        assert tree.persisted_number == chain.tip.number
+        assert tree.hot_arena.faults == 0
+        dbs[device] = {name: t for name, t in db._tables.items() if t}
+        launched[device] = (tk.keccak256_words_masked.launches - before[0],
+                            fc.subtrie_levels.launches - before[1])
+    assert dbs["cuda"] == dbs["cpu"]
+    assert launched["cuda"][0] > 0
+    assert (launched["cuda"][1] > 0) == (strategy == "sparse")
+
+
+@pytest.mark.cuda
+def test_torch_device_error_on_card_is_a_kernel_fault():
+    """An error PyTorch raises on the card (a device mismatch against a CPU
+    tensor) is a kernel fault, so no fallback of the engine swallows it."""
+    require_card()
+    from reth_tpu_torch.ops._build import is_kernel_fault
+
+    with pytest.raises(RuntimeError) as info:
+        torch.zeros(4, device="cuda") + torch.zeros(4)
+    assert is_kernel_fault(info.value)

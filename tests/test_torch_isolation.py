@@ -21,7 +21,9 @@ from reth_tpu_torch.consensus import EthBeaconConsensus
 from reth_tpu_torch.stages import execution as texecution
 from reth_tpu_torch.storage import genesis as tgenesis
 from reth_tpu_torch.device import resolve
+from reth_tpu_torch.engine import native_exec
 from reth_tpu_torch.engine.sparse_root import SparseRootTask
+from reth_tpu_torch.engine.tree import EngineTree
 from reth_tpu_torch.metrics import MetricsRegistry
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import hash_service as ths
@@ -83,7 +85,14 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.consensus.validation", "reth_tpu_torch.storage.genesis",
                 "reth_tpu_torch.stages.execution", "reth_tpu_torch.stages.sender_recovery",
                 "reth_tpu_torch.stages.tx_lookup", "reth_tpu_torch.stages.index_history",
-                "reth_tpu_torch.stages.finish", "reth_tpu_torch.testing"):
+                "reth_tpu_torch.stages.finish", "reth_tpu_torch.testing",
+                "reth_tpu_torch.chaos", "reth_tpu_torch.storage.overlay",
+                "reth_tpu_torch.storage.recovery", "reth_tpu_torch.engine.tree",
+                "reth_tpu_torch.engine.block_buffer", "reth_tpu_torch.engine.invalid_hooks",
+                "reth_tpu_torch.engine.util", "reth_tpu_torch.engine.execution_cache",
+                "reth_tpu_torch.engine.prewarm", "reth_tpu_torch.engine.pipelined_root",
+                "reth_tpu_torch.engine.native_exec", "reth_tpu_torch.engine.bal",
+                "reth_tpu_torch.engine.optimistic", "reth_tpu_torch.engine.block_pipeline"):
         assert mod in res["modules"]
 
 
@@ -116,7 +125,7 @@ def test_sources_name_no_jax_import():
     tinc.IncrementalStateRoot.__init__, tinc.full_state_root, tinc.full_state_root_turbo,
     tinc.verify_state_root, tproof.ProofCalculator.__init__, tstages.default_stages,
     EthBeaconConsensus.__init__, texecution.ExecutionStage.__init__, tgenesis.init_genesis,
-    ttesting.ChainBuilder.__init__,
+    ttesting.ChainBuilder.__init__, EngineTree.__init__,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -176,6 +185,36 @@ def test_cuda_without_a_card_raises():
         ttesting.ChainBuilder({})
     with pytest.raises(ValueError):
         resolve("meta")
+
+
+def test_engine_tree_builds_on_the_device():
+    """EngineTree without a committer hashes on the card (and raises without
+    one); with device="cpu" its committer, its consensus and its default
+    unwinder's stages are on the CPU, and it builds its hot-state plane."""
+    factory = ProviderFactory(MemDb())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            EngineTree(factory)
+    tree = EngineTree(factory, device="cpu", hot_state=True)
+    assert tree.committer.device == torch.device("cpu")
+    assert tree.consensus.committer is tree.committer
+    assert tree.hot_arena is not None and tree.hot_cache is not None
+    made = []
+    orig = tstages.default_stages
+    try:
+        tstages.default_stages = lambda **kw: made.append(kw) or []
+        tree.unwinder(factory, 0)
+    finally:
+        tstages.default_stages = orig
+    assert made == [{"committer": tree.committer, "device": "cpu"}]
+
+
+def test_native_executor_source_is_the_ports_own():
+    """The native executor builds from the port's csrc/ by _build.py's g++
+    route, not from the JAX package's native/ directory."""
+    assert native_exec._SRC == ROOT / "reth_tpu_torch" / "csrc" / "evmexec.cpp"
+    assert "subprocess" not in (ROOT / "reth_tpu_torch" / "engine" /
+                                "native_exec.py").read_text()
 
 
 def test_default_stages_build_on_the_device():
