@@ -54,7 +54,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, twenty-seven main paths, the launch counters zeroed just before
+3. Slice phase, twenty-nine main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -213,20 +213,24 @@
    init_genesis: EngineTree(factory, TrieCommitter(device="cuda"),
    EthBeaconConsensus(committer, device="cuda"), EvmConfig(),
    persistence_threshold=2, device="cuda"), on_new_payload then
-   on_forkchoice_updated for each of the chain's blocks, then one more fcU
-   with a threshold of 0: "engine", the sparse strategy with hot state
+   on_forkchoice_updated for each of its blocks, then one more fcU with a
+   threshold of 0: "engine", every block of the chain, the sparse strategy with hot state
    (kernel 1: consensus roots, key hashing, proofs, reveals; kernel 4: the
    arena's delta finish); "engine parallel", the same with the optimistic
    scheduler on the native core (csrc/evmexec.cpp, g++) and the two-deep
    import pipeline (payload N+1 sent from a second thread once N is in its
    root phase, block_pipeline.import_chain); "engine pipelined",
-   PipelinedStateRoot and IncrementalStateRoot (kernel 1 only). Each
+   PipelinedStateRoot and IncrementalStateRoot (kernel 1 only); the last two
+   cut to blocks 1-4 (ENGINE_CUT) for the smoke's room. Each
    status must be VALID at its header's hash and root (the child's seal),
    each sparse root "sparse" (0 fallbacks), "engine parallel" must take
    native ranks in every block and adopt a speculation with none aborted,
    no prehash batch may fail, the arena must end with no fault, leaked row
-   or pinned staging, and persisted to block 8 the plain, hashed and trie
-   tables and Bytecodes must equal the sync's first sync row for row. Each
+   or pinned staging, and persisted to its last block the plain, hashed and
+   trie tables and Bytecodes must equal the sync's row for row: the first
+   sync's at block 8, the unwound sync's at block 4 on the cut variants (whose
+   Bytecodes need only be among the unwound ones: the unwind keeps later
+   blocks' codes). Each
    block's newPayload wall by the tree's phases (from its block timeline),
    the sparse task's walls, overlap, proof targets and finish retries, the
    optimistic scheduler's ranks, launches (on "engine parallel", whose
@@ -238,20 +242,54 @@
    incremental committer, VALID at the header's root; b) a launch fault in
    the arena's delta finish on block 2 raises out of on_new_payload (a
    LaunchError cause, one arena fault, no fallback).
+   Then block production and stateless validation (PayloadCell) on the
+   "engine" path's tree, blocks 1-8 persisted: the sync child also signs
+   PAYLOAD_BATCHES (3) more SYNC_BLOCK batches from the same wallets at their
+   next nonces, unsealed, the three transactions the pool must refuse
+   (REFUSED: a nonce too low, an underpriced replacement, chain id 5) and a
+   drill transaction. "payload": before each build a batch is admitted
+   through TxBatcher into TransactionPool(PoolConfig(chain_id=1)) over the
+   tree's overlay (245 admitted; before block 9 the three refused with the
+   pool's messages); block 9 by LocalMiner(tree, pool).mine_block (the
+   dev-mode serial build), block 10 by PayloadBuilderService.new_payload_job
+   + get_payload_with_fees, on_new_payload and on_forkchoice_updated, block
+   11 by a started BlockProducer's take() after prepare(), which must equal
+   one serial build_payload over a clone of the same pool. Each block must
+   be VALID on import (the sparse strategy, a route apart from the
+   builder's incremental root), select all 245 of its batch, carry
+   transactions / receipts / withdrawals roots equal to the host's numpy
+   ordered_trie_root, leave the pool empty after its canonical update, with
+   0 catch-all and 0 sparse fallbacks. The tree keeps blocks 9-11 in memory
+   (persistence threshold 3). "stateless": each block's witness by
+   generate_witness against its parent's overlay (provider_factory=, 4 proof
+   workers, the tree's committer: kernel 1 on the proof lane), then one
+   StatelessChain(config, device="cuda") validates 9, 10 and 11 in order from
+   the witnesses alone (kernel 1; 10 and 11 on the preserved trie): each
+   root and gas the header's, each witness equal to itself through its JSON.
+   Each block's admission, build (selection and execution, state root,
+   ordered roots), import, witness (execution, multiproof, node hashing,
+   closure and its rounds, nodes, codes, keys, headers, bytes) and
+   stateless (reveal, execution, root) walls are logged. After the engine's
+   drills: block 11 built again on block 10 and block 10's witness, each
+   under torch.profiler (idle share); then drills a) a witness without its
+   parent's account-trie root node raises "witness incomplete", b) a header
+   with another state root raises "stateless root mismatch", c) a launch
+   fault of kernel 1 (check_launch of a CUDA error) raises out of
+   mine_block and out of PayloadJob, the head and the pool unchanged; then
+   the tree persists blocks 9-11.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
    host-to-device copies, launches and staged levels are logged.
 4. For each main path, two more runs after the launch counts were read
-   (the hot tip: two more blocks of its cached lineage; "merkle stage" from
-   the database as the path found it, "merkle incremental" from block 1,
-   the live tip: block 2 on a fresh lineage of path 1's kind,
+   (the live tip: block 2 on a fresh lineage of path 1's kind,
    each restored from a kept table map, which a MemDb publishes immutable):
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function;
    "merkle stage" has no cProfile run since the live tip came, and neither
    it nor "merkle incremental" has profiled runs since the sync path came:
-   no room in the time limit; "sync" is profiled inside its own path; the
+   no room in the time limit, nor has the hot tip since the payload paths
+   came; "sync" is profiled inside its own path; the
    engine: block 1 of a fresh "engine" tree under torch.profiler, then
    block 2 under cProfile).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
@@ -864,7 +902,8 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
-         "live tip service", "proofs", "sync", "engine", "engine parallel", "engine pipelined")
+         "live tip service", "proofs", "sync", "engine", "engine parallel", "engine pipelined",
+         "payload", "stateless")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -885,7 +924,9 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "sync": ("keccak256_absorb", "packed_level", "branch_level"),
                 "engine": ("keccak256_absorb", "subtrie_levels"),
                 "engine parallel": ("keccak256_absorb", "subtrie_levels"),
-                "engine pipelined": ("keccak256_absorb",)}
+                "engine pipelined": ("keccak256_absorb",),
+                "payload": ("keccak256_absorb", "subtrie_levels"),
+                "stateless": ("keccak256_absorb",)}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -2134,6 +2175,11 @@ class LiveTip:
 # then on the card init_genesis, import_chain and default_stages to the tip,
 # the unwind to SYNC_UNWIND_TO and the re-sync
 SYNC_WALLETS, SYNC_BLOCKS, SYNC_SEED, SYNC_UNWIND_TO = 1024, 8, 47, 4
+# the payload path's batches: signed by the same child after the chain's
+# blocks, left unsealed (blocks 9-11 are built on the card)
+PAYLOAD_BATCHES = 3
+# the transactions the payload path's pool must refuse, with its messages
+REFUSED = ("nonce too low", "replacement underpriced", "wrong chain id 5 (expected 1)")
 
 
 def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
@@ -2144,7 +2190,11 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     hasher=keccak256_batch_np, device="cpu"), the numpy twin, never the card.
     Writes the genesis header, the genesis alloc's plain fields, the chain
     file (``export_rlp``), each block's signing addresses, roots, gas and
-    the seal walls to ``out_path`` as JSON."""
+    the seal walls to ``out_path`` as JSON. Then signs PAYLOAD_BATCHES more
+    batches of SYNC_BLOCK from the same wallets at their next nonces (the
+    payload path's blocks 9-11), unsealed, and the three transactions its
+    pool must refuse (REFUSED: wallet 0 at nonce 0; batch 9's first
+    transaction again at its fee; wallet 1 on chain id 5), all as raw RLP."""
     import types
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -2161,7 +2211,7 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     t0 = time.perf_counter()
     chain = SyncChain(pkg, n_accounts, n_slots, SYNC_SEED, SYNC_WALLETS, SYNC_BLOCKS,
                       SYNC_BLOCK, TrieCommitter(hasher=keccak.keccak256_batch_np, device="cpu"),
-                      seal=False)
+                      seal=False, spare=PAYLOAD_BATCHES)
     b = chain.builder
     walls = {"genesis": time.perf_counter() - t0}
     log(f"sync chain: genesis of {len(b.accounts_at_genesis)} accounts and "
@@ -2175,14 +2225,39 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
         log(f"sync chain: block {h.number} sealed in {walls[h.number]:.3f} s: "
             f"{len(blk.transactions)} transactions, {h.gas_used} gas, "
             f"{len(blk.withdrawals)} withdrawals, root {h.state_root.hex()}")
+    t0 = time.perf_counter()
+    batches = []
+    for _ in range(PAYLOAD_BATCHES):
+        n, txs, wds = chain.batch()
+        batches.append({"number": n, "txs": [tx.encode().hex() for tx in txs],
+                        "senders": [a.hex() for a in chain.senders[n]],
+                        "withdrawals": [[w.index, w.validator_index, w.address.hex(), w.amount]
+                                        for w in wds]})
+    first = ptypes.Transaction.decode(bytes.fromhex(batches[0]["txs"][0]))
+    w0, w1 = chain.wallets[0], chain.wallets[1]
+    refused = [testing.Wallet(w0.priv, nonce=0).transfer(b"\x0f" * 20, 1),
+               w0.sign_tx(ptypes.Transaction(tx_type=first.tx_type, chain_id=first.chain_id,
+                                             nonce=first.nonce, gas_price=first.gas_price,
+                                             gas_limit=first.gas_limit, to=first.to,
+                                             value=first.value + 1), bump_nonce=False),
+               testing.Wallet(w1.priv, nonce=w1.nonce).transfer(b"\x0f" * 20, 1, chain_id=5)]
+    # the launch-fault drill's transaction: wallet 2 at its next nonce
+    drill = chain.wallets[2].transfer(b"\x0f" * 20, 1)
+    walls["batches"] = time.perf_counter() - t0
+    log(f"sync chain: {PAYLOAD_BATCHES} more batches of "
+        f"{[len(x['txs']) for x in batches]} transactions signed (unsealed) in "
+        f"{walls['batches']:.3f} s")
     fields = alloc_to_fields(b.accounts_at_genesis, b.storage_at_genesis, b.codes_at_genesis)
     out = {
+        "batches": batches, "refused": [tx.encode().hex() for tx in refused],
+        "drill": drill.encode().hex(),
         "genesis": b.genesis.encode().hex(), "genesis_hash": b.genesis.hash.hex(),
         "alloc": {a.hex(): [f["nonce"], str(f["balance"]), f.get("code", b"").hex(),
                             {k.hex(): str(v) for k, v in f.get("storage", {}).items()}]
                   for a, f in fields.items()},
         "chain": b.export_rlp().hex(),
-        "senders": {n: [a.hex() for a in s] for n, s in chain.senders.items()},
+        "senders": {n: [a.hex() for a in s] for n, s in chain.senders.items()
+                    if n <= SYNC_BLOCKS},
         "roots": {blk.header.number: blk.header.state_root.hex() for blk in b.blocks},
         "walls": walls,
     }
@@ -2320,7 +2395,7 @@ class SyncCell:
 
     def __init__(self, res: dict):
         from reth_tpu_torch.convert import alloc_from_fields, blocks_from_rlp
-        from reth_tpu_torch.primitives.types import Header
+        from reth_tpu_torch.primitives.types import Header, Transaction, Withdrawal
 
         t0 = time.perf_counter()
         fields = {bytes.fromhex(a): {"nonce": n, "balance": int(bal), "code": bytes.fromhex(c),
@@ -2331,6 +2406,15 @@ class SyncCell:
         self.blocks = blocks_from_rlp(bytes.fromhex(res["chain"]))
         self.senders = {int(b): [bytes.fromhex(a) for a in s] for b, s in res["senders"].items()}
         self.roots = {int(b): r for b, r in res["roots"].items()}
+        # the payload path's unsealed batches: (number, transactions,
+        # withdrawals, signing addresses), the refused and the drill's
+        tx = lambda raw: Transaction.decode(bytes.fromhex(raw))  # noqa: E731
+        self.batches = [(b["number"], [tx(r) for r in b["txs"]],
+                         tuple(Withdrawal(i, v, bytes.fromhex(a), amt)
+                               for i, v, a, amt in b["withdrawals"]),
+                         [bytes.fromhex(a) for a in b["senders"]]) for b in res["batches"]]
+        self.refused = [tx(r) for r in res["refused"]]
+        self.drill_tx = tx(res["drill"])
         if self.genesis.hash.hex() != res["genesis_hash"] or [
                 blk.header.state_root.hex() for blk in self.blocks] != [
                 self.roots[b] for b in range(1, SYNC_BLOCKS + 1)]:
@@ -2375,6 +2459,7 @@ class SyncCell:
         self.first = self.db._tables
         self.first_rows = len(self.rows)
         step("unwind", self.pipeline.unwind, SYNC_UNWIND_TO)
+        self.unwound = self.db._tables  # the cut engine paths' tables
         self.profile_block(SYNC_UNWIND_TO + 1)
         self.resync = step("re-sync", device_profile, "sync re-sync",
                            lambda: self.pipeline.run(SYNC_BLOCKS))
@@ -2477,6 +2562,10 @@ ENGINE_PATHS = ("engine", "engine parallel", "engine pipelined")
 # the tables the engine's persistence must leave equal to the first sync's
 ENGINE_TABLES = ("PlainAccountState", "PlainStorageState", "Bytecodes", "HashedAccounts",
                  "HashedStorages", "AccountsTrie", "StoragesTrie")
+# the engine variants cut to blocks 1-SYNC_UNWIND_TO for the smoke's room
+# (their tables are held against the sync's at the unwind); "engine" imports
+# every block, and the payload paths extend its tree
+ENGINE_CUT = ("engine parallel", "engine pipelined")
 # the engine's kernels, each by the module attribute the port calls it through
 ENGINE_KERNELS = (("keccak256_absorb", "reth_tpu_torch.ops.keccak", "keccak256_words_masked"),
                   ("subtrie_levels", "reth_tpu_torch.ops.fused_commit", "subtrie_levels"))
@@ -2604,8 +2693,13 @@ class EngineCell:
                 out[r["name"]] = round(out.get(r["name"], 0.0) + r["dur_ms"], 3)
         return out
 
+    def blocks_of(self, path: str) -> list:
+        """The blocks a variant imports: all of the chain's, or blocks
+        1-SYNC_UNWIND_TO on the cut variants (ENGINE_CUT)."""
+        return self.blocks[:SYNC_UNWIND_TO] if path in ENGINE_CUT else self.blocks
+
     def drive(self, path: str) -> dict:
-        """One variant over all the chain's blocks; returns its record."""
+        """One variant over its blocks (``blocks_of``); returns its record."""
         import torch
 
         from reth_tpu_torch import tracing
@@ -2615,7 +2709,7 @@ class EngineCell:
               "engine parallel": dict(state_root_strategy="sparse", hot_state=True,
                                       parallel_exec=True, pipeline_depth=2),
               "engine pipelined": dict(state_root_strategy="pipelined", hot_state=False)}[path]
-        blocks = self.blocks
+        blocks = self.blocks_of(path)
         tree = self.tree(**kw)
         res = {"blocks": [], "statuses": []}
         tracing.set_trace_enabled(True)
@@ -2684,7 +2778,7 @@ class EngineCell:
 
         res = self.results[path]
         tree, rec = res["tree"], res["tree"].smoke
-        blocks = self.blocks
+        blocks = self.blocks_of(path)
         want = [("VALID", blk.hash) for blk in blocks]
         if res["statuses"] != want:
             raise AssertionError(f"{path}: statuses {res['statuses']}, want VALID at each hash")
@@ -2719,13 +2813,21 @@ class EngineCell:
         if tree.persisted_number != len(blocks):
             raise AssertionError(f"{path}: persisted to {tree.persisted_number}")
         first = MemDb()
-        first._tables = self.sync.first
-        want_t = table_digests(first, ENGINE_TABLES)
-        got_t = table_digests(tree.factory.db, ENGINE_TABLES)
+        first._tables = self.sync.first if len(blocks) == SYNC_BLOCKS else self.sync.unwound
+        # the unwind keeps later blocks' bytecodes: the cut variants' are a subset
+        names = ENGINE_TABLES if len(blocks) == SYNC_BLOCKS else tuple(
+            n for n in ENGINE_TABLES if n != "Bytecodes")
+        want_t = table_digests(first, names)
+        got_t = table_digests(tree.factory.db, names)
         if got_t != want_t:
-            raise AssertionError(f"{path}: tables at {SYNC_BLOCKS} differ from the first "
-                                 f"sync's: {got_t} against {want_t}")
-        res["tables"] = {n: want_t[n][0] for n in ENGINE_TABLES}
+            raise AssertionError(f"{path}: tables at {len(blocks)} differ from the sync's: "
+                                 f"{got_t} against {want_t}")
+        if names != ENGINE_TABLES:
+            codes, kept = (dict(db._tables.get("Bytecodes", {}))
+                           for db in (tree.factory.db, first))
+            if any(kept.get(k) != v for k, v in codes.items()):
+                raise AssertionError(f"{path}: a bytecode the sync's unwound tables lack")
+        res["tables"] = {n: want_t[n][0] for n in names}
 
     def report(self, path: str, launches: dict) -> None:
         """Each block's newPayload wall by phase, its sparse task's walls,
@@ -2733,7 +2835,7 @@ class EngineCell:
         persistence walls; the import's Mgas/s."""
         res = self.results[path]
         rec = res["tree"].smoke
-        blocks = self.blocks
+        blocks = self.blocks_of(path)
         for i, b in enumerate(res["blocks"]):
             line = f"{path}: block {b['number']}"
             if "new_payload_s" in b:
@@ -2766,8 +2868,10 @@ class EngineCell:
             f"{json.dumps(launches)}"
             + (f"; arena {json.dumps(res['arena'])}" if "arena" in res else "")
             + (f"; pipeline {json.dumps(res['pipeline'])}" if "pipeline" in res else "")
-            + (f"; tables equal to the first sync's ({json.dumps(res['tables'])} rows)"
-               if "tables" in res else ""))
+            + (f"; tables equal to the sync's at block {len(blocks)} "
+               f"({json.dumps(res['tables'])} rows)" if "tables" in res else "")
+            + (f"; cut to blocks 1-{len(blocks)} for the smoke's room" if path in ENGINE_CUT
+               else ""))
 
     def profile(self) -> None:
         """Outside the main paths: block 1 of a fresh "engine" tree under
@@ -2847,6 +2951,429 @@ class EngineCell:
         out.append({"drill": "arena launch fault", "rung": "raised",
                     "error": f"{type(cause).__name__}: {cause}"[:80]})
         return out
+
+
+# block production and stateless validation on the "engine" path's tree:
+# blocks 9-11 built from the sync child's unsealed batches, then witnessed and
+# validated from their witnesses alone
+PAYLOAD_PATHS = ("payload", "stateless")
+PAYLOAD_ROUTES = ("miner", "service", "producer")
+PAYLOAD_COINBASE = b"\xc0" * 20
+
+
+def clone_pool(pool):
+    """A fresh pool with ``pool``'s transactions, admitted in submission
+    order (the selection's tie-breaks match): what one serial
+    ``build_payload`` would select from."""
+    from reth_tpu_torch.pool import TransactionPool
+
+    clone = TransactionPool(pool.state_reader, config=pool.config)
+    clone.base_fee, clone.blob_base_fee = pool.base_fee, pool.blob_base_fee
+    with pool._lock:
+        for p in sorted(pool.by_hash.values(), key=lambda p: p.submission_id):
+            clone.add_transaction(p.tx, sender=p.sender)
+    return clone
+
+
+class PayloadCell:
+    """The "payload" and "stateless" paths on the "engine" path's tree
+    (blocks 1-8 imported and persisted, ``EngineCell``), through the entry
+    points a node that builds its own blocks calls, and a stateless
+    validator's. "payload": before each build one of the sync child's
+    unsealed batches (245 transactions) is admitted through ``TxBatcher``
+    into a ``TransactionPool(PoolConfig(chain_id=1))`` over the tree's
+    overlay, and before block 9's build the three transactions it must
+    refuse (REFUSED); block 9 by ``LocalMiner(tree, pool).mine_block`` (the
+    dev-mode route: the serial greedy build, newPayload, fcU, the pool's
+    canonical update), block 10 by ``PayloadBuilderService.new_payload_job``
+    + ``get_payload_with_fees`` then ``on_new_payload`` and
+    ``on_forkchoice_updated`` (a consensus client's route), block 11 by a
+    started ``BlockProducer``'s ``take()`` after ``prepare`` (held against
+    one serial ``build_payload`` over a clone of the same pool). The builds
+    root the state on the tree's incremental job and the ordered tries on
+    kernel 1; each import roots it again on the sparse strategy (kernels 1
+    and 4). The tree keeps blocks 9-11 in memory (persistence threshold
+    PAYLOAD_BATCHES) for their witnesses. "stateless": for each block,
+    ``generate_witness`` against its parent's overlay with
+    ``provider_factory=`` and 4 proof workers on the tree's committer
+    (kernel 1 on the proof lane), then one ``StatelessChain(device="cuda")``
+    validates blocks 9, 10 and 11 in order from their witnesses alone
+    (kernel 1), 10 and 11 on the preserved trie."""
+
+    def __init__(self, engine):
+        self.sync = engine.sync
+        self.tree = engine.results["engine"]["tree"]
+        self.blocks: list = []
+        self.parents: list = []
+        self.records: list[dict] = []
+        self.witnesses: list = []
+
+    def _timed_imports(self):
+        """Wrap the tree's newPayload so each import's wall is kept."""
+        tree, walls = self.tree, []
+        inner = tree.on_new_payload
+
+        def on_new_payload(blk, *a, **kw):
+            t0 = time.perf_counter()
+            st = inner(blk, *a, **kw)
+            torch_sync()
+            walls.append(time.perf_counter() - t0)
+            return st
+
+        tree.on_new_payload = on_new_payload
+        return walls, lambda: setattr(tree, "on_new_payload", inner)
+
+    def drive(self) -> None:
+        """Path "payload"."""
+        from reth_tpu_torch.consensus.validation import calc_next_base_fee
+        from reth_tpu_torch.engine import LocalMiner
+        from reth_tpu_torch.metrics import producer_metrics
+        from reth_tpu_torch.payload import (BlockProducer, PayloadAttributes,
+                                            PayloadBuilderService, build_payload)
+        from reth_tpu_torch.pool import PoolConfig, TransactionPool, TxBatcher
+
+        tree = self.tree
+        tree.persistence_threshold = PAYLOAD_BATCHES
+        self.fallbacks0 = (producer_metrics.fallback_total(), tree.sparse_fallbacks)
+        pool = TransactionPool(lambda: tree.overlay_provider(), PoolConfig(chain_id=1))
+        pool.base_fee = calc_next_base_fee(tree.overlay_provider().header_by_number(SYNC_BLOCKS))
+        batcher = TxBatcher(pool)
+        import_walls, unwrap = self._timed_imports()
+        self.counters = {}
+        try:
+            for route, (number, txs, wds, _senders) in zip(PAYLOAD_ROUTES, self.sync.batches):
+                rec = {"number": number, "route": route}
+                parent_hash = tree.head_hash
+                parent = tree.overlay_provider().header_by_number(number - 1)
+                t0 = time.perf_counter()
+                outcomes = [attempt_future(batcher.submit(tx)) for tx in txs]
+                rec["admit_s"] = time.perf_counter() - t0
+                rec["admitted"] = sum(o[0] == "ok" for o in outcomes)
+                if route == "miner":
+                    refused = [attempt_future(batcher.submit(tx)) for tx in self.sync.refused]
+                    rec["refused"] = [o[2] for o in refused]
+                attrs = PayloadAttributes(timestamp=parent.timestamp + 12,
+                                          suggested_fee_recipient=PAYLOAD_COINBASE,
+                                          withdrawals=wds)
+                t0 = time.perf_counter()
+                if route == "miner":
+                    miner = LocalMiner(tree, pool)
+                    block = miner.mine_block(timestamp=parent.timestamp + 12)
+                    rec["build"] = dict(miner.last_stats)
+                    self.counters["miner"] = (miner.producer_fallbacks, miner.serial_builds)
+                    status = "VALID"  # mine_block raises on any other status
+                elif route == "service":
+                    svc = PayloadBuilderService(tree, pool, interval=2.0)
+                    pid = svc.new_payload_job(parent_hash, attrs)
+                    block, rec["fees"] = svc.get_payload_with_fees(pid)
+                    job = svc.jobs[pid]
+                    rec["build"] = dict(job.last_stats)
+                    self.counters["job"] = (job.fallbacks, job.rebuilds)
+                else:
+                    prod = BlockProducer(tree, pool, interval=0.05)
+                    prod.start()
+                    try:
+                        prod.prepare(parent_hash, attrs)
+                        wait_producer(prod, pool, tree, attrs)
+                        t1 = time.perf_counter()
+                        serial, _ = build_payload(tree, clone_pool(pool), parent_hash, attrs)
+                        rec["serial_build_s"] = time.perf_counter() - t1
+                        t1 = time.perf_counter()
+                        block, rec["fees"] = prod.take(parent_hash, attrs)
+                        rec["take_s"] = time.perf_counter() - t1
+                        rec["build"] = dict(prod.last_stats)
+                        snap = prod.snapshot()
+                    finally:
+                        prod.stop()
+                    self.counters["producer"] = (snap["errors"], snap["hits"], snap["misses"])
+                    rec["producer"] = {k: snap[k] for k in ("refreshes", "full_rebuilds",
+                                                           "exec_ranks", "reexec_ranks",
+                                                           "hits", "misses", "errors")}
+                    if block.hash != serial.hash:
+                        raise AssertionError(f"payload: the producer's block 11 "
+                                             f"{[t.hash.hex()[:8] for t in block.transactions]} "
+                                             f"is not one serial build's")
+                if route != "miner":
+                    st = tree.on_new_payload(block)
+                    status = st.status.value
+                    if tree.on_forkchoice_updated(block.hash).status.value != "VALID":
+                        raise AssertionError(f"payload: fcU to block {number}")
+                    pool.on_canonical_state_change(calc_next_base_fee(block.header))
+                torch_sync()
+                rec["route_s"] = time.perf_counter() - t0
+                rec["import_s"] = import_walls[-1]
+                rec.update(status=status, txs=len(block.transactions),
+                           batch=sorted(t.hash for t in txs) == sorted(
+                               t.hash for t in block.transactions),
+                           strategy=tree.last_sparse["strategy"], pool_left=len(pool),
+                           gas=block.header.gas_used)
+                self.records.append(rec)
+                self.blocks.append(block)
+                self.parents.append(parent)
+        finally:
+            unwrap()
+            batcher.close()
+        self.pool = pool
+
+    def check_payload(self) -> None:
+        """Every block VALID at its hash on the sparse strategy, all 245 of
+        its batch selected, its ordered roots the host's (numpy), the pool
+        empty after each canonical update, the refused transactions refused
+        with the pool's messages, 0 catch-all and 0 sparse fallbacks."""
+        from reth_tpu_torch.metrics import producer_metrics
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.primitives.rlp import rlp_encode
+        from reth_tpu_torch.trie.committer import TrieCommitter
+        from reth_tpu_torch.trie.state_root import ordered_trie_root
+
+        host = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+        tree = self.tree
+        for rec, block in zip(self.records, self.blocks):
+            n = rec["number"]
+            if (rec["status"], rec["strategy"], tree.head_hash == self.blocks[-1].hash) != (
+                    "VALID", "sparse", True):
+                raise AssertionError(f"payload: block {n}: {rec}")
+            if not rec["batch"] or rec["admitted"] != len(block.transactions) or rec["pool_left"]:
+                raise AssertionError(f"payload: block {n} selected {rec['txs']} of its batch "
+                                     f"({rec['admitted']} admitted, {rec['pool_left']} left)")
+            receipts = tree.blocks[block.hash].receipts
+            h = block.header
+            want = (ordered_trie_root([t.encode() for t in block.transactions], host),
+                    ordered_trie_root([r.encode_2718() for r in receipts], host),
+                    ordered_trie_root([rlp_encode(w.rlp_fields()) for w in block.withdrawals],
+                                      host))
+            if (h.transactions_root, h.receipts_root, h.withdrawals_root) != want:
+                raise AssertionError(f"payload: block {n}'s ordered roots differ from the "
+                                     f"host's numpy roots")
+        if self.records[0]["refused"] != list(REFUSED):
+            raise AssertionError(f"payload: refused {self.records[0]['refused']}, want "
+                                 f"{list(REFUSED)}")
+        fallbacks = (producer_metrics.fallback_total() - self.fallbacks0[0],
+                     tree.sparse_fallbacks - self.fallbacks0[1])
+        if fallbacks != (0, 0) or self.counters["miner"] != (0, 1) or \
+                self.counters["job"][0] or self.counters["producer"][0]:
+            raise AssertionError(f"payload: fallbacks (catch-all, sparse) {fallbacks}, "
+                                 f"{self.counters}")
+        log(f"payload: blocks {[r['number'] for r in self.records]} VALID on the sparse "
+            f"strategy, {[r['txs'] for r in self.records]} transactions (every one of each "
+            f"batch), transactions / receipts / withdrawals roots equal the host's numpy "
+            f"ordered_trie_root; refused {self.records[0]['refused']}; the pool empty after "
+            f"each canonical update; 0 catch-all fallbacks, 0 sparse fallbacks")
+
+    def report(self, launches: dict) -> None:
+        for rec in self.records:
+            b = rec["build"]
+            extra = ""
+            if rec["route"] == "producer":
+                extra = (f"; producer take {rec['take_s']:.4f} s, one serial build "
+                         f"{rec['serial_build_s']:.4f} s (the same block), "
+                         f"{json.dumps(rec['producer'])}")
+            log(f"payload: block {rec['number']} by the {rec['route']}: admission "
+                f"{rec['admit_s']:.4f} s ({rec['admitted']} admitted); build = selection and "
+                f"execution {b.get('select_s', 0):.4f} s + state root "
+                f"{b.get('state_root_s', 0):.4f} s + ordered roots "
+                f"{b.get('ordered_roots_s', 0):.4f} s; import (newPayload) "
+                f"{rec['import_s']:.4f} s; route {rec['route_s']:.4f} s; {rec['txs']} "
+                f"transactions, {rec['gas']} gas{extra}")
+        log(f"payload: launches {json.dumps(launches)}")
+
+    def witness_all(self) -> list[dict]:
+        """Path "stateless", first half: each block's witness from its
+        parent's overlay."""
+        from reth_tpu_torch.engine import generate_witness
+        from reth_tpu_torch.primitives.types import recover_senders
+
+        tree, out = self.tree, []
+        for block, parent in zip(self.blocks, self.parents):
+            stats: dict = {}
+            t0 = time.perf_counter()
+            w = generate_witness(tree.overlay_provider(parent.hash), block, tree.committer,
+                                 senders=recover_senders(block.transactions),
+                                 parent_header=parent, config=tree.config,
+                                 provider_factory=lambda h=parent.hash: tree.overlay_provider(h),
+                                 proof_workers=4, stats=stats)
+            torch_sync()
+            stats["wall_s"] = time.perf_counter() - t0
+            self.witnesses.append(w)
+            out.append(stats)
+        return out
+
+    def validate_all(self) -> list[dict]:
+        """Path "stateless", second half: one chain over blocks 9-11."""
+        from reth_tpu_torch.engine import StatelessChain
+
+        chain = StatelessChain(self.tree.config, device="cuda")
+        out = []
+        for block, parent, w in zip(self.blocks, self.parents, self.witnesses):
+            t0 = time.perf_counter()
+            root = chain.validate(block, w, parent)
+            torch_sync()
+            out.append(dict(chain.last_stats, wall_s=time.perf_counter() - t0, root=root,
+                            gas=chain.last_output.gas_used))
+        self.chain = chain
+        return out
+
+    def drive_stateless(self) -> None:
+        self.witness_stats = self.witness_all()
+        self.stateless_stats = self.validate_all()
+
+    def check_stateless(self) -> None:
+        """Each stateless root and gas the header's; 10 and 11 on the
+        preserved trie; each witness equal to itself through its JSON."""
+        from reth_tpu_torch.engine import ExecutionWitness
+
+        for block, st, w in zip(self.blocks, self.stateless_stats, self.witnesses):
+            if (st["root"], st["gas"]) != (block.header.state_root, block.header.gas_used):
+                raise AssertionError(f"stateless: block {block.header.number}: root "
+                                     f"{st['root'].hex()}, gas {st['gas']}")
+            if ExecutionWitness.from_json(w.to_json()) != w:
+                raise AssertionError(f"stateless: block {block.header.number}'s witness "
+                                     f"changed through its JSON")
+        if self.chain.preserved.hits != len(self.blocks) - 1:
+            raise AssertionError(f"stateless: {self.chain.preserved.hits} preserved-trie hits")
+        log(f"stateless: {len(self.blocks)} of {len(self.blocks)} blocks valid from their "
+            f"witnesses alone at the header's root and gas; blocks 10 and 11 on the preserved "
+            f"trie; every witness equal to itself through to_json / from_json")
+
+    def report_stateless(self, launches: dict) -> None:
+        for block, ws, st in zip(self.blocks, self.witness_stats, self.stateless_stats):
+            log(f"stateless: block {block.header.number}: witness {ws['wall_s']:.4f} s = "
+                f"execution {ws['execute_s']:.4f} + multiproof {ws['multiproof_s']:.4f} + node "
+                f"hashing {ws['hash_nodes_s']:.4f} + closure {ws['close_s']:.4f} s "
+                f"({ws['rounds']} rounds); {ws['nodes']} nodes, {ws['codes']} codes, "
+                f"{ws['keys']} keys, {ws['headers']} headers, {ws['bytes']} bytes; stateless "
+                f"{st['wall_s']:.4f} s = reveal {st['reveal_s']:.4f} + execution "
+                f"{st['execute_s']:.4f} + root {st['root_s']:.4f} s")
+        log(f"stateless: launches {json.dumps(launches)}")
+
+    def profile(self) -> None:
+        """Outside the main paths: block 11 built again on block 10 from a
+        pool of its transactions under torch.profiler, then block 10's
+        witness."""
+        from reth_tpu_torch.engine import generate_witness
+        from reth_tpu_torch.payload import PayloadAttributes, build_payload
+        from reth_tpu_torch.pool import PoolConfig, TransactionPool
+        from reth_tpu_torch.primitives.types import recover_senders
+
+        tree = self.tree
+        block, parent = self.blocks[2], self.parents[2]
+        pool = TransactionPool(lambda: tree.overlay_provider(parent.hash), PoolConfig(chain_id=1))
+        for tx, sender in zip(block.transactions, recover_senders(block.transactions)):
+            pool.add_transaction(tx, sender=sender)
+        attrs = PayloadAttributes(timestamp=block.header.timestamp,
+                                  suggested_fee_recipient=block.header.beneficiary,
+                                  withdrawals=block.withdrawals)
+        built = []
+        device_profile("payload build (block 11 again)",
+                       lambda: built.append(build_payload(tree, pool, parent.hash, attrs)[0]))
+        log(f"payload (profiled): block 11 built again from a pool of its transactions "
+            f"{'equals' if built[0].hash == block.hash else 'differs from'} block 11")
+        b10, p10 = self.blocks[1], self.parents[1]
+        device_profile("witness (block 10 again)", lambda: generate_witness(
+            tree.overlay_provider(p10.hash), b10, tree.committer,
+            senders=recover_senders(b10.transactions), parent_header=p10, config=tree.config,
+            provider_factory=lambda: tree.overlay_provider(p10.hash), proof_workers=4))
+
+    def drills(self) -> list[dict]:
+        """a) block 9's witness without the parent's account-trie root node:
+        "witness incomplete"; b) block 9's header with another state root:
+        "stateless root mismatch"; c) a launch fault of kernel 1 in a payload
+        build (``_build.check_launch`` of a CUDA error): it raises out of
+        ``mine_block`` and out of ``PayloadJob``, the head and the pool as
+        they were, no block; then the chain is persisted to its tip."""
+        import dataclasses
+
+        from reth_tpu_torch.engine import (ExecutionWitness, LocalMiner, StatelessChain,
+                                           StatelessValidationError)
+        from reth_tpu_torch.ops import _build
+        from reth_tpu_torch.ops import keccak as ok
+        from reth_tpu_torch.payload import PayloadAttributes, PayloadBuilderService
+        from reth_tpu_torch.primitives.keccak import keccak256
+
+        out = []
+        block, parent, w = self.blocks[0], self.parents[0], self.witnesses[0]
+        cut = ExecutionWitness(state=[n for n in w.state if keccak256(n) != parent.state_root],
+                               codes=w.codes, keys=w.keys, headers=w.headers)
+        bad = dataclasses.replace(block, header=dataclasses.replace(
+            block.header, state_root=b"\xde" * 32))
+        for name, want, run in (
+                ("a) a needed node removed", "witness incomplete",
+                 lambda: StatelessChain(self.tree.config, device="cuda").validate(
+                     block, cut, parent)),
+                ("b) the header's state root changed", "stateless root mismatch",
+                 lambda: StatelessChain(self.tree.config, device="cuda").validate(
+                     bad, w, parent))):
+            try:
+                run()
+            except StatelessValidationError as e:
+                if not str(e).startswith(want):
+                    raise AssertionError(f"stateless drill {name}: {e}")
+                out.append({"drill": name, "error": str(e)[:80]})
+            else:
+                raise AssertionError(f"stateless drill {name} validated")
+        tree, pool = self.tree, self.pool
+        pool.add_transaction(self.sync.drill_tx)
+        head = tree.head_hash
+        real = ok.keccak256_words_masked
+
+        def failing(*_a):
+            _build.check_launch(700, "keccak256_absorb")
+
+        ok.keccak256_words_masked = failing
+        raised = []
+        try:
+            for what, run in (("mine_block", lambda: LocalMiner(tree, pool).mine_block()),
+                              ("PayloadJob", lambda: PayloadBuilderService(tree, pool)
+                               .new_payload_job(head, PayloadAttributes(timestamp=2**40)))):
+                try:
+                    run()
+                except _build.LaunchError as e:
+                    raised.append(f"{what}: {e}")
+                else:
+                    raise AssertionError(f"payload drill c): a launch fault of kernel 1 did not "
+                                         f"raise out of {what}")
+        finally:
+            ok.keccak256_words_masked = real
+        if tree.head_hash != head or len(pool) != 1:
+            raise AssertionError("payload drill c): the head moved or the pool changed")
+        out.append({"drill": "c) a launch fault of kernel 1 in a build", "rung": "raised",
+                    "error": raised})
+        tree.persistence_threshold = 0
+        if tree.on_forkchoice_updated(head).status.value != "VALID" or \
+                tree.persisted_number != self.blocks[-1].header.number:
+            raise AssertionError("payload: persisting blocks 9-11 failed")
+        return out
+
+
+def attempt_future(fut, timeout: float = 120.0) -> tuple:
+    """A submitted transaction's outcome: ("ok", hash) or ("err", class,
+    message)."""
+    try:
+        return ("ok", fut.result(timeout))
+    except Exception as e:  # noqa: BLE001 — the outcome is the observation
+        return ("err", type(e).__name__, str(e))
+
+
+def wait_producer(prod, pool, tree, attrs, timeout: float = 300.0) -> None:
+    """Wait until the producer's candidate is at pool parity on the head
+    with ``attrs``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if prod.fault is not None:
+            raise prod.fault
+        with prod._lock:
+            cand = prod.candidate
+            if (cand is not None and cand.window is None and cand.attrs == attrs
+                    and cand.parent_hash == tree.head_hash and cand.pool_seq == pool.event_seq):
+                return
+        time.sleep(0.01)
+    raise AssertionError(f"payload: the producer never reached pool parity: {prod.snapshot()}")
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 # the hot tip: one account trie of HOT_ACCOUNTS seeded keys, two sibling
@@ -3835,6 +4362,17 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
             walls.pop(name)
             engine.check(name)
             engine.report(name, launches[name])
+        # block production and stateless validation on the "engine" tree
+        recorder.path = None
+        payload = PayloadCell(engine)
+        run_path("payload", payload.drive)
+        log(f"main path payload: {walls.pop('payload'):.3f} s wall")
+        payload.check_payload()
+        payload.report(launches["payload"])
+        run_path("stateless", payload.drive_stateless)
+        log(f"main path stateless: {walls.pop('stateless'):.3f} s wall")
+        payload.check_stateless()
+        payload.report_stateless(launches["stateless"])
         recorder.path = None
     merkle.check_incremental()
     live.finish_checks()
@@ -3993,11 +4531,9 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
         cell.block("twin")
     cell.check("with the profiled blocks")
     cell.check_arena("the profiled blocks")
-    profile_path("hot tip block", hot.block,
-                 focus=("reveal_through", "harvest", "reveal_at", "lookup", "commit",
-                        "keccak256"))
     # "merkle stage" and "merkle incremental" have no profiled runs since the
-    # sync path came (their findings stand in PERF.md): no room in the time limit
+    # sync path came, the hot tip none since the payload paths (their findings
+    # stand in PERF.md): no room in the time limit
     profile_path("live tip block", live.profiled_block,
                  focus=("_process", "_reveal", "multiproof", "plan_subtrie", "on_spine",
                         "_spine_nodes", "_finish_inner", "apply_output_to_trie",
@@ -4008,6 +4544,8 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
     # after the main paths' fallback count: drill a) counts an arena fault
     # (the injected abort), and b) one more
     log(f"engine drills: {json.dumps(engine.drills())}")
+    payload.profile()
+    log(f"payload and stateless drills: {json.dumps(payload.drills())}")
     return launches, recorder, hot
 
 

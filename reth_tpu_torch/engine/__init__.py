@@ -12,14 +12,27 @@ import pipeline (``block_pipeline.py``), and the middleware (``util.py``,
 layer (``storage/overlay.py``); persistence applies layers in canonical
 order.
 
-Not ported yet (ROADMAP A): ``local.py`` (it needs ``payload/``), stateless
-validation (``stateless.py WitnessStateSource`` / ``StatelessChain``) and
-``witness.py``.
+Block production and stateless validation: the dev-mode miner
+(``local.py LocalMiner``, over ``payload/`` and ``pool/``), witness
+generation (``witness.py generate_witness``) and stateless validation from a
+witness alone (``stateless.py StatelessChain``, rooting on the card).
 """
 
 from .sparse_root import SparseRootError, SparseRootTask
-from .stateless import StatelessValidationError, apply_output_to_trie
+from .stateless import StatelessChain, StatelessValidationError, apply_output_to_trie
 from .tree import EngineTree, ExecutedBlock, PayloadStatus
+from .witness import ExecutionWitness, generate_witness
 
-__all__ = ["EngineTree", "ExecutedBlock", "PayloadStatus", "SparseRootError",
-           "SparseRootTask", "StatelessValidationError", "apply_output_to_trie"]
+__all__ = ["EngineTree", "ExecutedBlock", "ExecutionWitness", "LocalMiner", "PayloadStatus",
+           "SparseRootError", "SparseRootTask", "StatelessChain", "StatelessValidationError",
+           "apply_output_to_trie", "generate_witness"]
+
+
+def __getattr__(name: str):
+    # ``local.py`` imports ``payload/``, whose builder imports this package's
+    # tree: the miner loads on first use, so either package imports first
+    if name == "LocalMiner":
+        from .local import LocalMiner
+
+        return LocalMiner
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,7 +14,10 @@ lanes), ``WarmupMetrics`` (the warm-up manager's menu and compile
 cache), and the engine's three: ``ExecMetrics`` (the optimistic scheduler
 and the BAL wave executor), ``EngineTreeMetrics`` (the invalid-header
 cache, the orphan buffer, reorgs and cancelled inserts) and
-``BlockPipelineMetrics`` (the cross-block import pipeline). The
+``BlockPipelineMetrics`` (the cross-block import pipeline), and block
+production's two: ``PoolMetrics`` (pool events, admission sheds) and
+``ProducerMetrics`` (the continuous producer's refreshes, and the payload
+path's catch-all fallbacks, which the reference does not count). The
 module-level instances record into the process-wide
 ``REGISTRY``, as in the reference. The node's process and build-identity
 gauges are not ported.
@@ -868,3 +871,135 @@ class BlockPipelineMetrics:
 
 
 block_pipeline_metrics = BlockPipelineMetrics()
+
+
+class PoolMetrics:
+    """Write-path firehose observability (pool/pool.py +
+    pool/batcher.py): pool events by kind (admissions, replacements,
+    drops labeled by reason), admission-queue sheds (the -32005
+    backpressure ladder firing), and the pt_* records shipped to the
+    fleet — the numbers that say whether the firehose is being absorbed
+    or shed, and whether replicas are hearing about it."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._reg = reg
+        self._events: dict[tuple, Counter] = {}
+        self._sheds = reg.counter(
+            "pool_admission_sheds_total",
+            "tx submissions refused -32005 (admission queue saturated)")
+        self._shipped = reg.counter(
+            "pool_feed_records_total",
+            "pt_* pool records shipped to feed subscribers")
+        self._feed_drops = reg.counter(
+            "pool_feed_dropped_total",
+            "pt_* records dropped at a saturated subscriber queue")
+        # events-line fragment state (node/events.py pool[...])
+        self.last: dict = {}
+
+    def on_event(self, kind: str, reason: str | None = None) -> None:
+        key = (kind, reason or "")
+        c = self._events.get(key)
+        if c is None:
+            c = self._events[key] = self._reg.counter(
+                "pool_events_total",
+                "pool events by kind (add/replace/drop/canon) and "
+                "drop reason",
+                labels={"kind": kind, "reason": reason or ""})
+        c.increment()
+        if kind != "canon":
+            self.last[kind] = self.last.get(kind, 0) + 1
+
+    def record_shed(self) -> None:
+        self._sheds.increment()
+        self.last["sheds"] = self.last.get("sheds", 0) + 1
+
+    def record_shipped(self, n: int = 1) -> None:
+        self._shipped.increment(n)
+        self.last["shipped"] = self.last.get("shipped", 0) + n
+
+    def record_feed_drop(self, n: int = 1) -> None:
+        self._feed_drops.increment(n)
+        self.last["feed_drops"] = self.last.get("feed_drops", 0) + n
+
+    def shed_total(self) -> int:
+        return int(self.last.get("sheds", 0))
+
+
+pool_metrics = PoolMetrics()
+
+
+class ProducerMetrics:
+    """Continuous block production observability (payload/producer.py):
+    refresh cadence and wall, ranks executed fresh vs replayed from a
+    checkpoint, candidate size, and staleness — the numbers that say
+    whether the hot candidate is actually incremental (reexec ≪ ranks)
+    and keeping up with the firehose."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._refreshes = reg.counter(
+            "producer_refreshes_total",
+            "incremental candidate refreshes (full rebuilds included)")
+        self._refresh_wall = reg.histogram(
+            "producer_refresh_seconds",
+            "one incremental refresh: restore + replay + greedy tail",
+            buckets=SUB_MS_BUCKETS)
+        self._fresh = reg.counter(
+            "producer_ranks_executed_total",
+            "candidate ranks executed against new stream entries")
+        self._reexec = reg.counter(
+            "producer_ranks_replayed_total",
+            "known-good selected ranks replayed from a checkpoint")
+        self._ranks = reg.gauge(
+            "producer_candidate_ranks", "txs in the hot candidate")
+        self._staleness = reg.gauge(
+            "producer_staleness_seconds",
+            "how long the hot candidate has lagged the pool (SLO input)")
+        # events-line fragment state (node/events.py build[...])
+        self.last: dict = {}
+        self._reg = reg
+        self._fallback_counters: dict[str, Counter] = {}
+        # site -> fallbacks taken (builder, payload job, producer, miner)
+        self.fallbacks: dict[str, int] = {}
+
+    def record_refresh(self, wall_s: float, ranks: int, reexec: int,
+                       fresh: int) -> None:
+        self._refreshes.increment()
+        self._refresh_wall.record(wall_s)
+        if fresh > 0:
+            self._fresh.increment(fresh)
+        if reexec > 0:
+            self._reexec.increment(reexec)
+        self._ranks.set(ranks)
+        self.last["refreshes"] = self.last.get("refreshes", 0) + 1
+        self.last["ranks"] = ranks
+        self.last["reexec"] = self.last.get("reexec", 0) + reexec
+        self.last["fresh"] = self.last.get("fresh", 0) + fresh
+        self.last["wall_s"] = wall_s
+
+    def sync_ranks(self, ranks: int) -> None:
+        self._ranks.set(ranks)
+        self.last["ranks"] = ranks
+
+    def set_staleness(self, seconds: float) -> None:
+        self._staleness.set(seconds)
+        self.last["staleness_s"] = seconds
+
+    def record_fallback(self, site: str) -> None:
+        """One catch-all of the payload path took the reference's fallback
+        for a cause that is no kernel fault (a kernel fault raises there)."""
+        c = self._fallback_counters.get(site)
+        if c is None:
+            c = self._fallback_counters[site] = self._reg.counter(
+                "payload_fallbacks_total",
+                "payload-path catch-alls that took the reference's fallback, by site",
+                labels={"site": site})
+        c.increment()
+        self.fallbacks[site] = self.fallbacks.get(site, 0) + 1
+
+    def fallback_total(self) -> int:
+        return sum(self.fallbacks.values())
+
+
+producer_metrics = ProducerMetrics()

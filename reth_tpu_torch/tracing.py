@@ -11,6 +11,14 @@ drill leaves the same record.
 Since the engine tree: per-block timelines (``trace_block``, the root span
 of one block's import, and ``ensure_timeline`` for spans recorded before it
 opens) and their wall-budget summaries (``block_summary``).
+Block production and stateless validation record their phases as spans of
+their own (the reference records none there), which join the caller's
+trace: ``payload.select`` / ``payload.state_root`` /
+``payload.ordered_roots`` (``payload/builder.py``), ``witness.execute`` /
+``witness.multiproof`` / ``witness.hash_nodes`` / ``witness.close``
+(``engine/witness.py``) and ``stateless.reveal`` / ``stateless.execute`` /
+``stateless.root`` (``engine/stateless.py``). A block summary keeps the
+reference's keys.
 
 Not ported here (they belong to the node): the OTLP and Chrome exporters,
 the operator's one-line budget and the health engine's summary window, and

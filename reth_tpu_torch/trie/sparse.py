@@ -1209,8 +1209,9 @@ class SparseStateTrie:
         for t in self.storage_tries.values():
             t.stamp_reveals = on
 
-    def reveal_account(self, proof_nodes: list[bytes]) -> None:
-        self.account_trie.reveal(proof_nodes)
+    def reveal_account(self, proof_nodes: list[bytes],
+                       by_hash: dict[bytes, bytes] | None = None) -> None:
+        self.account_trie.reveal(proof_nodes, by_hash)
 
     def _new_trie(self, hashed_addr: bytes, storage_root: bytes) -> SparseTrie:
         st = self.storage_tries[hashed_addr] = SparseTrie(storage_root)

@@ -805,18 +805,21 @@ class SyncChain:
     slots to zero prefilled) and the precompile caller; then ``n_blocks``
     blocks of ``sizes``, each sealed by ``pkg.testing.ChainBuilder`` on
     ``committer`` (with ``seal=False`` the caller seals them, one ``block()``
-    call each). ``senders[b]`` lists block b's signing addresses in order."""
+    call each). ``senders[b]`` lists block b's signing addresses in order.
+    ``spare`` more batches of the same shape can be signed after the blocks
+    and left unsealed (``batch()``): the genesis prefills their writer slots
+    and draws their type-4 authorities."""
 
     TOKEN = b"\x70" * 19 + b"\x01"
     WRITER = b"\x70" * 19 + b"\x02"
     CALLER = b"\x70" * 19 + b"\x03"
 
     def __init__(self, pkg, n_accounts: int, n_slots: int, seed: int, n_wallets: int,
-                 n_blocks: int, sizes: dict, committer, seal: bool = True):
+                 n_blocks: int, sizes: dict, committer, seal: bool = True, spare: int = 0):
         t, keccak = pkg.types, pkg.keccak.keccak256
         self.pkg, self.sizes, self.seed = pkg, sizes, seed
         rng = np.random.default_rng(seed)
-        keys = rng.integers(1, 1 << 62, size=n_wallets + n_blocks, dtype=np.int64)
+        keys = rng.integers(1, 1 << 62, size=n_wallets + n_blocks + spare, dtype=np.int64)
         self.wallets = [pkg.testing.Wallet(int(k) * 7919 + 1) for k in keys[:n_wallets]]
         # the type-4 authorities: one fresh wallet a block, never a sender
         self.authorities = [pkg.testing.Wallet(int(k) * 7919 + 3) for k in keys[n_wallets:]]
@@ -830,7 +833,7 @@ class SyncChain:
             accounts[w.address] = t.Account(balance=WALLET_WEI)
         storages[self.TOKEN] = {token_slot(keccak, w.address): TOKEN_SUPPLY for w in self.wallets}
         # one prefilled slot for each writer call to zero
-        n_zero = sizes["writes"] * n_blocks + sizes["setcode"] * n_blocks
+        n_zero = (sizes["writes"] + sizes["setcode"]) * (n_blocks + spare)
         storages[self.WRITER] = {_word(i + 1): i + 1 for i in range(n_zero)}
         self.zero_slots = [_word(i + 1) for i in range(n_zero)]
         self.builder = pkg.testing.ChainBuilder(
@@ -839,6 +842,7 @@ class SyncChain:
         self.existing = list(accounts)[: max(1, n_accounts)]
         self.senders: dict[int, list[bytes]] = {}
         self.withdrawal_index = 0
+        self.unsealed = 0  # batches signed by batch() past the sealed tip
         for _ in range(n_blocks if seal else 0):
             self.block()
 
@@ -865,8 +869,20 @@ class SyncChain:
     def block(self):
         """Seal the next block: its transactions in the order ETH transfers,
         token transfers, writer calls, precompile calls, deploys, type 4."""
+        txs, withdrawals = self._batch(self.builder.tip.number + 1)
+        return self.builder.build_block(txs, withdrawals=tuple(withdrawals))
+
+    def batch(self):
+        """Sign the next block's transactions and withdrawals without sealing
+        it (block tip + 1, then tip + 2, ...): the same wallets at their next
+        nonces. Returns ``(number, transactions, withdrawals)``."""
+        self.unsealed += 1
+        b = self.builder.tip.number + self.unsealed
+        txs, withdrawals = self._batch(b)
+        return b, txs, withdrawals
+
+    def _batch(self, b: int):
         t, sz = self.pkg.types, self.sizes
-        b = self.builder.tip.number + 1
         rng = np.random.default_rng(self.seed * 1000 + b)
         txs, senders = [], []
         i = 0
@@ -944,7 +960,7 @@ class SyncChain:
                                             int(rng.integers(1, 10**9))))
             self.withdrawal_index += 1
         self.senders[b] = senders
-        return self.builder.build_block(txs, withdrawals=tuple(withdrawals))
+        return txs, withdrawals
 
     def _writer_data(self, rng) -> bytes:
         slots = [bytes(rng.integers(0, 256, size=32, dtype=np.uint8)) for _ in range(4)]

@@ -752,3 +752,79 @@ def test_torch_device_error_on_card_is_a_kernel_fault():
     with pytest.raises(RuntimeError) as info:
         torch.zeros(4, device="cuda") + torch.zeros(4)
     assert is_kernel_fault(info.value)
+
+
+def _mine_witness_validate(device: str) -> dict:
+    """The small sync chain's genesis and its blocks' transactions, sealed on
+    the host; on ``device``: a tree with hot state (the sparse strategy),
+    each block's transactions admitted through ``TxBatcher`` and mined by
+    ``LocalMiner``, each mined block witnessed against its parent's overlay
+    (4 proof workers) and validated by one ``StatelessChain``."""
+    import types
+
+    from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain
+    from reth_tpu_torch import testing
+    from reth_tpu_torch.engine import EngineTree, LocalMiner, StatelessChain, generate_witness
+    from reth_tpu_torch.evm import EvmConfig
+    from reth_tpu_torch.pool import PoolConfig, TransactionPool, TxBatcher
+    from reth_tpu_torch.primitives import keccak as pkeccak
+    from reth_tpu_torch.primitives import secp256k1, types as ptypes
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import init_genesis
+
+    pkg = types.SimpleNamespace(testing=testing, types=ptypes, keccak=pkeccak,
+                                secp256k1=secp256k1)
+    chain = SyncChain(pkg, n_accounts=200, n_slots=80, seed=47, n_wallets=4, n_blocks=1,
+                      sizes=SYNC_BLOCK_SMALL,
+                      committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu")).builder
+    factory = ProviderFactory(MemDb())
+    init_genesis(factory, chain.genesis, dict(chain.accounts_at_genesis),
+                 storage=chain.storage_at_genesis, codes=chain.codes_at_genesis,
+                 committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+    tree = EngineTree(factory, device=device, hot_state=True, persistence_threshold=2)
+    pool = TransactionPool(lambda: tree.overlay_provider(), PoolConfig(max_account_slots=64))
+    batcher = TxBatcher(pool)
+    miner = LocalMiner(tree, pool)
+    stateless = StatelessChain(EvmConfig(), device=device)
+    before = (tk.keccak256_words_masked.launches, fc.subtrie_levels.launches)
+    out = {"blocks": [], "witnesses": [], "roots": []}
+    try:
+        for blk in chain.blocks[1:]:
+            for f in [batcher.submit(t) for t in blk.transactions]:
+                f.result(60)
+            parent_hash = tree.head_hash
+            parent = tree.overlay_provider().header_by_number(blk.header.number - 1)
+            mined = miner.mine_block(timestamp=parent.timestamp + 12)
+            assert len(mined.transactions) == len(blk.transactions) and len(pool) == 0
+            w = generate_witness(tree.overlay_provider(parent_hash), mined, tree.committer,
+                                 parent_header=parent, config=EvmConfig(),
+                                 provider_factory=lambda h=parent_hash: tree.overlay_provider(h),
+                                 proof_workers=4)
+            root = stateless.validate(mined, w, parent)
+            assert root == mined.header.state_root
+            out["blocks"].append(mined.hash)
+            out["witnesses"].append(w.to_json())
+            out["roots"].append(root)
+    finally:
+        batcher.close()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert tree.sparse_fallbacks == 0 and tree.hot_arena.faults == 0
+    out["launched"] = (tk.keccak256_words_masked.launches - before[0],
+                       fc.subtrie_levels.launches - before[1])
+    return out
+
+
+@pytest.mark.cuda
+def test_mined_witnessed_and_stateless_blocks_on_card_match_cpu():
+    """Block production and stateless validation on the card at a small
+    state: the mined blocks, their witnesses and the stateless roots equal
+    the same path on device="cpu" (the kernels' plain versions), with
+    kernel 1 and kernel 4 launched on the card."""
+    require_card()
+    got = _mine_witness_validate("cuda")
+    want = _mine_witness_validate("cpu")
+    for key in ("blocks", "witnesses", "roots"):
+        assert got[key] == want[key], key
+    assert got["launched"][0] > 0 and got["launched"][1] > 0

@@ -92,7 +92,11 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.engine.util", "reth_tpu_torch.engine.execution_cache",
                 "reth_tpu_torch.engine.prewarm", "reth_tpu_torch.engine.pipelined_root",
                 "reth_tpu_torch.engine.native_exec", "reth_tpu_torch.engine.bal",
-                "reth_tpu_torch.engine.optimistic", "reth_tpu_torch.engine.block_pipeline"):
+                "reth_tpu_torch.engine.optimistic", "reth_tpu_torch.engine.block_pipeline",
+                "reth_tpu_torch.engine.witness", "reth_tpu_torch.engine.local",
+                "reth_tpu_torch.pool", "reth_tpu_torch.pool.pool", "reth_tpu_torch.pool.batcher",
+                "reth_tpu_torch.pool.blobstore", "reth_tpu_torch.payload",
+                "reth_tpu_torch.payload.builder", "reth_tpu_torch.payload.producer"):
         assert mod in res["modules"]
 
 
@@ -249,3 +253,34 @@ def test_merkle_stage_rebuilds_on_the_device_route():
     twin.turbo_backend = "numpy"
     assert tmerkle.MerkleStage(twin)._turbo_committer().backend_kind == "numpy"
     assert stage.fallbacks == 0
+
+
+def test_stateless_chain_roots_on_the_device():
+    """StatelessChain without a hasher hashes on the card (and raises without
+    one); with device="cpu" its witness batch and its finish run the
+    kernels' plain versions on the CPU; a hasher of the caller's keeps the
+    reference's serial finish."""
+    from reth_tpu_torch.engine.stateless import StatelessChain
+
+    assert inspect.signature(StatelessChain.__init__).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            StatelessChain()
+    chain = StatelessChain(device="cpu")
+    assert chain.hasher.__self__.device == torch.device("cpu")
+    assert chain.committer.device == torch.device("cpu")
+    assert StatelessChain(hasher=keccak256_batch_np).committer is None
+
+
+def test_block_production_modules_stand_alone():
+    """The pool, the payload builder and producer, the miner and the witness
+    import nothing of the JAX package, and the miner is the engine's export."""
+    from reth_tpu_torch import engine
+    from reth_tpu_torch.engine import local, witness
+    from reth_tpu_torch.payload import builder, producer
+    from reth_tpu_torch.pool import batcher, blobstore, pool
+
+    assert engine.LocalMiner is local.LocalMiner
+    for mod in (local, witness, builder, producer, batcher, blobstore, pool):
+        src = Path(mod.__file__).read_text()
+        assert "import jax" not in src and "from reth_tpu." not in src

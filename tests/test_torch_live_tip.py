@@ -425,12 +425,14 @@ def test_storage_reveal_map_is_the_merged_map():
 
 
 def test_stateless_validation_is_not_ported():
-    """WitnessStateSource and StatelessChain re-execute the block: they raise
-    NotImplementedError naming the EVM's ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pstateless.StatelessChain()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pstateless.WitnessStateSource(psparse.SparseStateTrie(), [], [])
+    """WitnessStateSource and StatelessChain are ported now (the EVM's ROADMAP
+    item 7): they construct without raising, the chain on the device it is
+    given, and an empty witness answers an empty state (tests/
+    test_torch_witness.py holds both against the reference's)."""
+    chain = pstateless.StatelessChain(device="cpu")
+    assert chain.committer is not None and chain.preserved.hits == 0
+    src = pstateless.WitnessStateSource(psparse.SparseStateTrie(), [], [])
+    assert src.account(b"\x01" * 20) is None and src.storage(b"\x01" * 20, b"\x00" * 32) == 0
 
 
 def test_export_keeps_a_stored_branch_under_a_split_extension():
