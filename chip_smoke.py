@@ -36,7 +36,9 @@
    child process that loads kernel 1 and hashes keccak256(b"") on the card;
    the run fails unless it is ok and the breaker closed. Its latency is
    logged.
-   Before that, warm-up cold and warm (ops/warmup.py): build_warmup(
+   Beside them and the main paths, on a thread of its own started before
+   the supervisor's startup and joined before step 5, warm-up cold and warm
+   (ops/warmup.py): build_warmup(
    supervisor=, cache_dir=<a fresh directory>) over default_menu() in a
    fresh child process (nothing loaded yet): every shape WARM, misses equal
    to the shapes, nvcc run once per kernel source into the versioned cache,
@@ -54,7 +56,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, twenty-nine main paths, the launch counters zeroed just before
+3. Slice phase, thirty main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -134,7 +136,10 @@
    TurboCommitter(hash_service=) on the default engine while a thread keeps
    submitting live-lane requests (leases equal to the commits, no replay,
    roots and branch nodes equal to the numpy twin's; the lease bypasses and
-   the live lane's waits logged). Then the MerkleStage cell (MerkleCell):
+   the live lane's waits logged). Then the rebuilds' numpy twin (outside the
+   paths), "sync", "recovery", the engine and the payload paths below, and
+   only after them the MerkleStage cell (MerkleCell), whose twin child
+   finishes last:
    plain_state(--accounts, --slots) = 1,000,000 addresses, 400,000 slots
    over 100,000 owners, loaded into a port MemDb with headers 0 and 1 (the
    twin's root); "merkle stage", Pipeline(factory, [MerkleUnwindStage(c),
@@ -183,7 +188,7 @@
    (hash, proof, reveal, finish, worker busy), proof targets, cache
    unblinds, proof shards, finish retries, proof batches and launches are
    logged.
-   Then "sync" (SyncCell), the staged sync of a chain sealed on the host:
+   "sync" (SyncCell), the staged sync of a chain sealed on the host:
    right after the build, beside the merkle twin, a second child process
    (chip_smoke.py --sync-chain, sync_chain) builds tests/_torch_helpers.py
    SyncChain on the port: plain_state(--sync-accounts, --sync-slots, 47) =
@@ -208,6 +213,32 @@
    MerkleStage made 0 fallbacks. Each step's and each stage's wall,
    senders/s, the Execution stage's Mgas/s and transactions/s and the
    rebuild's hashed nodes/s are logged.
+   Then "recovery" (RecoveryCell), startup recovery over datadirs made
+   from the sync's database at block 8 (under reth_tpu_torch/build/, removed
+   after), every committer on the card: a) the tables as a MemDb image with
+   a WAL (attach_wal), StaticFileProducer.run(to_block=3) and one
+   checkpoint; the engine tree's unwind crash window (the marker for 4,
+   Pipeline(factory, default_stages(device="cuda")).unwind(4) through the
+   WAL, no canonical surgery); a byte of the receipts jar flipped and an
+   orphan *.tmp left; reopened (MemDb, attach_wal replaying) and
+   recover_on_startup(committer=TrieCommitter(fused=True, device="cuda"),
+   static_dir=): "degraded" with "completed interrupted unwind 8 -> 4",
+   head 4, root verified, the marker cleared, the receipts jar quarantined
+   and the orphan removed, the transactions jar verified and serving blocks
+   1-3's transactions, the state and trie tables (ENGINE_TABLES) equal to the
+   sync's after its unwind to 4, the header tables ending at 4, 0 fallbacks;
+   b) a bad-CRC record rewriting one HashedAccounts row
+   (chaos.inject_bad_crc_record): with RETH_TPU_FAULT_WAL_ACCEPT_TORN=1 for
+   that reopen recovery must fail on a state-root mismatch; injected again,
+   the correct reader discards it (torn bytes > 0, every table leg a's;
+   verify_root=False); c) leg a's tables copied into a PagedDb (the node's
+   default engine) with the headers of blocks 5-8 put back and every stage
+   at 4: recover_on_startup (verify_root=False: its root check is the
+   second cut of the time limit, these tables are held to leg a's, whose
+   root was checked) completes the unwind and leaves the tables leg a's,
+   walked once, after the store is closed and reopened.
+   Kernels 1 (the unwind) and 2 (the root checks' levels). Each leg's wall,
+   report, launches and host memory are logged.
    Then the engine tree (EngineCell) on that chain, each variant from a
    MemDb restored from the sync path's table map right after its
    init_genesis: EngineTree(factory, TrieCommitter(device="cuda"),
@@ -281,17 +312,16 @@
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
    host-to-device copies, launches and staged levels are logged.
-4. For each main path, two more runs after the launch counts were read
-   (the live tip: block 2 on a fresh lineage of path 1's kind,
-   each restored from a kept table map, which a MemDb publishes immutable):
+4. For each main path, two more runs after the launch counts were read:
    one under torch.profiler (the card's busy time, its host-to-device copy
    time and idle share), one under cProfile (the host's time by function;
+   the rebuilds and state_root have no profiled runs since "recovery" came,
    "merkle stage" has no cProfile run since the live tip came, and neither
    it nor "merkle incremental" has profiled runs since the sync path came:
    no room in the time limit, nor has the hot tip since the payload paths
-   came; "sync" is profiled inside its own path; the
-   engine: block 1 of a fresh "engine" tree under torch.profiler, then
-   block 2 under cProfile).
+   came, nor the live tip since "recovery" came; "sync" is profiled inside
+   its own path, "recovery" not at all; the engine: block 1 of a fresh
+   "engine" tree under torch.profiler, then block 2 under cProfile).
 5. Kernel timings at the main paths' own shapes: for each kernel, on its
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
@@ -310,12 +340,12 @@
    "live_tip_subtrie" rows; the arena's and the live tip's chunks are
    replayed on a copy of the digest buffer as their launch found it, rows of
    earlier epochs resident, and the live_tip_subtrie row has no step
-   breakdown and times its plain version once), its
+   breakdown), its
    launch with the most rows and its launch at the median row count (for
    subtrie_levels, the chunk with the most rows over its levels and the
    median one), replayed on a random digest buffer, bit for bit against the
    plain version on the same arguments, then timed with CUDA events beside
-   the plain version, the bound and the launch's one-warp floor (its
+   the plain version (one run: the check ran it once already), the bound and the launch's one-warp floor (its
    longest row's permutations, one warp issuing an integer instruction
    every 2 cycles at the maximum SM clock; summed over a chunk's levels,
    which run one after another, as is its bound). The JSON line carries the
@@ -340,7 +370,11 @@
    step's ms and one_thread_ms are measured; its floor_bound_ms is the
    step's one-warp floor, computed from this run's inputs like the chunk's,
    not measured.
-6. Drills of the supervised route, at a fixed cut size (DRILL_ACCOUNTS /
+6. The drills. All but hot drill c) run in a child process of their own
+   (chip_smoke.py --drills OUT, drills_child), started before the
+   MerkleStage cell so that they run beside it and the live tip, and
+   joined before step 5; hot drill c) runs in the smoke's own process after
+   step 5, on its hot tip. Drills of the supervised route, at a fixed cut size (DRILL_ACCOUNTS /
    DRILL_SLOTS, the storage tries' commit), each checking the rung it
    expects and holding its roots against the numpy twin's, every watchdog
    thread joined after it: a) a wedge mid-commit on "auto" and "auto k=8"
@@ -359,8 +393,8 @@
    it expects: a) a launch fault inside a delta epoch (one fault, one
    eviction, the commit's root from the classic finish on the card, then a
    full epoch and a delta one); b) RETH_TPU_FAULT_HOTSTATE_EVICT_STORM=1
-   (every epoch full); c) RETH_TPU_FAULT_HOTSTATE_POISON=3 on the hot tip
-   (every poisoned serve caught, none revealed); d) max_rows shrunk so that
+   (every epoch full); c) RETH_TPU_FAULT_HOTSTATE_POISON=3 on one more
+   block of the hot tip (every poisoned serve caught, none revealed); d) max_rows shrunk so that
    begin_epoch evicts (no leaked row); e) a second thread holding the arena
    (the classic finish, contended 1). Then the control plane's drills
    (control_drills): a) RETH_TPU_FAULT_COMPILE_WEDGE=1 (retried, then warm);
@@ -388,6 +422,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -412,6 +447,19 @@ _T0 = time.perf_counter()
 def log(msg: str) -> None:
     """Print ``msg`` after the seconds since the script started."""
     print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
+
+
+def host_memory() -> str:
+    """This process's resident host memory (``VmRSS``) and its peak, in GiB."""
+    import resource
+
+    rss = 0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024  # KiB on Linux
+    return f"host memory {rss / 2**30:.2f} GiB (peak {peak / 2**30:.2f} GiB)"
 
 
 def build_state(n_accounts: int, n_slots: int, seed: int = 42):
@@ -902,8 +950,8 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "sparse k=8", "sparse arena", "hot tip", "state_root degraded", "state_root warming",
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
-         "live tip service", "proofs", "sync", "engine", "engine parallel", "engine pipelined",
-         "payload", "stateless")
+         "live tip service", "proofs", "sync", "recovery", "engine", "engine parallel",
+         "engine pipelined", "payload", "stateless")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -922,6 +970,7 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "live tip reused": ("keccak256_absorb", "subtrie_levels"),
                 "live tip service": ("keccak256_absorb",), "proofs": ("keccak256_absorb",),
                 "sync": ("keccak256_absorb", "packed_level", "branch_level"),
+                "recovery": ("keccak256_absorb", "packed_level"),
                 "engine": ("keccak256_absorb", "subtrie_levels"),
                 "engine parallel": ("keccak256_absorb", "subtrie_levels"),
                 "engine pipelined": ("keccak256_absorb",),
@@ -1267,8 +1316,8 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
                 row["rows_per_block" if label == "median" else "largest_rows_per_block"] = rpb
             else:
                 ms = cuda_ms(call, 50, hold_ms=HOLD_MS)
-            plain_ms = cuda_ms(plain, 1 if name in STEPLESS_ROWS else 5,
-                               warmup=0 if name in STEPLESS_ROWS else 2)
+            # once: the check above ran it on these arguments already
+            plain_ms = cuda_ms(plain, 1, warmup=0)
             b_ms, b_by, floor, desc = cost(*fargs)
             log(f"{name} at the main path's {label} launch ({recorder.rows(wrapper, rec)} rows, "
                 f"{desc}): bit-exact vs plain; "
@@ -2043,17 +2092,6 @@ class LiveTip:
         res["replays"] = svc.replays
         return res
 
-    def profiled_block(self) -> dict:
-        """Path 1's block once more on a lineage of its own (a fresh
-        committer, preserved trie, cache and arena), for the profiles."""
-        from reth_tpu_torch.ops.fused_commit import DigestArena
-        from reth_tpu_torch.trie.committer import TrieCommitter
-        from reth_tpu_torch.trie.hot_cache import TrieNodeCache
-        from reth_tpu_torch.trie.sparse import PreservedSparseTrie
-
-        return self.block("live tip (profiled)", 2, TrieCommitter(device="cuda"),
-                          PreservedSparseTrie(), TrieNodeCache(), DigestArena())
-
     def proof_targets(self) -> dict:
         """"proofs"' 1,024 targets at block 1, seeded and shuffled: existing
         accounts (storage owners with all their slots and one absent slot
@@ -2264,6 +2302,33 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     with open(out_path, "w") as f:
         json.dump(out, f)
     return 0
+
+
+class Background:
+    """``fn`` on a thread of its own, started at once; ``result`` joins it
+    and raises what it raised."""
+
+    def __init__(self, name: str, fn):
+        self.name, self.out, self.err = name, None, None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, args=(fn,), name=f"smoke-{name}",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn) -> None:
+        try:
+            self.out = fn()
+        except BaseException as e:  # re-raised by result() on the main thread
+            self.err = e
+
+    def result(self):
+        t0 = time.perf_counter()
+        self.thread.join()
+        log(f"{self.name}: done in the background after {time.perf_counter() - self.t0:.1f} s "
+            f"(waited {time.perf_counter() - t0:.1f} s for it)")
+        if self.err is not None:
+            raise AssertionError(f"the {self.name} phase failed: {self.err!r}") from self.err
+        return self.out
 
 
 class ChildProcess:
@@ -2556,6 +2621,306 @@ class SyncCell:
             + f"; launches {json.dumps(launches)}")
 
 
+# the "recovery" path's static files: blocks 0 to SYNC_UNWIND_TO - 1 moved into
+# jars before the interrupted unwind
+RECOVERY_JARS_TO = SYNC_UNWIND_TO - 1
+
+
+def store_digests(db, names) -> dict:
+    """``table_digests`` of a MemDb, or of a native store walked by its
+    cursors (a DUPSORT key's values come in order, one entry each)."""
+    if hasattr(db, "_tables"):
+        return table_digests(db, names)
+    import hashlib
+
+    out = {}
+    with db.tx() as tx:
+        for name in names:
+            h, n, key, vals = hashlib.sha256(), 0, None, []
+
+            def fold():
+                h.update(len(key).to_bytes(4, "little") + key + len(vals).to_bytes(4, "little"))
+                for x in vals:
+                    h.update(len(x).to_bytes(4, "little") + x)
+
+            for k, v in tx.cursor(name).walk():
+                if k != key and key is not None:
+                    fold()
+                    vals = []
+                key = k
+                vals.append(v)
+                n += 1
+            if key is not None:
+                fold()
+            out[name] = [n, h.hexdigest()]
+    return out
+
+
+class RecoveryCell:
+    """The "recovery" path: startup recovery (``storage/recovery.py
+    recover_on_startup``) over datadirs made from the "sync" path's database
+    at block 8, through the entry points a node calls at start
+    (``attach_wal``, then ``recover_on_startup``). Every committer on the
+    path is on the card. Legs:
+
+    a) an interrupted unwind healed: the sync's tables as a ``MemDb`` image
+       with a WAL attached (``attach_wal``), ``StaticFileProducer.run(
+       to_block=RECOVERY_JARS_TO)`` into ``static_files/``, one checkpoint
+       (the manifest pins the jars' digests); then the engine tree's crash
+       window (``EngineTree._unwind_persisted_to``): the unwind marker for
+       SYNC_UNWIND_TO and ``Pipeline(factory, default_stages(
+       device="cuda")).unwind(SYNC_UNWIND_TO)`` through the WAL, no canonical
+       surgery; one byte of the receipts jar flipped and an orphan ``*.tmp``
+       beside it. Reopened (a new ``MemDb`` on the image, ``attach_wal``
+       replaying), ``recover_on_startup(committer=TrieCommitter(fused=True,
+       device="cuda"), static_dir=)``.
+    b) corruption caught by the root check: a bad-CRC record rewriting one
+       ``HashedAccounts`` row (``chaos.inject_bad_crc_record``, the
+       reference test's record with an account that decodes) read by the
+       broken reader (``RETH_TPU_FAULT_WAL_ACCEPT_TORN=1`` for that reopen
+       only) must fail recovery on a state-root mismatch; injected again, the
+       correct reader discards it as a torn tail (recovered with
+       ``verify_root=False``: leg a verified these tables).
+    c) the node's default engine: leg a's healed tables copied into a
+       ``PagedDb`` datadir, the canonical headers of blocks 5-8 put back,
+       every stage checkpoint left at SYNC_UNWIND_TO (what an unwind leaves
+       when its marker was already cleared); ``recover_on_startup`` (no
+       durability: ``attach_wal`` returns None for the engine; no root
+       check, cut for the time limit), then the store closed and
+       reopened."""
+
+    def __init__(self, sync: "SyncCell"):
+        self.sync = sync
+        self.dir = Path(HERE) / "reth_tpu_torch" / "build" / f"recovery-{os.getpid()}"
+        self.walls: dict[str, float] = {}
+
+    def drive(self) -> None:
+        """Path "recovery": legs a-c, each leg's wall and kernel counts kept."""
+        for leg, fn in (("a", self.leg_a), ("b", self.leg_b), ("c", self.leg_c)):
+            before = kernel_launches()
+            t0 = time.perf_counter()
+            fn()
+            torch_sync()
+            self.walls[leg] = time.perf_counter() - t0
+            after = kernel_launches()
+            log(f"recovery, leg {leg}: {self.walls[leg]:.3f} s, launches "
+                f"{json.dumps({k: after[k] - before[k] for k in after})}; {host_memory()}")
+
+    def close(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def _recover(self, leg: str, factory, **kw) -> dict:
+        from reth_tpu_torch.storage.recovery import recover_on_startup
+        from reth_tpu_torch.trie.committer import TrieCommitter
+
+        t0 = time.perf_counter()
+        report = recover_on_startup(factory, committer=TrieCommitter(fused=True, device="cuda"),
+                                    **kw)
+        torch_sync()
+        self.walls[f"{leg} recover_on_startup"] = time.perf_counter() - t0
+        log(f"recovery, leg {leg}: recover_on_startup {time.perf_counter() - t0:.3f} s, "
+            f"{host_memory()}: "
+            + json.dumps({k: v for k, v in report.items() if k != "manifest_head"},
+                         default=str))
+        if report["fallbacks"]:
+            raise AssertionError(f"recovery, leg {leg}: fallbacks {report['fallbacks']}")
+        return report
+
+    def _reopen(self, d: Path):
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+        from reth_tpu_torch.storage.wal import attach_wal
+
+        t0 = time.perf_counter()
+        db = MemDb(d / "db.bin")
+        dur = attach_wal(db, d / "wal", static_dir=d / "static_files")
+        log(f"recovery: reopened {d.name} in {time.perf_counter() - t0:.3f} s (the image and "
+            f"the WAL's replay: {json.dumps(dur.replay_report())})")
+        return db, ProviderFactory(db), dur
+
+    def leg_a(self) -> None:
+        from reth_tpu_torch.stages import Pipeline, default_stages
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+        from reth_tpu_torch.storage.nippyjar import NippyJar
+        from reth_tpu_torch.storage.recovery import UNWIND_MARKER_KEY
+        from reth_tpu_torch.storage.static_files import StaticFileProducer, StaticFileProvider
+        from reth_tpu_torch.storage.tables import Tables, from_be64
+        from reth_tpu_torch.storage.wal import attach_wal
+
+        d = self.dir / "a"
+        static = d / "static_files"
+        d.mkdir(parents=True)
+        t0 = time.perf_counter()
+        db = MemDb(d / "db.bin")
+        db._tables, db._dirty = self.sync.db._tables, True  # the sync's map at block 8
+        db.flush()
+        dur = attach_wal(db, d / "wal", static_dir=static)
+        factory = ProviderFactory(db)
+        moved = StaticFileProducer(factory, static).run(to_block=RECOVERY_JARS_TO)
+        with factory.provider() as p:
+            head = p.canonical_hash(SYNC_BLOCKS)
+        dur.checkpoint(head=(SYNC_BLOCKS, head))
+        self.walls["a datadir"] = time.perf_counter() - t0
+        log(f"recovery, leg a: datadir written in {self.walls['a datadir']:.3f} s: image "
+            f"{(d / 'db.bin').stat().st_size} B, jars {json.dumps(moved)}, manifest "
+            f"{(d / 'wal' / 'MANIFEST.json').read_text()}")
+        # the engine tree's crash window: the marker, the pipeline's unwind
+        # committed through the WAL, the canonical surgery never run
+        t0 = time.perf_counter()
+        with factory.provider_rw() as p:
+            p.tx.put(Tables.Metadata.name, UNWIND_MARKER_KEY, SYNC_UNWIND_TO.to_bytes(8, "big"))
+        Pipeline(factory, default_stages(device="cuda")).unwind(SYNC_UNWIND_TO)
+        torch_sync()
+        self.walls["a unwind"] = time.perf_counter() - t0
+        snap = dur.snapshot()
+        dur.close()  # the crash: nothing more reaches the disk
+        receipts = next(static.glob("receipts_*.sf"))
+        raw = bytearray(receipts.read_bytes())
+        raw[-1] ^= 0xFF
+        receipts.write_bytes(bytes(raw))
+        orphan = static / f"headers_{RECOVERY_JARS_TO + 1}_{SYNC_BLOCKS}.sf.tmp"
+        orphan.write_bytes(b"half-written")
+        log(f"recovery, leg a: the interrupted unwind {self.walls['a unwind']:.3f} s, WAL "
+            f"{json.dumps(snap)}; {receipts.name} bit-rotted, {orphan.name} left")
+
+        db2, factory2, dur2 = self._reopen(d)
+        report = self._recover("a", factory2, durability=dur2, static_dir=static)
+        healed = f"completed interrupted unwind {SYNC_BLOCKS} -> {SYNC_UNWIND_TO}"
+        if report["status"] != "degraded" or healed not in report["healed"] \
+                or report["head_number"] != SYNC_UNWIND_TO or report["root_verified"] is not True:
+            raise AssertionError(f"recovery, leg a: {report}")
+        with factory2.provider() as p:
+            if p.tx.get(Tables.Metadata.name, UNWIND_MARKER_KEY) is not None:
+                raise AssertionError("recovery, leg a: the unwind marker is still set")
+            tip = p.last_block_number()
+        tops = {t: max(from_be64(k) for k in db2._tables[t])
+                for t in (Tables.Headers.name, Tables.CanonicalHeaders.name)}
+        if tip != SYNC_UNWIND_TO or set(tops.values()) != {SYNC_UNWIND_TO}:
+            raise AssertionError(f"recovery, leg a: the header tables end at {tops}, tip {tip}")
+        corrupt = receipts.with_suffix(".sf.corrupt")
+        if receipts.exists() or not corrupt.exists() or orphan.exists() \
+                or str(corrupt) not in report["quarantined"]:
+            raise AssertionError(f"recovery, leg a: the receipts jar was not quarantined, or "
+                                 f"the orphan not removed: {sorted(os.listdir(static))}")
+        jar = NippyJar.open(next(static.glob("transactions_*.sf")))
+        verified = jar.verify()
+        jar.close()
+        served = ProviderFactory(db2, StaticFileProvider(static)).provider()
+        txs = {n: [t.hash for t in served.transactions_by_block(n)]
+               for n in range(1, RECOVERY_JARS_TO + 1)}
+        if not verified or txs != {n: [t.hash for t in self.sync.blocks[n - 1].transactions]
+                                   for n in txs}:
+            raise AssertionError("recovery, leg a: the transactions jar does not verify or "
+                                 "does not serve the sync's transactions")
+        unwound = MemDb()
+        unwound._tables = self.sync.unwound
+        want, got = table_digests(unwound, ENGINE_TABLES), table_digests(db2, ENGINE_TABLES)
+        if got != want:
+            raise AssertionError(f"recovery, leg a: tables differ from the sync's after its "
+                                 f"unwind to {SYNC_UNWIND_TO}: {got} against {want}")
+        self.healed, self.engine_digests = db2, got
+        log(f"recovery, leg a: {healed}, root verified at {SYNC_UNWIND_TO} on the card, the "
+            f"marker cleared, the header tables ending at {SYNC_UNWIND_TO}, {receipts.name} "
+            f"quarantined and the orphan removed, the transactions jar verified and serving "
+            f"blocks 1-{RECOVERY_JARS_TO}, {sum(map(len, txs.values()))} transactions, every "
+            f"row of " + ", ".join(f"{n} {got[n][0]}" for n in ENGINE_TABLES)
+            + " equal to the sync's after its unwind; 0 fallbacks")
+
+    def leg_b(self) -> None:
+        import dataclasses
+
+        from reth_tpu_torch.chaos import inject_bad_crc_record
+        from reth_tpu_torch.storage.tables import Tables, decode_account, encode_account
+
+        d = self.dir / "a"
+        key, raw = min(self.healed._tables[Tables.HashedAccounts.name].items())
+        acc = decode_account(raw)
+        evil = encode_account(dataclasses.replace(acc, balance=acc.balance + 1))
+        record = {Tables.HashedAccounts.name: {"rows": {key: evil}, "del": []}}
+        inject_bad_crc_record(d / "wal", record)
+        os.environ["RETH_TPU_FAULT_WAL_ACCEPT_TORN"] = "1"
+        try:
+            db, factory, dur = self._reopen(d)
+        finally:
+            del os.environ["RETH_TPU_FAULT_WAL_ACCEPT_TORN"]
+        report = self._recover("b accepted", factory, durability=dur)
+        if report["status"] != "failed" or report["root_verified"] is not False \
+                or report["accepted_torn"] != 1 \
+                or not any("state root mismatch" in x for x in report["problems"]):
+            raise AssertionError(f"recovery, leg b: the accepted torn record went unseen: "
+                                 f"{report}")
+        dur.close()
+        inject_bad_crc_record(d / "wal", record)
+        db, factory, dur = self._reopen(d)
+        report = self._recover("b discarded", factory, durability=dur, verify_root=False)
+        healed = {n: t for n, t in self.healed._tables.items() if t}
+        if report["torn_bytes"] <= 0 or {n: t for n, t in db._tables.items() if t} != healed:
+            raise AssertionError(f"recovery, leg b: the torn record was not discarded: {report}")
+        dur.close()
+        log(f"recovery, leg b: the broken reader's recovery failed on the state-root mismatch "
+            f"at {SYNC_UNWIND_TO}; the correct reader discarded {report['torn_bytes']} torn "
+            f"bytes and every table equals leg a's")
+
+    def leg_c(self) -> None:
+        import gc
+
+        from reth_tpu_torch.storage import ProviderFactory, db_store_path
+        from reth_tpu_torch.storage.native import PagedDb
+        from reth_tpu_torch.storage.tables import Tables, be64
+        from reth_tpu_torch.storage.wal import attach_wal
+
+        path = db_store_path("paged", self.dir / "c")
+        t0 = time.perf_counter()
+        db = PagedDb(path)
+        rows = 0
+        with db.tx_mut() as tx:
+            for name, table in self.healed._tables.items():
+                for k in sorted(table):
+                    v = table[k]
+                    for x in (v if isinstance(v, list) else [v]):
+                        tx.put(name, k, x, dupsort=isinstance(v, list))
+                        rows += 1
+            src = self.sync.db._tables  # block 8's headers back
+            for n in range(SYNC_UNWIND_TO + 1, SYNC_BLOCKS + 1):
+                h = src[Tables.CanonicalHeaders.name][be64(n)]
+                tx.put(Tables.CanonicalHeaders.name, be64(n), h)
+                tx.put(Tables.Headers.name, be64(n), src[Tables.Headers.name][be64(n)])
+                tx.put(Tables.HeaderNumbers.name, h, src[Tables.HeaderNumbers.name][h])
+        self.walls["c copy"] = time.perf_counter() - t0
+        log(f"recovery, leg c: {rows} rows copied into a PagedDb in {self.walls['c copy']:.3f} "
+            f"s, headers {SYNC_UNWIND_TO + 1}-{SYNC_BLOCKS} put back, {path / 'data.rtpg'} "
+            f"{(path / 'data.rtpg').stat().st_size} B; {host_memory()}")
+        if attach_wal(db, self.dir / "c" / "wal") is not None:
+            raise AssertionError("recovery, leg c: attach_wal gave the paged engine a WAL")
+        # the smoke's room: no root check here (the second cut of its time
+        # limit); the digests below hold these tables to leg a's, whose root
+        # was checked
+        report = self._recover("c", ProviderFactory(db), verify_root=False)
+        healed = f"completed interrupted unwind {SYNC_BLOCKS} -> {SYNC_UNWIND_TO}"
+        if healed not in report["healed"] or report["head_number"] != SYNC_UNWIND_TO \
+                or report["root_verified"] is not None:
+            raise AssertionError(f"recovery, leg c: {report}")
+        # one walk, after the store is closed and reopened (the walk before
+        # the reopen went for the time limit): the healed tables persisted
+        gc.collect()  # no cursor of a finished transaction outlives the store
+        db.close()
+        db = PagedDb(path)
+        again = store_digests(db, ENGINE_TABLES)
+        gc.collect()
+        db.close()
+        if again != self.engine_digests:
+            raise AssertionError(f"recovery, leg c: the reopened paged store's tables differ "
+                                 f"from leg a's: {again}, against {self.engine_digests}")
+        log(f"recovery, leg c: {healed} on the paged engine (its root not checked, cut for "
+            f"time); the store closed and reopened, every row of its state and trie tables "
+            f"equal to leg a's")
+
+    def report(self, launches: dict) -> None:
+        log("recovery: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in self.walls.items())
+            + f"; launches {json.dumps(launches)}")
+
+
 # the engine paths: the sync path's chain imported by EngineTree from the sync
 # path's genesis tables, each variant all of its blocks
 ENGINE_PATHS = ("engine", "engine parallel", "engine pipelined")
@@ -2566,22 +2931,24 @@ ENGINE_TABLES = ("PlainAccountState", "PlainStorageState", "Bytecodes", "HashedA
 # (their tables are held against the sync's at the unwind); "engine" imports
 # every block, and the payload paths extend its tree
 ENGINE_CUT = ("engine parallel", "engine pipelined")
-# the engine's kernels, each by the module attribute the port calls it through
-ENGINE_KERNELS = (("keccak256_absorb", "reth_tpu_torch.ops.keccak", "keccak256_words_masked"),
-                  ("subtrie_levels", "reth_tpu_torch.ops.fused_commit", "subtrie_levels"))
+# the four kernels, each by the module attribute the port calls it through
+KERNEL_SITES = (("keccak256_absorb", "reth_tpu_torch.ops.keccak", "keccak256_words_masked"),
+                ("packed_level", "reth_tpu_torch.ops.fused_commit", "packed_level"),
+                ("branch_level", "reth_tpu_torch.ops.fused_commit", "branch_level"),
+                ("subtrie_levels", "reth_tpu_torch.ops.fused_commit", "subtrie_levels"))
 # the tree's phases of one newPayload, as its spans name them
 ENGINE_PHASES = ("validate", "prepare", "recover_senders", "root_task_start", "execute",
                  "adopt_speculation", "post_validate", "write_overlay", "state_root", "finalize")
 
 
-def engine_launches() -> dict:
-    """The engine's kernels' launch counts now. Under the recorder a
-    wrapper counts inside its lock, so the counts are read inside it too:
-    no launch of another thread is half counted."""
+def kernel_launches() -> dict:
+    """The kernels' launch counts now. Under the recorder a wrapper counts
+    inside its lock, so the counts are read inside it too: no launch of
+    another thread is half counted."""
     import importlib
 
     fns = {name: getattr(importlib.import_module(mod), attr)
-           for name, mod, attr in ENGINE_KERNELS}
+           for name, mod, attr in KERNEL_SITES}
     recorder = getattr(fns["keccak256_absorb"], "recorder", None)
     lock = recorder.lock if recorder is not None else threading.Lock()
     with lock:
@@ -2642,7 +3009,7 @@ class EngineCell:
             st = new_payload(blk, *a, **kw)
             # the launch counts at the block's last return (a SYNCING
             # answer is retried)
-            rec["returned"][blk.hash] = (time.perf_counter(), engine_launches())
+            rec["returned"][blk.hash] = (time.perf_counter(), kernel_launches())
             return st
 
         def start_sparse_root(*a, **kw):
@@ -2717,7 +3084,7 @@ class EngineCell:
         try:
             t_path = time.perf_counter()
             if path == "engine parallel":
-                start = engine_launches()
+                start = kernel_launches()
                 statuses = import_chain(tree, blocks)
                 torch.cuda.synchronize()
                 res["import_s"] = time.perf_counter() - t_path
@@ -2736,7 +3103,7 @@ class EngineCell:
                                           "phases": self.phases(blk.hash, since)})
             else:
                 for blk in blocks:
-                    before = engine_launches()
+                    before = kernel_launches()
                     t0 = time.perf_counter()
                     st = tree.on_new_payload(blk)
                     torch.cuda.synchronize()
@@ -2751,7 +3118,7 @@ class EngineCell:
                         "number": blk.header.number, "new_payload_s": t1 - t0,
                         "fcu_s": t2 - t1, "phases": self.phases(blk.hash, since),
                         "launches": {k: v - before[k]
-                                     for k, v in engine_launches().items()}})
+                                     for k, v in kernel_launches().items()}})
                 res["import_s"] = sum(b["new_payload_s"] for b in res["blocks"])
             t0 = time.perf_counter()
             tree.persistence_threshold = 0
@@ -4213,11 +4580,13 @@ def control_drills() -> list[dict]:
     return out
 
 
-def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
+def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
     """The main paths (``PATHS``), each with the launch counts zeroed just
     before it and read just after; the supervised ones ("auto", "auto k=8",
-    "state_root auto") through ``sup``. Returns the launch counts of each
-    and the recorder holding each launch's arguments."""
+    "state_root auto") through ``sup``. Starts the drills' child
+    (``kids["drills"]``) before the MerkleStage cell. Returns the launch
+    counts of each, the recorder holding each launch's arguments and the
+    hot tip."""
     import torch
 
     from reth_tpu_torch.convert import jobs_to_device
@@ -4302,7 +4671,7 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
         join_supervised()
         launches[path] = {k: fn.launches for k, fn in wrappers.items()}
         guarded[path] = sup.guarded_calls - g0
-        log(f"main path {path}: launches {json.dumps(launches[path])}")
+        log(f"main path {path}: launches {json.dumps(launches[path])}; {host_memory()}")
         return out
 
     with recorder:
@@ -4323,37 +4692,29 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
         service_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
                         for name in SERVICE_SPARSE_PATHS}
         got["rebuild leased"] = rebuild_leased(run_path, rebuild, leased, svc_rebuild)
-        # the MerkleStage path, its state built outside the paths, its twin in
-        # the child process started with the smoke
+        # every rebuild's numpy twin, outside the paths, while the sync
+        # chain's child may still be sealing
         recorder.path = None
-        merkle = MerkleCell(args.accounts, args.slots, args.seed + 3, twin.result())
-        run_path("merkle stage", merkle.drive_stage)
-        log(f"main path merkle stage: {walls.pop('merkle stage'):.3f} s wall")
-        merkle.report("merkle stage", merkle.rows)
-        merkle.check_stage()
-        merkle.restore(1)
-        inc_walls = run_path("merkle incremental", merkle.drive_incremental)
-        log(f"main path merkle incremental: {walls.pop('merkle incremental'):.3f} s wall; "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in inc_walls.items()))
-        merkle.report("merkle incremental", merkle.rows)
-        # the live tip on the same database, its blocks' writes as outputs
-        recorder.path = None
-        live = LiveTip(merkle)
-        for name, drive in zip(LIVE_PATHS, (live.cold, live.cached, live.reused, live.service)):
-            res = run_path(name, drive)
-            walls.pop(name)
-            live.report(res, launches[name])
-            live.check(res)
-        run_path("proofs", live.proofs)
-        walls.pop("proofs")
+        t0 = time.perf_counter()
+        want = rebuild(TurboCommitter(backend="numpy"))
+        wall_np = time.perf_counter() - t0
         # the staged sync, its chain sealed on the host by the child process
-        # started with the smoke
+        # started with the smoke; before the MerkleStage cell, whose twin
+        # child takes longer
         recorder.path = None
-        sync = SyncCell(chain.result())
+        sync = SyncCell(kids["chain"].result())
         run_path("sync", sync.drive)
         log(f"main path sync: {walls.pop('sync'):.3f} s wall")
         sync.report(launches["sync"])
         sync.check()
+        # startup recovery over datadirs made from the sync's database
+        recovery = RecoveryCell(sync)
+        try:
+            run_path("recovery", recovery.drive)
+            log(f"main path recovery: {walls.pop('recovery'):.3f} s wall")
+            recovery.report(launches["recovery"])
+        finally:
+            recovery.close()
         # the engine tree over the sync path's genesis tables and chain
         recorder.path = None
         engine = EngineCell(sync)
@@ -4373,6 +4734,32 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
         log(f"main path stateless: {walls.pop('stateless'):.3f} s wall")
         payload.check_stateless()
         payload.report_stateless(launches["stateless"])
+        # the drills, but the hot tip's, in a child process beside the paths
+        # below
+        kids["drills"] = ChildProcess("drills", "--drills", [])
+        # the MerkleStage path, its state built outside the paths, its twin in
+        # the child process started with the smoke
+        recorder.path = None
+        merkle = MerkleCell(args.accounts, args.slots, args.seed + 3, kids["twin"].result())
+        run_path("merkle stage", merkle.drive_stage)
+        log(f"main path merkle stage: {walls.pop('merkle stage'):.3f} s wall")
+        merkle.report("merkle stage", merkle.rows)
+        merkle.check_stage()
+        merkle.restore(1)
+        inc_walls = run_path("merkle incremental", merkle.drive_incremental)
+        log(f"main path merkle incremental: {walls.pop('merkle incremental'):.3f} s wall; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in inc_walls.items()))
+        merkle.report("merkle incremental", merkle.rows)
+        # the live tip on the same database, its blocks' writes as outputs
+        recorder.path = None
+        live = LiveTip(merkle)
+        for name, drive in zip(LIVE_PATHS, (live.cold, live.cached, live.reused, live.service)):
+            res = run_path(name, drive)
+            walls.pop(name)
+            live.report(res, launches[name])
+            live.check(res)
+        run_path("proofs", live.proofs)
+        walls.pop("proofs")
         recorder.path = None
     merkle.check_incremental()
     live.finish_checks()
@@ -4462,9 +4849,6 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
     log(f"supervised main paths: breaker {snap['breaker']}, 0 failovers, 0 watchdog timeouts, "
         f"0 errors, 0 k-level fallbacks; every commit hashed on the device route")
 
-    t0 = time.perf_counter()
-    want = rebuild(TurboCommitter(backend="numpy"))
-    wall_np = time.perf_counter() - t0
     log(f"rebuild on the numpy twin (host): {wall_np:.3f} s wall")
     for name, res in got.items():
         hashed = sum(r.hashed_nodes for r in res)
@@ -4519,9 +4903,8 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
                              f"only {KECCAK_DEVICE} launches it")
     log(f"keccak256_absorb launched only by {KECCAK_DEVICE}; state_root's template levels "
         f"went through packed_level ({launches['state_root']['packed_level']} launches)")
-    for name in ("default", "k=8"):
-        profile_path(f"rebuild, {name} engine", lambda: rebuild(committers[name]))
-    profile_path("state_root", lambda: state_root(accounts, storages, committer=fused))
+    # the rebuilds and state_root have no profiled runs since "recovery"
+    # came (the time limit; their findings stand in PERF.md)
     for name in SPARSE_PATHS:
         profile_path(f"sparse finish, {name}", lambda: cell.close(name),
                      prepare=lambda: cell.apply(name),
@@ -4532,14 +4915,9 @@ def slice_phase(args, storage_jobs, account_jobs, sup, twin, chain):
     cell.check("with the profiled blocks")
     cell.check_arena("the profiled blocks")
     # "merkle stage" and "merkle incremental" have no profiled runs since the
-    # sync path came, the hot tip none since the payload paths (their findings
-    # stand in PERF.md): no room in the time limit
-    profile_path("live tip block", live.profiled_block,
-                 focus=("_process", "_reveal", "multiproof", "plan_subtrie", "on_spine",
-                        "_spine_nodes", "_finish_inner", "apply_output_to_trie",
-                        "spine_for_path", "storage_spine_for_path", "export_branch_updates",
-                        "_sorted_keys", "hash_batch", "keccak256"))
-    live.report(live.results["live tip (profiled)"])
+    # sync path came, the hot tip none since the payload paths, the live tip
+    # none since "recovery" (their findings stand in PERF.md): no room in the
+    # time limit
     engine.profile()
     # after the main paths' fallback count: drill a) counts an arena fault
     # (the injected abort), and b) one more
@@ -4762,12 +5140,12 @@ def drills(device: str = "cuda", probe_fn=None, seed: int = 49) -> list[dict]:
     return records
 
 
-def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
+def hot_drills(hot: HotTip | None, device: str = "cuda", which: str = "abcde") -> list[dict]:
     """The hot-state plane's drills, after the main paths: a), b), d) and e)
     on a state of the "sparse arena" size (bench.py's sparse generator,
     SPARSE_TRIES x SPARSE_SLOTS, seed 7) and its CPU twin, one seeded block
-    per commit on both, every root held against the twin's; c) on two more
-    blocks of the hot tip's cached lineage. Each checks the rungs it expects
+    per commit on both, every root held against the twin's; c) on one more
+    block of the hot tip's cached lineage. Each checks the rungs it expects
     ("full" and "delta": the arena's epochs; "classic": the finish without
     the arena):
 
@@ -4780,7 +5158,10 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
     d) max_rows shrunk (after the first epoch, to 1.5 times its rows) so
        that begin_epoch evicts: a delta epoch, then a full one after the
        eviction, no leaked row;
-    e) a second thread holds the arena: the classic finish, contended 1."""
+    e) a second thread holds the arena: the classic finish, contended 1.
+
+    ``which`` names the drills to run: the smoke runs c) in its own process
+    (it needs the hot tip, ``hot``) and the others in the drills' child."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
@@ -4791,14 +5172,16 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
     from reth_tpu_torch.trie.sparse import ParallelSparseCommitter
 
     wrappers = (ok.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
-    t0 = time.perf_counter()
-    card, owners, keys = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)
-    twin = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)[0]
-    twin_c = ParallelSparseCommitter(device="cpu")
-    if card.root(committer=ParallelSparseCommitter(subtrie_levels=8, device=device)) != \
-            twin.root(keccak256_batch_np, committer=twin_c):
-        raise AssertionError("hot drills: the baseline root differs from the CPU twin's")
-    log(f"hot drills: state and twin generated and hashed in {time.perf_counter() - t0:.1f} s")
+    if set(which) - {"c"}:
+        t0 = time.perf_counter()
+        card, owners, keys = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)
+        twin = sparse_base(SPARSE_TRIES, SPARSE_SLOTS, seed=7)[0]
+        twin_c = ParallelSparseCommitter(device="cpu")
+        if card.root(committer=ParallelSparseCommitter(subtrie_levels=8, device=device)) != \
+                twin.root(keccak256_batch_np, committer=twin_c):
+            raise AssertionError("hot drills: the baseline root differs from the CPU twin's")
+        log(f"hot drills: state and twin generated and hashed in "
+            f"{time.perf_counter() - t0:.1f} s")
     block = [0]
     records = []
 
@@ -4821,6 +5204,8 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
         return ("classic" if fresh is None else "full" if fresh else "delta"), launched
 
     def drill(name: str, expect: list, run) -> None:
+        if name[0] not in which:
+            return
         t1 = time.perf_counter()
         rungs, detail = run()
         wall = time.perf_counter() - t1
@@ -4887,18 +5272,18 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
             del os.environ["RETH_TPU_FAULT_HOTSTATE_POISON"]
         caught0 = hot.cache.poison_caught
         try:
-            recs = [hot.block() for _ in range(2)]
+            recs = [hot.block()]  # one block (two before the time limit's cut)
         finally:
             inj, hot.cache.injector = hot.cache.injector, None
         caught = hot.cache.poison_caught - caught0
         check(caught == inj.poisons > 0, f"c): {caught} caught of {inj.poisons} poisoned serves")
-        return (["caught"] * 2,
+        return (["caught"],
                 f"{inj.poisons} poisoned serves of {inj.lookups} lookups that found an entry, "
                 f"all caught; blocks "
                 + "; ".join(f"{r['block']}: {r['proof_fetches']} proof fetches, "
                             f"{r['cache_hits']} hits" for r in recs))
 
-    drill("c) RETH_TPU_FAULT_HOTSTATE_POISON=3, hot tip", ["caught"] * 2, run_c)
+    drill("c) RETH_TPU_FAULT_HOTSTATE_POISON=3, hot tip", ["caught"], run_c)
 
     # d) a row budget that begin_epoch evicts at: set after the first epoch
     # to 1.5 times its rows, so the second epoch fits and the third evicts
@@ -4945,6 +5330,24 @@ def hot_drills(hot: HotTip, device: str = "cuda") -> list[dict]:
     return records
 
 
+def drills_child(out_path: str) -> int:
+    """``--drills OUT``: the supervised route's drills, the hot-state
+    drills but c) and the control plane's drills, in a child process of
+    their own that the smoke starts before the MerkleStage cell, so that
+    they run beside that cell and the live tip (their faults are armed in
+    this process's environment only). Writes the three lists of records to
+    ``out_path`` as JSON."""
+    from reth_tpu_torch.device import resolve
+
+    resolve("cuda")
+    out = {"drills": drills(), "hot": hot_drills(None, which="abde"),
+           "control": control_drills()}
+    join_supervised()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def profile_path(label: str, drive, prepare=None, focus=()) -> None:
     """Two more runs of a main path, after its counters were read (so
     their launches are not counted): one under torch.profiler
@@ -4983,6 +5386,8 @@ def main() -> int:
                     help="internal: the MerkleStage cell's CPU twin, its result to OUT")
     ap.add_argument("--sync-chain", metavar="OUT", default=None,
                     help="internal: seal the sync path's chain on the host, to OUT")
+    ap.add_argument("--drills", metavar="OUT", default=None,
+                    help="internal: the drills but the hot tip's, their records to OUT")
     args = ap.parse_args()
 
     import torch
@@ -4997,6 +5402,8 @@ def main() -> int:
         return merkle_twin(args.accounts, args.slots, args.seed, args.merkle_twin)
     if args.sync_chain is not None:
         return sync_chain(args.sync_accounts, args.sync_slots, args.sync_chain)
+    if args.drills is not None:
+        return drills_child(args.drills)
     from reth_tpu_torch.device import resolve
     from reth_tpu_torch.ops import _build
     from reth_tpu_torch.trie import turbo
@@ -5007,7 +5414,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     srcs = [_build.CUDA_SRC_DIR / n for n in _build.KERNEL_SOURCES] + [
         turbo._SRC, _build.PKG_DIR / "csrc" / "secp256k1.cpp",
-        _build.PKG_DIR / "csrc" / "evmexec.cpp"]
+        _build.PKG_DIR / "csrc" / "evmexec.cpp", _build.PKG_DIR / "csrc" / "pagedkv.cpp"]
     t0 = time.perf_counter()
     paths = _build.build(srcs)
     log(f"built {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
@@ -5017,17 +5424,19 @@ def main() -> int:
     chain = ChildProcess("sync chain", "--sync-chain",
                          ["--sync-accounts", str(args.sync_accounts),
                           "--sync-slots", str(args.sync_slots)])
+    kids = {"twin": twin, "chain": chain}  # slice_phase adds the drills' child
     try:
-        return smoke(args, t_start, srcs, paths, twin, chain)
+        return smoke(args, t_start, srcs, paths, kids)
     finally:
-        twin.stop()
-        chain.stop()
+        for kid in kids.values():
+            kid.stop()
 
 
-def smoke(args, t_start: float, srcs, paths, twin, chain) -> int:
+def smoke(args, t_start: float, srcs, paths, kids: dict) -> int:
     """Everything after the build: the checks, the main paths, the timings
-    and the drills (``twin``: the MerkleStage cell's twin, running;
-    ``chain``: the "sync" path's chain, being sealed)."""
+    and the drills (``kids["twin"]``: the MerkleStage cell's twin, running;
+    ``kids["chain"]``: the "sync" path's chain, being sealed; slice_phase
+    starts ``kids["drills"]``)."""
     import torch
 
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
@@ -5036,29 +5445,39 @@ def smoke(args, t_start: float, srcs, paths, twin, chain) -> int:
         check_ptxas(s.name, log_path.read_text() if log_path.exists() else "")
     check_coherent_digest_loads(libs["fused_level.cu"], "subtrie_levels_kernel")
     bound = make_bound(libs)
-    warmup_phase()
+    # the warm-up's children run beside the paths below (their launches are
+    # their own processes'); joined before the kernel timings
+    warm = Background("warm-up", warmup_phase)
+    try:
+        if args.accounts != 1_000_000 or args.slots != 400_000:
+            log(f"size cut: the MerkleStage cell at {args.accounts} accounts / {args.slots} "
+                f"slots (the slice's size is 1,000,000 / 400,000)")
+        log(f"the rebuild paths at {args.rebuild_accounts} accounts / {args.rebuild_slots} "
+            f"slots (cut from 1,000,000 / 400,000, which the MerkleStage cell keeps)")
+        t0 = time.perf_counter()
+        storage_jobs, account_jobs = build_state(args.rebuild_accounts, args.rebuild_slots,
+                                                 args.seed)
+        log(f"state generated in {time.perf_counter() - t0:.1f} s")
 
-    if args.accounts != 1_000_000 or args.slots != 400_000:
-        log(f"size cut: the MerkleStage cell at {args.accounts} accounts / {args.slots} slots "
-            f"(the slice's size is 1,000,000 / 400,000)")
-    log(f"the rebuild paths at {args.rebuild_accounts} accounts / {args.rebuild_slots} slots "
-        f"(cut from 1,000,000 / 400,000, which the MerkleStage cell keeps)")
-    t0 = time.perf_counter()
-    storage_jobs, account_jobs = build_state(args.rebuild_accounts, args.rebuild_slots, args.seed)
-    log(f"state generated in {time.perf_counter() - t0:.1f} s")
-
-    sup = supervisor_startup()
-    probe, check1 = kernel_checks(args, account_jobs, bound)
-    launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup, twin, chain)
+        sup = supervisor_startup()
+        probe, check1 = kernel_checks(args, account_jobs, bound)
+        launches, recorder, hot = slice_phase(args, storage_jobs, account_jobs, sup, kids)
+    finally:
+        warm.thread.join()  # its child processes end before the smoke does
+    warm.result()
+    # the drills' child ends before the kernel timings, which it would share
+    # the card with
+    res = kids["drills"].result()
+    log(f"drills: {json.dumps(res['drills'])}")
+    log(f"hot drills (the drills' child): {json.dumps(res['hot'])}")
+    log(f"control drills: {json.dumps(res['control'])}")
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     for r in rows:
         if r["name"] == "subtrie_levels":
             r.update(probe)
         elif r["name"] == "keccak256_absorb":
             r.update(check1)
-    log(f"drills: {json.dumps(drills())}")
-    log(f"hot drills: {json.dumps(hot_drills(hot))}")
-    log(f"control drills: {json.dumps(control_drills())}")
+    log(f"hot drills: {json.dumps(hot_drills(hot, which='c'))}")
     join_supervised()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

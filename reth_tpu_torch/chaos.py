@@ -2,15 +2,21 @@
 
 A copy of the crash-point half of the JAX package's ``chaos.py``: the named
 points (``CRASH_POINTS``), the drill's parse of ``RETH_TPU_FAULT_CRASH_AT``
-and ``crash_point``, which the engine tree calls between a commit and the
-bookkeeping that follows it. The campaigns, scenario vocabulary and
-orchestration are not ported yet (ROADMAP A item 17).
+and ``crash_point``, which the engine tree, the WAL and the NippyJar writer
+call between a commit and the bookkeeping that follows it, and
+``inject_bad_crc_record``, the bit-rot shape startup recovery must catch.
+The campaigns, scenario vocabulary, invariant suite and orchestration are
+not ported yet (ROADMAP A).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import struct
 import sys
+import zlib
+from pathlib import Path
 
 CRASH_POINTS = (
     "wal-append",          # record fsync'd, publish pending (storage/wal.py)
@@ -62,3 +68,21 @@ def crash_point(point: str) -> None:
     sys.stderr.write(f"chaos: crash point {point!r} firing (os._exit)\n")
     sys.stderr.flush()
     os._exit(137)
+
+
+def inject_bad_crc_record(wal_dir: str | Path, delta: dict) -> None:
+    """Append a record whose CRC is deliberately wrong to the newest WAL
+    segment — the bit-rot shape. A correct reader discards it as a torn
+    tail; the ``RETH_TPU_FAULT_WAL_ACCEPT_TORN`` broken reader applies
+    it, and startup recovery's root check must then catch the corruption
+    (proving the check can fail)."""
+    segs = sorted(Path(wal_dir).glob("*.wal"))
+    if not segs:
+        raise FileNotFoundError(f"no WAL segments under {wal_dir}")
+    payload = pickle.dumps({"seq": 1 << 40, "tables": delta},
+                           protocol=pickle.HIGHEST_PROTOCOL)
+    bad_crc = (zlib.crc32(payload) ^ 0xDEADBEEF) & 0xFFFFFFFF
+    with open(segs[-1], "ab") as f:
+        f.write(struct.pack("<II", len(payload), bad_crc) + payload)
+        f.flush()
+        os.fsync(f.fileno())

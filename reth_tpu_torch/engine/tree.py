@@ -18,8 +18,14 @@ Departures, each with the reference's results where the reference has one:
   reveal that does not converge, an unknown storage trie, the injected
   ``RETH_TPU_FAULT_SPARSE_ABORT``, a proof-worker failure that is no device
   fault), counted in ``sparse_fallbacks``;
-- ``durability`` stays None: the WAL is not ported (ROADMAP A item 8), so a
-  persistence advance flushes a ``MemDb`` that has a file.
+- ``durability`` is None until a caller attaches a ``DurabilityManager``
+  (``storage/wal.attach_wal`` over a ``MemDb``, then ``tree.durability =
+  manager``, as the reference's node does). With one, every persistence
+  advance and deep-reorg unwind is a checkpoint boundary
+  (``_durability_boundary``); without one, it syncs a native store or
+  flushes a ``MemDb`` that has a file. An unwind interrupted at the
+  ``"unwind"`` crash point leaves ``UNWIND_MARKER_KEY`` on disk, and
+  ``storage/recovery.recover_on_startup`` completes it at the next start.
 
 Reference analogue: `EngineApiTreeHandler` (crates/engine/tree,
 tree module) — `on_new_payload` (insert + validate + state root),

@@ -17,7 +17,10 @@ cache, the orphan buffer, reorgs and cancelled inserts) and
 ``BlockPipelineMetrics`` (the cross-block import pipeline), and block
 production's two: ``PoolMetrics`` (pool events, admission sheds) and
 ``ProducerMetrics`` (the continuous producer's refreshes, and the payload
-path's catch-all fallbacks, which the reference does not count). The
+path's catch-all fallbacks, which the reference does not count), and
+storage's ``WalMetrics`` (``wal_metrics``, also ``recovery_metrics``: WAL
+appends and checkpoints, startup replay, recovery's status, and its
+catch-all fallbacks, which the reference does not count either). The
 module-level instances record into the process-wide
 ``REGISTRY``, as in the reference. The node's process and build-identity
 gauges are not ported.
@@ -1003,3 +1006,103 @@ class ProducerMetrics:
 
 
 producer_metrics = ProducerMetrics()
+
+
+class WalMetrics:
+    """Write-ahead-log + startup-recovery observability (storage/wal.py,
+    storage/recovery.py): append/checkpoint cadence, segment size, torn
+    bytes discarded on replay, quarantined images/jars, and the
+    recovery_status gauge the health engine's durability rule watches —
+    the numbers that say whether a kill -9 right now would lose more
+    than the persistence threshold."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._appends = reg.counter(
+            "wal_appends_total", "fsync'd commit records appended")
+        self._bytes = reg.counter(
+            "wal_bytes_written_total", "record bytes appended (framed)")
+        self._checkpoints = reg.counter(
+            "wal_checkpoints_total", "image+manifest checkpoints taken")
+        self._segment_bytes = reg.gauge(
+            "wal_segment_bytes", "bytes in the live WAL segment")
+        self._gen = reg.gauge("wal_generation", "current WAL generation")
+        self._replayed = reg.counter(
+            "recovery_wal_records_replayed_total",
+            "commit records applied during startup replay")
+        self._torn = reg.counter(
+            "recovery_torn_bytes_total",
+            "torn WAL tail bytes discarded during startup replay")
+        self._quarantined = reg.counter(
+            "recovery_quarantined_total",
+            "corrupt images/jars quarantined aside at startup")
+        self._status = reg.gauge(
+            "recovery_status",
+            "last startup recovery: 0 ok, 1 degraded (healed), 2 failed")
+        self._problems = reg.gauge(
+            "recovery_problems", "problems reported by the last recovery")
+        self._mgr = None
+        self.last_recovery: dict | None = None  # events line fragment
+        self._reg = reg
+        self._fallback_counters: dict[str, Counter] = {}
+        # site -> failures recovery's catch-alls absorbed ("unwind", "verify")
+        self.fallbacks: dict[str, int] = {}
+
+    def attach(self, manager) -> None:
+        """Bind the live DurabilityManager so the sampler-facing gauges
+        track it (called from storage/wal.py on attach)."""
+        self._mgr = manager
+        s = manager.snapshot()
+        self._gen.set(s["gen"])
+        self._segment_bytes.set(s["segment_bytes"])
+        self._replayed.increment(s["replayed"])
+        self._torn.increment(s["torn_bytes"])
+
+    def record_append(self, nbytes: int, segment_bytes: int) -> None:
+        self._appends.increment()
+        self._bytes.increment(nbytes)
+        self._segment_bytes.set(segment_bytes)
+
+    def record_checkpoint(self, manager) -> None:
+        self._checkpoints.increment()
+        s = manager.snapshot()
+        self._gen.set(s["gen"])
+        self._segment_bytes.set(s["segment_bytes"])
+
+    def record(self, report: dict) -> None:
+        """Push one startup-recovery report (storage/recovery.py)."""
+        level = {"ok": 0, "degraded": 1, "failed": 2}.get(
+            report.get("status", "ok"), 2)
+        self._status.set(level)
+        self._problems.set(len(report.get("problems", ())))
+        self._quarantined.increment(len(report.get("quarantined", ())))
+        self.last_recovery = {
+            "status": report.get("status"),
+            "head": report.get("head_number"),
+            "replayed": report.get("replayed_records", 0),
+            "torn_bytes": report.get("torn_bytes", 0),
+            "quarantined": len(report.get("quarantined", ())),
+            "healed": len(report.get("healed", ())),
+            "root_verified": report.get("root_verified"),
+            "wall_s": report.get("wall_s"),
+        }
+
+    def record_fallback(self, site: str) -> None:
+        """One of recovery's catch-alls absorbed a failure that is no kernel
+        fault (a kernel fault raises there); the reference does not count
+        these."""
+        c = self._fallback_counters.get(site)
+        if c is None:
+            c = self._fallback_counters[site] = self._reg.counter(
+                "recovery_fallbacks_total",
+                "startup-recovery catch-alls that absorbed a failure, by site",
+                labels={"site": site})
+        c.increment()
+        self.fallbacks[site] = self.fallbacks.get(site, 0) + 1
+
+    def fallback_total(self) -> int:
+        return sum(self.fallbacks.values())
+
+
+wal_metrics = WalMetrics()
+recovery_metrics = wal_metrics  # one surface: recovery_* lives beside wal_*

@@ -19,59 +19,21 @@ The in-memory ``MemDb`` keeps each table as ``dict[key -> value | sorted
 value list]`` plus a per-transaction sorted key index, giving O(log n)
 seeks and ordered iteration.
 
-Not ported yet (ROADMAP A item 8): the write-ahead log a ``MemDb`` can carry
-(``storage/wal.py``), so a commit publishes its tables and records no delta.
-``fsync_file`` / ``fsync_dir`` are that module's two helpers ``flush`` uses.
+A ``MemDb`` may carry a write-ahead log (``storage/wal.py``, attached by
+``attach_wal``): a write transaction then tracks the keys it touches and its
+commit appends their final values as one fsync'd record before it publishes.
 """
 
 from __future__ import annotations
 
 import bisect
-import errno
-import os
 import pickle
 import sys
 import threading
 from pathlib import Path
 
 from .. import tracing
-
-_FSYNC_UNSUPPORTED = frozenset(
-    e for e in (getattr(errno, name, None)
-                for name in ("EINVAL", "ENOSYS", "ENOTSUP", "EOPNOTSUPP"))
-    if e is not None)
-
-
-def fsync_file(f) -> None:
-    """flush + fsync an open file object.
-
-    Only "fsync unsupported on this file" errno values are swallowed; a
-    genuine EIO/ENOSPC must propagate to the committer — reporting a
-    commit durable when its bytes never reached the platter is the
-    classic fsync-gate failure mode.
-    """
-    f.flush()
-    try:
-        os.fsync(f.fileno())
-    except OSError as e:  # pragma: no cover - platform-dependent
-        if e.errno in _FSYNC_UNSUPPORTED:
-            return
-        raise
-
-
-def fsync_dir(path: Path) -> None:
-    """fsync a directory so a just-renamed entry survives power loss."""
-    try:
-        fd = os.open(path, os.O_RDONLY)
-    except OSError:  # pragma: no cover - platform-dependent
-        return
-    try:
-        os.fsync(fd)
-    except OSError:  # pragma: no cover - platform-dependent
-        pass
-    finally:
-        os.close(fd)
-
+from .wal import fsync_dir, fsync_file
 
 class Cursor:
     """Sorted cursor over one table (reference `DbCursorRO`/`DbDupCursorRO`).
@@ -242,6 +204,11 @@ class Tx:
             db._writer_thread = threading.get_ident()
         self._snap: dict[str, dict] = db._tables  # published map (immutable)
         self._own: dict[str, dict] = {}           # tx-private clones
+        # per-table touched-key sets for the WAL's commit delta (value
+        # None = whole-table replace via clear()); tracked only when a
+        # WAL is attached so the no-WAL hot path stays allocation-free
+        self._touched: dict[str, set | None] | None = \
+            {} if (write and getattr(db, "_wal", None) is not None) else None
         self._key_cache: dict[str, list[bytes]] = {}
         self._done = False
 
@@ -273,6 +240,45 @@ class Tx:
 
     def _invalidate_keys(self, table: str):
         self._key_cache.pop(table, None)
+
+    def _track(self, table: str, key: bytes):
+        t = self._touched
+        if t is None:
+            return
+        s = t.get(table)
+        if s is None:
+            if table in t:
+                return  # whole-table replace already recorded
+            s = t[table] = set()
+        s.add(key)
+
+    def _commit_delta(self) -> dict:
+        """The WAL record for this commit: per touched table, the final
+        absolute values of written keys + the deleted keys (or the whole
+        table for clear()) — exactly what the clone-on-touch write set
+        materialized, frozen for serialization."""
+
+        def freeze(v):
+            return list(v) if isinstance(v, list) else v
+
+        touched = self._touched or {}
+        delta: dict[str, dict] = {}
+        for table, own in self._own.items():
+            keys = touched.get(table, None)
+            if keys is None:
+                # clear()ed (or untracked, defensively): record the whole
+                # replacement table — replay-idempotent either way
+                delta[table] = {"replace": True,
+                                "rows": {k: freeze(v) for k, v in own.items()}}
+            else:
+                rows, dels = {}, []
+                for k in keys:
+                    if k in own:
+                        rows[k] = freeze(own[k])
+                    else:
+                        dels.append(k)
+                delta[table] = {"rows": rows, "del": dels}
+        return delta
 
     # -- reads --------------------------------------------------------------
 
@@ -314,6 +320,7 @@ class Tx:
     def put(self, table: str, key: bytes, value: bytes, dupsort: bool = False):
         assert self._write, "read-only transaction"
         t = self._wtable(table)
+        self._track(table, key)
         if key not in t:
             self._invalidate_keys(table)
         if dupsort:
@@ -334,6 +341,7 @@ class Tx:
         """Delete a key (or one duplicate when ``value`` given)."""
         assert self._write, "read-only transaction"
         t = self._wtable(table)
+        self._track(table, key)
         if key not in t:
             return False
         if value is None or not isinstance(t.get(key), list):
@@ -353,6 +361,8 @@ class Tx:
     def clear(self, table: str):
         assert self._write
         self._own[table] = {}
+        if self._touched is not None:
+            self._touched[table] = None  # whole-table replace in the WAL
         self._invalidate_keys(table)
 
     # -- lifecycle ----------------------------------------------------------
@@ -364,12 +374,26 @@ class Tx:
             return
         try:
             if self._own:
-                new_map = dict(self._db._tables)
-                new_map.update(self._own)
-                # atomic publish (GIL reference swap)
-                self._db._tables = new_map
-                self._db._dirty = True
+                def _publish():
+                    new_map = dict(self._db._tables)
+                    new_map.update(self._own)
+                    # atomic publish (GIL reference swap)
+                    self._db._tables = new_map
+                    self._db._dirty = True
+
+                wal = getattr(self._db, "_wal", None)
+                if wal is not None and self._touched is not None:
+                    # durability boundary: the fsync'd WAL record lands
+                    # BEFORE the in-memory publish (and under the WAL
+                    # lock, so a concurrent checkpoint can never truncate
+                    # a record whose state it did not snapshot)
+                    wal.append(self._commit_delta(), publish=_publish)
+                else:
+                    _publish()
         finally:
+            # a failed append (ENOSPC/EIO) must not leave the writer
+            # lock held until __del__: the commit raises, but the txn is
+            # over either way (the WAL already rewound its segment)
             self._done = True
             self._db._writer_thread = None
             self._db._writer_lock.release()
@@ -425,6 +449,7 @@ class MemDb(Database):
         self._path = Path(path) if path else None
         self._dirty = False
         self.quarantined: Path | None = None
+        self._wal = None          # WalStore once storage/wal.py attaches
         if self._path and self._path.exists():
             try:
                 with open(self._path, "rb") as f:

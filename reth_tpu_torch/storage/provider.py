@@ -9,8 +9,9 @@ One provider class carries the trait surface; callers depend on the
 method subset they need, so a future split into protocol classes is
 non-breaking.
 
-Static files (``static_files=``) are not ported yet (ROADMAP A item 8): any
-value but None raises ``NotImplementedError``. The DUPSORT subkey lookups
+Reads of transactions and receipts that the static-file producer moved out
+of the database fall back to ``static_files`` (a ``StaticFileProvider``), as
+in the reference. The DUPSORT subkey lookups
 (``_replace_dup``, ``_get_dup``) go through ``Tx.seek_dup``, which lands on
 the duplicate a cursor's ``seek_by_key_subkey`` would, without a cursor.
 """
@@ -40,16 +41,16 @@ class BlockBodyIndices:
         return self.first_tx_num + self.tx_count
 
 
-_NO_STATIC_FILES = "static files are not ported yet (ROADMAP A item 8)"
-
-
 class DatabaseProvider:
-    """A transaction-scoped typed view of the database."""
+    """A transaction-scoped typed view of the database.
+
+    ``static_files``: optional StaticFileProvider — reads of rows moved
+    out of the DB by the static-file producer fall back to it.
+    """
 
     def __init__(self, tx: Tx, static_files=None):
-        if static_files is not None:
-            raise NotImplementedError(_NO_STATIC_FILES)
         self.tx = tx
+        self.static_files = static_files
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -140,6 +141,8 @@ class DatabaseProvider:
         out = []
         for i in range(idx.first_tx_num, idx.next_tx_num):
             raw = self.tx.get(Tables.Transactions.name, be64(i))
+            if raw is None and self.static_files is not None:
+                raw = self.static_files.row("transactions", i, "tx")
             if raw is None:
                 raise KeyError(f"missing tx number {i}")
             out.append(T.decode_tx(raw))
@@ -176,6 +179,8 @@ class DatabaseProvider:
 
     def receipt(self, tx_num: int) -> Receipt | None:
         raw = self.tx.get(Tables.Receipts.name, be64(tx_num))
+        if raw is None and self.static_files is not None:
+            raw = self.static_files.row("receipts", tx_num, "receipt")
         return T.decode_receipt(raw) if raw else None
 
     # -- plain state -----------------------------------------------------------
@@ -401,13 +406,11 @@ class ProviderFactory:
     """Creates transaction-scoped providers (reference `ProviderFactory`)."""
 
     def __init__(self, db: Database, static_files=None):
-        if static_files is not None:
-            raise NotImplementedError(_NO_STATIC_FILES)
         self.db = db
-        self.static_files = None
+        self.static_files = static_files
 
     def provider(self) -> DatabaseProvider:
-        return DatabaseProvider(self.db.tx())
+        return DatabaseProvider(self.db.tx(), self.static_files)
 
     def provider_rw(self) -> DatabaseProvider:
-        return DatabaseProvider(self.db.tx_mut())
+        return DatabaseProvider(self.db.tx_mut(), self.static_files)

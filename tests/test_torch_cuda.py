@@ -828,3 +828,114 @@ def test_mined_witnessed_and_stateless_blocks_on_card_match_cpu():
     for key in ("blocks", "witnesses", "roots"):
         assert got[key] == want[key], key
     assert got["launched"][0] > 0 and got["launched"][1] > 0
+
+
+def _unwind_crash_datadir(d, interrupted: bool = True):
+    """A small datadir left by an engine tree with a WAL attached (5 blocks of
+    one transfer, persisted to 4): with ``interrupted``, a deep-reorg unwind
+    to 2 marked and interrupted before its first stage commit."""
+    from reth_tpu_torch import testing
+    from reth_tpu_torch.engine import EngineTree
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import init_genesis
+    from reth_tpu_torch.storage.recovery import UNWIND_MARKER_KEY
+    from reth_tpu_torch.storage.tables import Tables
+    from reth_tpu_torch.storage.wal import attach_wal
+
+    host = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    alice = testing.Wallet(0xA11CE)
+    builder = testing.ChainBuilder({alice.address: Account(balance=10**21)}, committer=host)
+    for i in range(5):
+        builder.build_block([alice.transfer(b"\xaa" * 20, 100 + i)])
+    db = MemDb(d / "db.bin")
+    dur = attach_wal(db, d / "wal")
+    factory = ProviderFactory(db)
+    init_genesis(factory, builder.genesis, builder.accounts_at_genesis, committer=host)
+    tree = EngineTree(factory, committer=host, device="cpu", persistence_threshold=1)
+    tree.durability = dur
+    for blk in builder.blocks[1:]:
+        assert tree.on_new_payload(blk).status.value == "VALID"
+        tree.on_forkchoice_updated(blk.hash)
+    if interrupted:  # the marker only: recovery unwinds every stage
+        with factory.provider_rw() as p:
+            p.tx.put(Tables.Metadata.name, UNWIND_MARKER_KEY, (2).to_bytes(8, "big"))
+
+
+def _reopen(d):
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.wal import attach_wal
+
+    db = MemDb(d / "db.bin")
+    return db, ProviderFactory(db), attach_wal(db, d / "wal")
+
+
+@pytest.mark.cuda
+def test_recovery_heals_an_interrupted_unwind_on_card(tmp_path):
+    """recover_on_startup(device="cuda") completes an interrupted unwind (its
+    stages' committers on the card: kernel 1) and verifies the head's root
+    on the fused committer it builds there (kernel 2): the same report and
+    tables as device="cpu", root_verified, kernels 1 and 2 launched."""
+    import shutil
+
+    from reth_tpu_torch.storage.recovery import recover_on_startup
+
+    require_card()
+    src = tmp_path / "src"
+    src.mkdir()
+    _unwind_crash_datadir(src)
+    out = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        shutil.copytree(src, d)
+        db, factory, dur = _reopen(d)
+        before = (tk.keccak256_words_masked.launches, fc.packed_level.launches)
+        report = recover_on_startup(factory, durability=dur, device=device)
+        torch.cuda.synchronize()
+        report.pop("wall_s")
+        out[device] = (report, {n: t for n, t in db._tables.items() if t},
+                       (tk.keccak256_words_masked.launches - before[0],
+                        fc.packed_level.launches - before[1]))
+    assert out["cuda"][:2] == out["cpu"][:2]
+    report = out["cuda"][0]
+    assert report["healed"] == ["completed interrupted unwind 4 -> 2"]
+    assert report["root_verified"] is True and report["fallbacks"] == {}
+    assert out["cuda"][2][0] > 0 and out["cuda"][2][1] > 0
+    assert out["cpu"][2] == (0, 0)
+
+
+@pytest.mark.cuda
+def test_launch_fault_in_root_check_raises_out_of_recovery(tmp_path, monkeypatch):
+    """A LaunchError in the root check's committer (the fused committer
+    recover_on_startup builds on the card, its level kernel refusing the
+    launch) propagates out of recover_on_startup instead of becoming a
+    "failed" report."""
+    from reth_tpu_torch.ops._build import LaunchError
+    from reth_tpu_torch.storage.recovery import recover_on_startup
+
+    require_card()
+    _unwind_crash_datadir(tmp_path, interrupted=False)
+    _, factory, dur = _reopen(tmp_path)
+
+    def refused(*args, **kwargs):
+        raise LaunchError("packed_level: CUDA error 700 at launch")
+
+    monkeypatch.setattr(fc, "packed_level", refused)
+    with pytest.raises(LaunchError, match="packed_level"):
+        recover_on_startup(factory, durability=dur, device="cuda")
+
+
+@pytest.mark.cuda
+def test_failed_paged_engine_build_raises_on_card(tmp_path, monkeypatch):
+    """A pagedkv.cpp that does not compile raises BuildError out of PagedDb,
+    on the machine with the card as here."""
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.storage import native
+
+    require_card()
+    (tmp_path / "pagedkv.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_SRC_DIR", tmp_path)
+    monkeypatch.setattr(native, "_apis", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.BuildError, match="building pagedkv.cpp failed"):
+        native.PagedDb(tmp_path / "db")

@@ -35,6 +35,8 @@ from reth_tpu_torch.primitives.types import EMPTY_ROOT_HASH
 from reth_tpu_torch.stages import hashing as thashing
 from reth_tpu_torch.stages import merkle as tmerkle
 from reth_tpu_torch.storage import MemDb, ProviderFactory
+from reth_tpu_torch.storage import native as tnative
+from reth_tpu_torch.storage import recovery as trecovery
 from reth_tpu_torch.trie import incremental as tinc
 from reth_tpu_torch.trie import proof as tproof
 from reth_tpu_torch.trie import sparse as tsp
@@ -96,7 +98,11 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.engine.witness", "reth_tpu_torch.engine.local",
                 "reth_tpu_torch.pool", "reth_tpu_torch.pool.pool", "reth_tpu_torch.pool.batcher",
                 "reth_tpu_torch.pool.blobstore", "reth_tpu_torch.payload",
-                "reth_tpu_torch.payload.builder", "reth_tpu_torch.payload.producer"):
+                "reth_tpu_torch.payload.builder", "reth_tpu_torch.payload.producer",
+                "reth_tpu_torch.storage.wal", "reth_tpu_torch.storage.nippyjar",
+                "reth_tpu_torch.storage.static_files", "reth_tpu_torch.storage.settings",
+                "reth_tpu_torch.storage.native", "reth_tpu_torch.storage.historical",
+                "reth_tpu_torch.prune"):
         assert mod in res["modules"]
 
 
@@ -129,7 +135,7 @@ def test_sources_name_no_jax_import():
     tinc.IncrementalStateRoot.__init__, tinc.full_state_root, tinc.full_state_root_turbo,
     tinc.verify_state_root, tproof.ProofCalculator.__init__, tstages.default_stages,
     EthBeaconConsensus.__init__, texecution.ExecutionStage.__init__, tgenesis.init_genesis,
-    ttesting.ChainBuilder.__init__, EngineTree.__init__,
+    ttesting.ChainBuilder.__init__, EngineTree.__init__, trecovery.recover_on_startup,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -284,3 +290,51 @@ def test_block_production_modules_stand_alone():
     for mod in (local, witness, builder, producer, batcher, blobstore, pool):
         src = Path(mod.__file__).read_text()
         assert "import jax" not in src and "from reth_tpu." not in src
+
+
+def _chain_at_2_stages_at_1() -> ProviderFactory:
+    """Linked headers 0-2, every engine stage's checkpoint at 1: the shape
+    an unwind to 1 leaves when its marker was cleared."""
+    from reth_tpu_torch.primitives.types import Header
+
+    factory = ProviderFactory(MemDb())
+    with factory.provider_rw() as p:
+        parent = b"\x00" * 32
+        for n in range(3):
+            h = Header(parent_hash=parent, number=n)
+            p.insert_header(h)
+            parent = h.hash
+        for stage in trecovery.ENGINE_STAGES:
+            p.save_stage_checkpoint(stage, 1)
+    return factory
+
+
+def test_recovery_builds_on_the_device(monkeypatch):
+    """recover_on_startup without a committer builds the unwind's stages
+    (default_stages) and the root check's fused committer on its device,
+    "cuda" unless the caller asks for the CPU; without a card the default
+    raises out of the pass."""
+    made, verified = [], []
+    monkeypatch.setattr(tstages, "default_stages", lambda **kw: made.append(kw) or [])
+    monkeypatch.setattr(tinc, "verify_state_root",
+                        lambda p, committer=None, device="cuda": verified.append(
+                            (committer.fused, committer.device, device)) or (EMPTY_ROOT_HASH, []))
+    report = trecovery.recover_on_startup(_chain_at_2_stages_at_1(), device="cpu")
+    assert made == [{"committer": None, "device": "cpu"}]
+    assert report["healed"] == ["completed interrupted unwind 2 -> 1"]
+    # the root check rebuilds on a fused committer: the level kernels
+    assert verified == [(True, torch.device("cpu"), "cpu")] and report["root_verified"] is True
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trecovery.recover_on_startup(_chain_at_2_stages_at_1())
+
+
+def test_native_engines_source_is_the_ports_own():
+    """The KV engines build from the port's csrc/ copies by _build.py's g++
+    route; storage/native.py never names the JAX package's native/ tree."""
+    assert tnative._SRC_DIR == ROOT / "reth_tpu_torch" / "csrc"
+    src = (ROOT / "reth_tpu_torch" / "storage" / "native.py").read_text()
+    assert "native/" not in src and "subprocess" not in src
+    assert issubclass(tnative.NativeBuildError, __import__(
+        "reth_tpu_torch.ops._build", fromlist=["BuildError"]).BuildError)

@@ -657,8 +657,13 @@ def test_sweep_value_error_falls_back(chunk_leaves, monkeypatch):
 
 
 def test_static_files_and_default_stages_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pprov.ProviderFactory(pkv.MemDb(), static_files=object())
+    # static files are ported: the factory hands its provider to every
+    # provider it makes (tests/test_torch_storage_v2.py holds the reads)
+    static = object()
+    factory = pprov.ProviderFactory(pkv.MemDb(), static_files=static)
+    assert factory.static_files is static
+    assert factory.provider().static_files is static
+    assert factory.provider_rw().static_files is static
     from reth_tpu import stages as jstages
     from reth_tpu_torch import stages
 
