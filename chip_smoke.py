@@ -307,7 +307,34 @@
    with another state root raises "stateless root mismatch", c) a launch
    fault of kernel 1 (check_launch of a CUDA error) raises out of
    mine_block and out of PayloadJob, the head and the pool unchanged; then
-   the tree persists blocks 9-11.
+   the tree persists blocks 9-12 (12 is the "rpc" path's).
+   Then the JSON-RPC surface (RpcCell, path "rpc") on that tree at block 11,
+   blocks 9-11 still in memory (its persistence threshold 4 from here on):
+   two RpcServers on 127.0.0.1, port 0, wired as the JAX package's
+   node/node.py:504-547 wires them and sharing one lock (public: eth, debug,
+   net, web3, txpool, otterscan, flashbots, miner; auth: engine and eth,
+   with a JWT secret from load_or_create_secret under
+   reth_tpu_torch/build/rpc-<pid>, removed after), over a TransactionPool
+   with its TxBatcher and a PayloadBuilderService; every call over HTTP.
+   a) one JSON-RPC batch of 1,024 eth_getProof at "latest" from RPC_SEED:
+   1,000 genesis accounts with 0-4 of their own slots and one absent slot,
+   16 absent addresses, 8 requests of 80 slots on the storage writer (64 it
+   wrote, 16 absent: the proof-worker pool); each response's JSON must equal
+   the direct ProofCalculator call at block 11 and verify against block
+   11's root (trie/proof.py). b) debug_executionWitness of blocks 9-11, each
+   equal to the "stateless" path's witness's to_json(). c) block 12: the
+   sync child's fourth unsealed batch (PAYLOAD_BATCHES + RPC_BATCHES are
+   signed) through eth_sendRawTransaction from RPC_CLIENTS threads (every
+   hash back), engine_forkchoiceUpdatedV2 with attributes and
+   engine_getPayloadV2 (the chain takes V2), the payload through
+   flashbots_validateBuilderSubmissionV3 (Valid; again with one byte of its
+   state root flipped and its hash re-sealed on the host: Invalid, "state
+   root mismatch"), engine_newPayloadV2 (VALID at the header's root, 245 of
+   245) and forkchoiceUpdatedV2 to 12; eth_getBlockByNumber("latest") and
+   the 245 eth_getTransactionReceipt (one batch) must agree with the tree,
+   and an engine call without the token must answer HTTP 401. Kernels 1 and
+   4 (the import's hot-state arena) and no other; 0 kernel faults on both
+   servers, no sparse or catch-all fallback; the walls of a, b and c logged.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -951,7 +978,7 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
          "live tip service", "proofs", "sync", "recovery", "engine", "engine parallel",
-         "engine pipelined", "payload", "stateless")
+         "engine pipelined", "payload", "stateless", "rpc")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -975,7 +1002,8 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "engine parallel": ("keccak256_absorb", "subtrie_levels"),
                 "engine pipelined": ("keccak256_absorb",),
                 "payload": ("keccak256_absorb", "subtrie_levels"),
-                "stateless": ("keccak256_absorb",)}
+                "stateless": ("keccak256_absorb",),
+                "rpc": ("keccak256_absorb", "subtrie_levels")}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -2216,6 +2244,8 @@ SYNC_WALLETS, SYNC_BLOCKS, SYNC_SEED, SYNC_UNWIND_TO = 1024, 8, 47, 4
 # the payload path's batches: signed by the same child after the chain's
 # blocks, left unsealed (blocks 9-11 are built on the card)
 PAYLOAD_BATCHES = 3
+# the "rpc" path's block 12: one more unsealed batch, after the payload path's
+RPC_BATCHES = 1
 # the transactions the payload path's pool must refuse, with its messages
 REFUSED = ("nonce too low", "replacement underpriced", "wrong chain id 5 (expected 1)")
 
@@ -2228,9 +2258,9 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     hasher=keccak256_batch_np, device="cpu"), the numpy twin, never the card.
     Writes the genesis header, the genesis alloc's plain fields, the chain
     file (``export_rlp``), each block's signing addresses, roots, gas and
-    the seal walls to ``out_path`` as JSON. Then signs PAYLOAD_BATCHES more
-    batches of SYNC_BLOCK from the same wallets at their next nonces (the
-    payload path's blocks 9-11), unsealed, and the three transactions its
+    the seal walls to ``out_path`` as JSON. Then signs PAYLOAD_BATCHES +
+    RPC_BATCHES more batches of SYNC_BLOCK from the same wallets at their next
+    nonces (the payload path's blocks 9-11, the rpc path's block 12), unsealed, and the three transactions its
     pool must refuse (REFUSED: wallet 0 at nonce 0; batch 9's first
     transaction again at its fee; wallet 1 on chain id 5), all as raw RLP."""
     import types
@@ -2249,7 +2279,7 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     t0 = time.perf_counter()
     chain = SyncChain(pkg, n_accounts, n_slots, SYNC_SEED, SYNC_WALLETS, SYNC_BLOCKS,
                       SYNC_BLOCK, TrieCommitter(hasher=keccak.keccak256_batch_np, device="cpu"),
-                      seal=False, spare=PAYLOAD_BATCHES)
+                      seal=False, spare=PAYLOAD_BATCHES + RPC_BATCHES)
     b = chain.builder
     walls = {"genesis": time.perf_counter() - t0}
     log(f"sync chain: genesis of {len(b.accounts_at_genesis)} accounts and "
@@ -2265,7 +2295,7 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
             f"{len(blk.withdrawals)} withdrawals, root {h.state_root.hex()}")
     t0 = time.perf_counter()
     batches = []
-    for _ in range(PAYLOAD_BATCHES):
+    for _ in range(PAYLOAD_BATCHES + RPC_BATCHES):
         n, txs, wds = chain.batch()
         batches.append({"number": n, "txs": [tx.encode().hex() for tx in txs],
                         "senders": [a.hex() for a in chain.senders[n]],
@@ -2282,7 +2312,7 @@ def sync_chain(n_accounts: int, n_slots: int, out_path: str) -> int:
     # the launch-fault drill's transaction: wallet 2 at its next nonce
     drill = chain.wallets[2].transfer(b"\x0f" * 20, 1)
     walls["batches"] = time.perf_counter() - t0
-    log(f"sync chain: {PAYLOAD_BATCHES} more batches of "
+    log(f"sync chain: {PAYLOAD_BATCHES + RPC_BATCHES} more batches of "
         f"{[len(x['txs']) for x in batches]} transactions signed (unsealed) in "
         f"{walls['batches']:.3f} s")
     fields = alloc_to_fields(b.accounts_at_genesis, b.storage_at_genesis, b.codes_at_genesis)
@@ -3706,10 +3736,431 @@ class PayloadCell:
         out.append({"drill": "c) a launch fault of kernel 1 in a build", "rung": "raised",
                     "error": raised})
         tree.persistence_threshold = 0
+        head_number = tree.blocks[head].block.header.number
         if tree.on_forkchoice_updated(head).status.value != "VALID" or \
-                tree.persisted_number != self.blocks[-1].header.number:
-            raise AssertionError("payload: persisting blocks 9-11 failed")
+                tree.persisted_number != head_number:
+            raise AssertionError(f"payload: persisting blocks 9-{head_number} failed")
         return out
+
+
+# the JSON-RPC surface over the "payload" path's tree at block 11: a batch of
+# eth_getProof, the witnesses of blocks 9-11, block 12 through the engine API
+RPC_SEED = 53
+RPC_ACCOUNTS, RPC_ABSENT, RPC_WRITER_REQS = 1000, 16, 8
+RPC_WRITER_SLOTS, RPC_WRITER_WRITTEN = 80, 64
+RPC_CLIENTS = 8  # threads submitting block 12's transactions
+
+
+def http_post(port: int, body: bytes, token: str | None = None) -> tuple[int, bytes]:
+    """One JSON POST to 127.0.0.1:``port``: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if token is not None:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/", body, headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def rpc_request(method: str, params: list, rid: int = 1) -> dict:
+    return {"jsonrpc": "2.0", "id": rid, "method": method, "params": params}
+
+
+def proof_json(address: str, proof) -> dict:
+    """``eth_getProof``'s response for a direct ``ProofCalculator`` result."""
+    from reth_tpu_torch.primitives.types import KECCAK_EMPTY
+
+    acc = proof.account
+    return {"address": address, "accountProof": ["0x" + n.hex() for n in proof.proof],
+            "balance": hex(acc.balance if acc else 0), "nonce": hex(acc.nonce if acc else 0),
+            "codeHash": "0x" + (acc.code_hash if acc else KECCAK_EMPTY).hex(),
+            "storageHash": "0x" + proof.storage_root.hex(),
+            "storageProof": [{"key": "0x" + sp.key.hex(), "value": hex(sp.value),
+                              "proof": ["0x" + n.hex() for n in sp.proof]}
+                             for sp in proof.storage_proofs]}
+
+
+def verify_proofs(root: bytes, responses: list[dict]) -> int:
+    """Every account proof against ``root`` and every storage proof against
+    its account's storage root (``trie/proof.py`` verify_account_proof /
+    verify_storage_proof), their nodes and keys hashed in one numpy batch
+    first. Returns the storage proofs verified."""
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.primitives.types import Account
+    from reth_tpu_torch.trie import proof as tp
+
+    raw = lambda x: bytes.fromhex(x[2:])  # noqa: E731
+    blobs = set()
+    for r in responses:
+        blobs.add(raw(r["address"]))
+        blobs.update(raw(n) for n in r["accountProof"])
+        for sp in r["storageProof"]:
+            blobs.add(raw(sp["key"]))
+            blobs.update(raw(n) for n in sp["proof"])
+    blobs = sorted(blobs)
+    digests = dict(zip(blobs, keccak256_batch_np(blobs)))
+    real = tp.keccak256
+    tp.keccak256 = lambda b: digests.get(bytes(b)) or real(b)
+    n = 0
+    try:
+        for r in responses:
+            addr, storage_root = raw(r["address"]), raw(r["storageHash"])
+            acc = Account(nonce=int(r["nonce"], 16), balance=int(r["balance"], 16),
+                          storage_root=storage_root, code_hash=raw(r["codeHash"]))
+            nodes = [raw(x) for x in r["accountProof"]]
+            # an absent account proves no leaf; a present one its encoding
+            leaf = tp._verify_path(root, tp.unpack_nibbles(tp.keccak256(addr)), nodes)[1]
+            ap = tp.AccountProof(addr, acc if leaf is not None else None, nodes, storage_root)
+            if not tp.verify_account_proof(root, addr, ap):
+                raise AssertionError(f"rpc: the account proof of {r['address']} does not verify")
+            for sp in r["storageProof"]:
+                if not tp.verify_storage_proof(storage_root, tp.StorageProof(
+                        raw(sp["key"]), int(sp["value"], 16), [raw(x) for x in sp["proof"]])):
+                    raise AssertionError(f"rpc: a storage proof of {r['address']} does not "
+                                         f"verify")
+                n += 1
+    finally:
+        tp.keccak256 = real
+    return n
+
+
+class RpcCell:
+    """The "rpc" path on the "payload" path's tree at block 11 (blocks 9-11
+    in memory), through the servers a node starts: ``RpcServer`` on
+    127.0.0.1, port 0, twice, wired as the JAX package's ``node/node.py``
+    (:504-547) wires them and sharing one lock: a public server with the
+    eth, debug, net, web3, txpool, otterscan, flashbots and miner APIs, and
+    an auth server with a JWT secret (``load_or_create_secret``) carrying
+    ``EngineApi`` and ``EthApi``, over a ``TransactionPool`` with its
+    ``TxBatcher`` and a ``PayloadBuilderService``. Every call below goes over
+    HTTP. a) One JSON-RPC batch of 1,024 ``eth_getProof`` at "latest" from a
+    fixed seed: 1,000 genesis accounts with 0-4 of their own slots and one
+    absent slot, 16 absent addresses, 8 requests of 80 slots on the storage
+    writer (64 it wrote, 16 absent: above ``SLOT_SPLIT_MIN``, the proof
+    worker pool); kernel 1. b) ``debug_executionWitness`` of blocks 9-11;
+    kernel 1. c) Block 12: the sync child's fourth batch through
+    ``eth_sendRawTransaction`` (RPC_CLIENTS threads), ``forkchoiceUpdatedV2``
+    with attributes, ``getPayloadV2``, the payload through
+    ``flashbots_validateBuilderSubmissionV3`` (then with one byte of its
+    state root flipped and its hash re-sealed), ``newPayloadV2`` (kernels 1
+    and 4: the sparse root on the hot-state arena), ``forkchoiceUpdatedV2``
+    to 12; then the latest block and the 245 receipts, and one engine call
+    without the token."""
+
+    def __init__(self, payload: "PayloadCell"):
+        self.payload = payload
+        self.sync = payload.sync
+        self.tree = payload.tree
+        self.walls: dict[str, float] = {}
+        self.dir = Path(HERE) / "reth_tpu_torch" / "build" / f"rpc-{os.getpid()}"
+
+    def start(self) -> None:
+        """The node's wiring, without its ``Node``."""
+        from reth_tpu_torch.consensus.validation import calc_next_base_fee
+        from reth_tpu_torch.metrics import producer_metrics
+        from reth_tpu_torch.payload import PayloadBuilderService
+        from reth_tpu_torch.pool import PoolConfig, TransactionPool, TxBatcher
+        from reth_tpu_torch.rpc import EngineApi, EthApi, RpcServer
+        from reth_tpu_torch.rpc.debug import DebugApi
+        from reth_tpu_torch.rpc.flashbots import BundleApi, ValidationApi
+        from reth_tpu_torch.rpc.jwt import encode_jwt, load_or_create_secret
+        from reth_tpu_torch.rpc.miner import MinerApi
+        from reth_tpu_torch.rpc.net import NetApi, TxpoolApi, Web3Api
+        from reth_tpu_torch.rpc.otterscan import OtterscanApi
+
+        tree = self.tree
+        # blocks 9-12 stay in memory: the payload path's profiled runs and
+        # drills read 10's and 11's parents after this path
+        tree.persistence_threshold = PAYLOAD_BATCHES + RPC_BATCHES
+        self.fallbacks0 = (producer_metrics.fallback_total(), tree.sparse_fallbacks)
+        self.head11, self.root11 = tree.head_hash, self.payload.blocks[-1].header.state_root
+        pool = TransactionPool(lambda: tree.overlay_provider(), PoolConfig(chain_id=1))
+        pool.base_fee = calc_next_base_fee(self.payload.blocks[-1].header)
+        self.pool, self.batcher = pool, TxBatcher(pool)
+        service = PayloadBuilderService(tree, pool)
+
+        def maintain_pool(chain):
+            if chain:
+                pool.on_canonical_state_change(calc_next_base_fee(chain[-1].block.header))
+
+        self.listener = maintain_pool
+        tree.canon_listeners.append(maintain_pool)
+        lock = threading.RLock()
+        service.lock = lock
+        eth = EthApi(tree, pool, 1, tx_batcher=self.batcher)
+        public = RpcServer(lock=lock)
+        debug = DebugApi(eth)
+        for api in (eth, NetApi(1), Web3Api(), TxpoolApi(pool), debug,
+                    OtterscanApi(eth, debug), BundleApi(eth), ValidationApi(eth),
+                    MinerApi(service, pool)):
+            public.register(api)
+        secret = load_or_create_secret(self.dir / "jwt.hex")
+        auth = RpcServer(lock=lock, jwt_secret=secret)
+        auth.register(EngineApi(tree, service, pool=pool))
+        auth.register(eth)
+        self.servers = (public, auth)
+        self.ports = (public.start(), auth.start())
+        self.token = lambda: encode_jwt(secret)
+        log(f"rpc: public server on 127.0.0.1:{self.ports[0]} ({len(public.methods)} methods), "
+            f"auth server on 127.0.0.1:{self.ports[1]} ({len(auth.methods)} methods, JWT)")
+
+    def close(self) -> None:
+        import shutil
+
+        for server in getattr(self, "servers", ()):
+            server.stop()
+        if getattr(self, "batcher", None) is not None:
+            self.batcher.close()
+        if getattr(self, "listener", None) in self.tree.canon_listeners:
+            self.tree.canon_listeners.remove(self.listener)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def call(self, method: str, *params, auth: bool = False):
+        status, body = http_post(self.ports[auth], json.dumps(
+            rpc_request(method, list(params))).encode(), self.token() if auth else None)
+        out = json.loads(body)
+        if status != 200 or "error" in out:
+            raise AssertionError(f"rpc: {method}: HTTP {status}, {out.get('error')}")
+        return out["result"]
+
+    def proof_requests(self) -> list[tuple[str, list[str]]]:
+        """a)'s requests: (address, slots) from RPC_SEED."""
+        from _torch_helpers import SyncChain
+
+        rng = np.random.default_rng(RPC_SEED)
+        contracts = (SyncChain.TOKEN, SyncChain.WRITER, SyncChain.CALLER)
+        pool = sorted(a for a in self.sync.accounts if a not in contracts)
+        picks = rng.choice(len(pool), size=RPC_ACCOUNTS, replace=False)
+        absent = lambda: "0x" + bytes(rng.integers(0, 256, 32, dtype=np.uint8)).hex()  # noqa: E731
+        reqs = []
+        for i in picks:
+            addr = pool[int(i)]
+            own = sorted(self.sync.storage.get(addr, {}))
+            k = min(int(rng.integers(0, 5)), len(own))
+            slots = ["0x" + own[int(j)].hex() for j in sorted(rng.choice(len(own), k,
+                                                                         replace=False))]
+            reqs.append(("0x" + addr.hex(), slots + [absent()]))
+        for _ in range(RPC_ABSENT):
+            reqs.append(("0x" + bytes(rng.integers(0, 256, 20, dtype=np.uint8)).hex(),
+                         [absent()]))
+        written = []
+        for blk in self.sync.blocks + self.payload.blocks:
+            for tx in blk.transactions:
+                if tx.to == SyncChain.WRITER:
+                    written += [tx.data[32 * j:32 * j + 32] for j in range(4)]
+        written = list(dict.fromkeys(written))
+        for r in range(RPC_WRITER_REQS):
+            mine = written[r * RPC_WRITER_WRITTEN:(r + 1) * RPC_WRITER_WRITTEN]
+            slots = ["0x" + s.hex() for s in mine] + [
+                absent() for _ in range(RPC_WRITER_SLOTS - len(mine))]
+            reqs.append(("0x" + SyncChain.WRITER.hex(), slots))
+        return reqs
+
+    def drive(self) -> None:
+        """Path "rpc"."""
+        self.start()
+        t0 = time.perf_counter()
+        self.proof_reqs = self.proof_requests()
+        body = json.dumps([rpc_request("eth_getProof", [a, s, "latest"], i)
+                           for i, (a, s) in enumerate(self.proof_reqs)]).encode()
+        t1 = time.perf_counter()
+        status, raw = http_post(self.ports[0], body)
+        torch_sync()
+        self.walls["a_batch"] = time.perf_counter() - t1
+        if status != 200:
+            raise AssertionError(f"rpc: the eth_getProof batch answered HTTP {status}")
+        self.proof_resps = json.loads(raw)
+        self.walls["a"] = time.perf_counter() - t0
+        self.proof_bytes = len(raw)
+        t0 = time.perf_counter()
+        self.witness_json, self.walls["b_blocks"] = [], []
+        for blk in self.payload.blocks:
+            t1 = time.perf_counter()
+            self.witness_json.append(self.call("debug_executionWitness",
+                                               hex(blk.header.number)))
+            torch_sync()
+            self.walls["b_blocks"].append(time.perf_counter() - t1)
+        self.walls["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.block_12()
+        self.walls["c"] = time.perf_counter() - t0
+
+    def block_12(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.rpc.engine_api import payload_to_block
+        from reth_tpu_torch.trie.committer import TrieCommitter
+
+        number, txs, wds, _senders = self.sync.batches[PAYLOAD_BATCHES]
+        self.batch = txs
+        walls = self.walls
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(RPC_CLIENTS) as ex:
+            self.sent = list(ex.map(lambda tx: self.call(
+                "eth_sendRawTransaction", "0x" + tx.encode().hex()), txs))
+        walls["c_admit"] = time.perf_counter() - t0
+        parent = self.payload.blocks[-1].header
+        coinbase = "0x" + PAYLOAD_COINBASE.hex()
+        attrs = {"timestamp": hex(parent.timestamp + 12), "prevRandao": "0x" + "00" * 32,
+                 "suggestedFeeRecipient": coinbase,
+                 "withdrawals": [{"index": hex(w.index), "validatorIndex": hex(w.validator_index),
+                                  "address": "0x" + w.address.hex(), "amount": hex(w.amount)}
+                                 for w in wds]}
+        head = "0x" + self.head11.hex()
+        t0 = time.perf_counter()
+        fcu = self.call("engine_forkchoiceUpdatedV2", {"headBlockHash": head,
+                                                       "safeBlockHash": head,
+                                                       "finalizedBlockHash": head},
+                        attrs, auth=True)
+        self.fcu_attrs = fcu["payloadStatus"]
+        got = self.call("engine_getPayloadV2", fcu["payloadId"], auth=True)
+        torch_sync()
+        walls["c_build"] = time.perf_counter() - t0
+        payload = self.payload_json = got["executionPayload"]
+        msg = {"feeRecipient": coinbase, "value": "0x0"}
+        t0 = time.perf_counter()
+        self.valid = self.call("flashbots_validateBuilderSubmissionV3",
+                               {"executionPayload": payload, "message": msg})
+        torch_sync()
+        walls["c_validate"] = time.perf_counter() - t0
+        flipped = dict(payload)
+        root = bytearray(bytes.fromhex(payload["stateRoot"][2:]))
+        root[0] ^= 0x01
+        flipped["stateRoot"] = "0x" + bytes(root).hex()
+        host = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+        flipped["blockHash"] = "0x" + payload_to_block(flipped, host).hash.hex()
+        t0 = time.perf_counter()
+        self.invalid = self.call("flashbots_validateBuilderSubmissionV3",
+                                 {"executionPayload": flipped, "message": msg})
+        torch_sync()
+        walls["c_validate_flipped"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.status = self.call("engine_newPayloadV2", payload, auth=True)
+        torch_sync()
+        walls["c_new_payload"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new_head = payload["blockHash"]
+        self.fcu = self.call("engine_forkchoiceUpdatedV2", {
+            "headBlockHash": new_head, "safeBlockHash": head, "finalizedBlockHash": head},
+            auth=True)["payloadStatus"]
+        walls["c_fcu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.latest = self.call("eth_getBlockByNumber", "latest", False)
+        status, raw = http_post(self.ports[0], json.dumps(
+            [rpc_request("eth_getTransactionReceipt", ["0x" + tx.hash.hex()], i)
+             for i, tx in enumerate(txs)]).encode())
+        self.receipts = json.loads(raw) if status == 200 else []
+        walls["c_reads"] = time.perf_counter() - t0
+        self.unauthorized = http_post(self.ports[1], json.dumps(rpc_request(
+            "engine_exchangeCapabilities", [[]])).encode())[0]
+
+    def check(self) -> None:
+        """a) each proof's JSON the direct ProofCalculator call's at block 11,
+        each account and storage proof verified against its root; b) each
+        witness the "stateless" path's to_json(); c) block 12 VALID at its
+        header's root with 245 of 245, the bad-root submission invalid, the
+        reads the tree's, 401 without the token; 0 kernel faults on both
+        servers, no sparse or catch-all fallback; the pool empty."""
+        from reth_tpu_torch.metrics import producer_metrics
+        from reth_tpu_torch.trie.proof import ProofCalculator
+
+        tree = self.tree
+        t0 = time.perf_counter()
+        resps = sorted(self.proof_resps, key=lambda r: r["id"])
+        if len(resps) != len(self.proof_reqs) or any("error" in r for r in resps):
+            raise AssertionError(f"rpc: {len(resps)} proof responses, errors "
+                                 f"{[r['error'] for r in resps if 'error' in r][:3]}")
+        view = tree.overlay_provider(self.head11)
+        calc = ProofCalculator(view, tree.committer)
+        for (addr, slots), r in zip(self.proof_reqs, resps):
+            direct = calc.account_proof(bytes.fromhex(addr[2:]),
+                                        [int(s, 16).to_bytes(32, "big") for s in slots])
+            if r["result"] != proof_json(addr, direct):
+                raise AssertionError(f"rpc: eth_getProof({addr}, {len(slots)} slots) differs "
+                                     f"from the direct ProofCalculator call")
+        torch_sync()
+        direct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_storage = verify_proofs(self.root11, [r["result"] for r in resps])
+        self.proof_check = (direct_s, time.perf_counter() - t0, n_storage)
+        for blk, w, got in zip(self.payload.blocks, self.payload.witnesses, self.witness_json):
+            if got != json.loads(json.dumps(w.to_json())):
+                raise AssertionError(f"rpc: debug_executionWitness({blk.header.number}) differs "
+                                     f"from the stateless path's witness")
+        sent_ok = self.sent == ["0x" + tx.hash.hex() for tx in self.batch]
+        payload = self.payload_json
+        block_hash = bytes.fromhex(payload["blockHash"][2:])
+        entry = tree.blocks.get(block_hash)
+        batch = sorted("0x" + tx.hash.hex() for tx in self.batch)
+        if not sent_ok or entry is None or self.fcu_attrs["status"] != "VALID":
+            raise AssertionError(f"rpc: block 12's admission or build failed "
+                                 f"({sum(a == b for a, b in zip(self.sent, batch))} hashes)")
+        txs_12 = ["0x" + tx.hash.hex() for tx in entry.block.transactions]
+        if (self.status["status"], self.status["latestValidHash"], self.fcu["status"]) != (
+                "VALID", payload["blockHash"], "VALID") or tree.head_hash != block_hash:
+            raise AssertionError(f"rpc: block 12: newPayload {self.status}, fcU {self.fcu}")
+        if entry.block.header.state_root.hex() != payload["stateRoot"][2:] or \
+                sorted(txs_12) != batch or len(txs_12) != len(self.batch):
+            raise AssertionError(f"rpc: block 12 carries {len(txs_12)} of {len(self.batch)}")
+        if self.valid != {"status": "Valid", "proposerPayment": self.valid.get(
+                "proposerPayment")} or self.invalid.get("status") != "Invalid" or \
+                not self.invalid.get("validationError", "").startswith("state root mismatch"):
+            raise AssertionError(f"rpc: builder validation {self.valid}, flipped {self.invalid}")
+        latest = self.latest
+        if (latest["hash"], latest["number"], latest["transactions"]) != (
+                payload["blockHash"], hex(entry.block.header.number), txs_12):
+            raise AssertionError("rpc: eth_getBlockByNumber(latest) is not the tree's block 12")
+        receipts = sorted(self.receipts, key=lambda r: r["id"])
+        want = {"0x" + tx.hash.hex(): (i, rc) for i, (tx, rc) in enumerate(
+            zip(entry.block.transactions, entry.receipts))}
+        for tx, r in zip(self.batch, receipts):
+            i, rc = want["0x" + tx.hash.hex()]
+            got = r.get("result") or {}
+            if (got.get("blockHash"), got.get("transactionIndex"), got.get("status"),
+                    got.get("cumulativeGasUsed"), len(got.get("logs", ()))) != (
+                    payload["blockHash"], hex(i), hex(1 if rc.success else 0),
+                    hex(rc.cumulative_gas_used), len(rc.logs)):
+                raise AssertionError(f"rpc: the receipt of {tx.hash.hex()} is not the tree's")
+        if len(receipts) != len(self.batch) or self.unauthorized != 401:
+            raise AssertionError(f"rpc: {len(receipts)} receipts; an engine call without the "
+                                 f"token answered HTTP {self.unauthorized}")
+        faults = [s.kernel_faults for s in self.servers]
+        fallbacks = (producer_metrics.fallback_total() - self.fallbacks0[0],
+                     tree.sparse_fallbacks - self.fallbacks0[1])
+        if faults != [0, 0] or fallbacks != (0, 0) or len(self.pool):
+            raise AssertionError(f"rpc: kernel faults {faults}, fallbacks (catch-all, sparse) "
+                                 f"{fallbacks}, {len(self.pool)} transactions left in the pool")
+        log(f"rpc: {len(resps)} eth_getProof responses equal to the direct ProofCalculator "
+            f"calls and verified against block 11's root ({n_storage} storage proofs); "
+            f"witnesses of blocks {[b.header.number for b in self.payload.blocks]} equal "
+            f"the stateless path's; block 12 VALID at its header's root with {len(txs_12)} of "
+            f"{len(self.batch)} transactions, the flipped root '{self.invalid['validationError'][:40]}"
+            f"...', latest and {len(receipts)} receipts the tree's, HTTP 401 without the token; "
+            f"0 kernel faults, 0 fallbacks")
+
+    def report(self, launches: dict) -> None:
+        w = self.walls
+        n = len(self.proof_reqs)
+        log(f"rpc: a) {n} eth_getProof in one batch: {w['a_batch']:.4f} s over HTTP "
+            f"({n / w['a_batch']:.1f} proofs/s, {self.proof_bytes} bytes of JSON), "
+            f"{w['a']:.4f} s with the requests' making; the direct calls "
+            f"{self.proof_check[0]:.4f} s and the verification {self.proof_check[1]:.4f} s "
+            f"outside the path")
+        log(f"rpc: b) debug_executionWitness {[round(x, 4) for x in w['b_blocks']]} s, "
+            f"{w['b']:.4f} s")
+        log(f"rpc: c) block 12 {w['c']:.4f} s: admission {w['c_admit']:.4f} s "
+            f"({len(self.batch)} eth_sendRawTransaction, {RPC_CLIENTS} clients), fcU + "
+            f"getPayload {w['c_build']:.4f} s, builder validation {w['c_validate']:.4f} s "
+            f"(flipped root {w['c_validate_flipped']:.4f} s), newPayload "
+            f"{w['c_new_payload']:.4f} s, fcU {w['c_fcu']:.4f} s, latest + "
+            f"{len(self.batch)} receipts {w['c_reads']:.4f} s")
+        log(f"rpc: launches {json.dumps(launches)}")
 
 
 def attempt_future(fut, timeout: float = 120.0) -> tuple:
@@ -4734,6 +5185,17 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
         log(f"main path stateless: {walls.pop('stateless'):.3f} s wall")
         payload.check_stateless()
         payload.report_stateless(launches["stateless"])
+        # the JSON-RPC surface over that tree at block 11, then block 12
+        rpc = RpcCell(payload)
+        try:
+            run_path("rpc", rpc.drive)
+            log(f"main path rpc: {walls.pop('rpc'):.3f} s wall (a {rpc.walls['a']:.3f} s, "
+                f"b {rpc.walls['b']:.3f} s, c {rpc.walls['c']:.3f} s)")
+            recorder.path = None
+            rpc.check()
+            rpc.report(launches["rpc"])
+        finally:
+            rpc.close()
         # the drills, but the hot tip's, in a child process beside the paths
         # below
         kids["drills"] = ChildProcess("drills", "--drills", [])

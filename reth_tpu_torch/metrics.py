@@ -20,10 +20,13 @@ production's two: ``PoolMetrics`` (pool events, admission sheds) and
 path's catch-all fallbacks, which the reference does not count), and
 storage's ``WalMetrics`` (``wal_metrics``, also ``recovery_metrics``: WAL
 appends and checkpoints, startup replay, recovery's status, and its
-catch-all fallbacks, which the reference does not count either). The
-module-level instances record into the process-wide
-``REGISTRY``, as in the reference. The node's process and build-identity
-gauges are not ported.
+catch-all fallbacks, which the reference does not count either), and
+the RPC's: ``GatewayMetrics`` (the serving gateway's admission, coalescing
+and cache), ``update_process_metrics`` (the process and build-identity
+gauges a ``/metrics`` scrape refreshes; the build's labels name torch where
+the reference's name jax) and ``sample_percentile`` (the gas oracle's). The
+module-level instances record into the process-wide ``REGISTRY``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -94,6 +97,15 @@ class Histogram:
         """Consistent (per-bucket counts, total, n) copy."""
         with self._lock:
             return list(self.counts), self.total, self.n
+
+
+def sample_percentile(sorted_samples, pct: int):
+    """Nearest-rank percentile over an already-sorted sample list (the
+    gas-oracle shape: small lists, integer percentile)."""
+    if not sorted_samples:
+        return None
+    idx = min(len(sorted_samples) - 1, len(sorted_samples) * pct // 100)
+    return sorted_samples[idx]
 
 
 def _label_str(labels: dict) -> str:
@@ -167,6 +179,71 @@ class MetricsRegistry:
 
 # the process-wide registry
 REGISTRY = MetricsRegistry()
+
+_PROC_START = None
+_BUILD_INFO: dict | None = None
+
+
+def build_info() -> dict:
+    """Node-identity labels: package version, git revision (when the repo
+    is available), torch version, and the device backend. Computed once."""
+    global _BUILD_INFO
+    if _BUILD_INFO is not None:
+        return _BUILD_INFO
+    import os
+
+    from . import __version__
+
+    info = {"version": __version__}
+    try:
+        import subprocess
+
+        r = subprocess.run(
+            ["git", "-C", os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5)
+        if r.returncode == 0 and r.stdout.strip():
+            info["git"] = r.stdout.strip()
+    except Exception:  # noqa: BLE001 — identity is best-effort
+        pass
+    import torch
+
+    info["torch"] = torch.__version__
+    info["backend"] = "cuda" if torch.cuda.is_available() else "cpu"
+    _BUILD_INFO = info
+    return info
+
+
+def update_process_metrics(registry: MetricsRegistry | None = None) -> None:
+    """Process-level gauges from /proc/self (reference crates/node/metrics
+    process collector: RSS, CPU time, fds, threads, uptime). Called at
+    scrape time by the /metrics endpoint; silently a no-op off-Linux."""
+    global _PROC_START
+    reg = registry or REGISTRY
+    import os
+    import time as _t
+
+    if _PROC_START is None:
+        _PROC_START = _t.time()
+    reg.gauge("process_uptime_seconds").set(round(_t.time() - _PROC_START, 1))
+    reg.gauge("reth_tpu_build_info",
+              "node build identity: version/git/torch/backend",
+              labels=build_info()).set(1)
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        reg.gauge("process_resident_memory_bytes").set(
+            pages * os.sysconf("SC_PAGE_SIZE"))
+        with open("/proc/self/stat") as f:
+            parts = f.read().rsplit(")", 1)[1].split()
+        tck = os.sysconf("SC_CLK_TCK")
+        # fields (post-comm): utime=11 stime=12 num_threads=17 (0-based)
+        reg.gauge("process_cpu_seconds_total").set(
+            round((int(parts[11]) + int(parts[12])) / tck, 2))
+        reg.gauge("process_threads").set(int(parts[17]))
+        reg.gauge("process_open_fds").set(len(os.listdir("/proc/self/fd")))
+    except (OSError, IndexError, ValueError):
+        pass
 
 
 class TrieMetrics:
@@ -1106,3 +1183,98 @@ class WalMetrics:
 
 wal_metrics = WalMetrics()
 recovery_metrics = wal_metrics  # one surface: recovery_* lives beside wal_*
+
+
+class GatewayMetrics:
+    """RPC serving gateway observability (rpc/gateway.py): per-class
+    request counts, queue depth, running handlers, shed counts, and
+    wait/service histograms, plus the coalescing/caching counters — what
+    an operator needs to see that duplicate read bursts actually share
+    work and where admission is queueing or shedding."""
+
+    _CLASSES = ("engine", "read", "tx", "debug")
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._requests = {c: reg.counter(
+            f"gateway_requests_total_{c}",
+            f"requests admitted to the {c} class") for c in self._CLASSES}
+        self._qdepth = {c: reg.gauge(
+            f"gateway_queue_depth_{c}",
+            f"requests waiting for a {c} slot") for c in self._CLASSES}
+        self._running = {c: reg.gauge(
+            f"gateway_running_{c}",
+            f"handlers currently executing in the {c} class")
+            for c in self._CLASSES}
+        self._sheds = {c: reg.counter(
+            f"gateway_sheds_total_{c}",
+            f"requests shed with -32005 from the {c} class")
+            for c in self._CLASSES}
+        self._coalesced = {c: reg.counter(
+            f"gateway_coalesced_total_{c}",
+            f"{c} requests that shared an in-flight computation")
+            for c in self._CLASSES}
+        self._executions = reg.counter(
+            "gateway_executions_total", "handler executions actually run")
+        self._coalesce_factor = reg.gauge(
+            "gateway_coalesce_factor",
+            "coalescable requests served per execution (>1 = sharing works)")
+        self._cache_hits = reg.counter("gateway_cache_hits_total")
+        self._cache_misses = reg.counter("gateway_cache_misses_total")
+        self._cache_hit_rate = reg.gauge(
+            "gateway_cache_hit_rate", "response-cache hit fraction")
+        self._invalidations = reg.counter(
+            "gateway_cache_invalidations_total",
+            "wholesale cache clears on canonical-head change")
+        self._invalidated = reg.counter(
+            "gateway_cache_invalidated_entries_total")
+        self._wait = {c: reg.histogram(
+            f"gateway_wait_seconds_{c}",
+            f"admission wait before dispatch, {c} class",
+            buckets=SUB_MS_BUCKETS)
+            for c in self._CLASSES}
+        self._service = {c: reg.histogram(
+            f"gateway_service_seconds_{c}",
+            f"handler execution wall time, {c} class",
+            buckets=SUB_MS_BUCKETS)
+            for c in self._CLASSES}
+
+    def record_request(self, cls: str) -> None:
+        self._requests[cls].increment()
+
+    def set_queue_depth(self, cls: str, n: int) -> None:
+        self._qdepth[cls].set(n)
+
+    def set_running(self, cls: str, n: int) -> None:
+        self._running[cls].set(n)
+
+    def record_shed(self, cls: str) -> None:
+        self._sheds[cls].increment()
+
+    def record_coalesced(self, cls: str) -> None:
+        self._coalesced[cls].increment()
+        self._update_factor()
+
+    def record_wait(self, cls: str, seconds: float) -> None:
+        self._wait[cls].record(seconds)
+
+    def record_service(self, cls: str, seconds: float) -> None:
+        self._service[cls].record(seconds)
+        self._executions.increment()
+        self._update_factor()
+
+    def _update_factor(self) -> None:
+        ex = self._executions.value
+        if ex:
+            served = (ex + self._cache_hits.value
+                      + sum(c.value for c in self._coalesced.values()))
+            self._coalesce_factor.set(round(served / ex, 3))
+
+    def record_cache(self, *, hit: bool) -> None:
+        (self._cache_hits if hit else self._cache_misses).increment()
+        total = self._cache_hits.value + self._cache_misses.value
+        self._cache_hit_rate.set(round(self._cache_hits.value / total, 4))
+
+    def record_invalidation(self, entries: int) -> None:
+        self._invalidations.increment()
+        self._invalidated.increment(entries)

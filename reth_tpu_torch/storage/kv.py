@@ -16,8 +16,11 @@ from MDBX where they matter to callers:
   writer commits — the semantics MDBX provides via shadow paging.
 
 The in-memory ``MemDb`` keeps each table as ``dict[key -> value | sorted
-value list]`` plus a per-transaction sorted key index, giving O(log n)
-seeks and ordered iteration.
+value list]`` plus a sorted key index, giving O(log n) seeks and ordered
+iteration. One departure, with the reference's results: the index of a
+published table is sorted once and shared by every transaction that reads
+it (``MemDb._published_keys``), where the reference sorts it again in each
+transaction; a table a transaction wrote gets its own.
 
 A ``MemDb`` may carry a write-ahead log (``storage/wal.py``, attached by
 ``attach_wal``): a write transaction then tracks the keys it touches and its
@@ -234,7 +237,9 @@ class Tx:
     def _sorted_keys(self, table: str) -> list[bytes]:
         cached = self._key_cache.get(table)
         if cached is None:
-            cached = sorted(self._table(table).keys())
+            t = self._table(table)
+            cached = (self._db._published_keys(table, t) if t is self._snap.get(table)
+                      else sorted(t.keys()))
             self._key_cache[table] = cached
         return cached
 
@@ -450,6 +455,9 @@ class MemDb(Database):
         self._dirty = False
         self.quarantined: Path | None = None
         self._wal = None          # WalStore once storage/wal.py attaches
+        # table -> (published dict, its sorted keys): one sort a published
+        # table, not one a transaction
+        self._key_index: dict[str, tuple[dict, list[bytes]]] = {}
         if self._path and self._path.exists():
             try:
                 with open(self._path, "rb") as f:
@@ -482,6 +490,17 @@ class MemDb(Database):
 
     def tx_mut(self) -> Tx:
         return Tx(self, write=True)
+
+    def _published_keys(self, table: str, t: dict) -> list[bytes]:
+        """The sorted keys of the published table dict ``t``, shared by every
+        transaction that reads it (a published dict never changes; one
+        that replaces it gets its own index). Callers never mutate it."""
+        hit = self._key_index.get(table)
+        if hit is not None and hit[0] is t:
+            return hit[1]
+        keys = sorted(t.keys())
+        self._key_index[table] = (t, keys)
+        return keys
 
     def flush(self):
         if self._path and self._dirty:

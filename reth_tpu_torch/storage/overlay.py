@@ -9,8 +9,9 @@ A copy of the JAX package's ``storage/overlay.py`` over the port's
   first, so a layer's deleted key or removed duplicate (a slot written to
   zero) hides the base's;
 - ``_sorted_keys`` merges the base transaction's sorted key index with the
-  layers' new keys (two sorted runs) instead of sorting the set of their
-  union, so a cursor made after a write costs a pass over the table.
+  layers' new keys, each put in by bisection, instead of sorting the set of
+  their union, so a cursor made after a write, or on a fresh view, costs
+  one pass over the table.
 
 Reference analogue: `MemoryOverlayStateProvider` + in-memory trie overlay
 cursors (crates/chain-state/src/in_memory.rs,
@@ -113,8 +114,15 @@ class OverlayTx:
         if dead:
             base_keys = [k for k in base_keys if k not in dead]
         extra = sorted(k for k in live if self._base_get(table, k) is None)
-        # two sorted runs: one timsort pass merges them
-        merged = sorted(base_keys + extra) if extra else list(base_keys)
+        # the few layer keys go in by bisection: one pass over the base's
+        # run, no comparison sort of the whole table
+        merged, lo = [], 0
+        for k in extra:
+            i = bisect.bisect_right(base_keys, k, lo)
+            merged.extend(base_keys[lo:i])
+            merged.append(k)
+            lo = i
+        merged.extend(base_keys[lo:])
         self._key_cache[table] = merged
         return merged
 

@@ -20,9 +20,14 @@ trace: ``payload.select`` / ``payload.state_root`` /
 ``stateless.root`` (``engine/stateless.py``). A block summary keeps the
 reference's keys.
 
+Since the RPC: the consumer half of the wire form (``context_from_wire``,
+the ``traceparent`` member a request may carry) and ``recent_traces``
+(``debug_blockTimeline``).
+
 Not ported here (they belong to the node): the OTLP and Chrome exporters,
 the operator's one-line budget and the health engine's summary window, and
-cross-process correlation (wire form, fault observers, merged dumps).
+the rest of cross-process correlation (the producer half of the wire form,
+fault observers, merged dumps).
 
 Span recording is off unless ``RETH_TPU_TRACE`` is set truthy or
 ``set_trace_enabled(True)`` ran; then ``span()`` costs one DEBUG log call.
@@ -81,6 +86,23 @@ class TraceContext:
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"TraceContext({self.trace_id!r}, span={self.span_id})"
+
+
+def context_from_wire(wire) -> TraceContext | None:
+    """Decode a wire-form dict (``{"t": trace_id, "s": span_id, ...}``) back
+    into an adoptable context. Tolerates None/garbage — a malformed
+    traceparent must never fail the request it rode in on."""
+    if not isinstance(wire, dict):
+        return None
+    trace = wire.get("t")
+    if trace is not None and not (isinstance(trace, str) and trace):
+        return None
+    span = wire.get("s")
+    if span is not None and not isinstance(span, int):
+        return None
+    if trace is None and span is None:
+        return None
+    return TraceContext(trace, span)
 
 
 def set_trace_enabled(on: bool) -> None:
@@ -246,6 +268,12 @@ def block_timeline(trace_id: str) -> list[dict] | None:
     with _TL_LOCK:
         tl = _TIMELINES.get(trace_id)
         return list(tl) if tl is not None else None
+
+
+def recent_traces() -> list[str]:
+    """Known trace ids, oldest first."""
+    with _TL_LOCK:
+        return list(_TIMELINES)
 
 
 def _sum_field(records, names, field) -> float:

@@ -830,6 +830,96 @@ def test_mined_witnessed_and_stateless_blocks_on_card_match_cpu():
     assert got["launched"][0] > 0 and got["launched"][1] > 0
 
 
+def _rpc_on(device: str) -> dict:
+    """The small sync chain imported through the engine API on ``device``:
+    each block as a payload through ``RpcServer.handle`` (newPayloadV2, then
+    forkchoiceUpdatedV2), then ``eth_getProof`` at 3 slots and at 80 (the
+    proof-worker pool) on the storage writer, each checked against the
+    direct ``ProofCalculator`` call. Returns the responses and the kernels'
+    launches by phase."""
+    import json
+    import types
+
+    from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain
+    from reth_tpu_torch import testing
+    from reth_tpu_torch.engine import EngineTree
+    from reth_tpu_torch.primitives import keccak as pkeccak
+    from reth_tpu_torch.primitives import secp256k1, types as ptypes
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.rpc import EngineApi, EthApi, RpcServer
+    from reth_tpu_torch.rpc.engine_api import block_to_payload
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import init_genesis
+    from reth_tpu_torch.trie.proof import ProofCalculator
+
+    pkg = types.SimpleNamespace(testing=testing, types=ptypes, keccak=pkeccak,
+                                secp256k1=secp256k1)
+    sync = SyncChain(pkg, n_accounts=200, n_slots=80, seed=47, n_wallets=4, n_blocks=2,
+                     sizes=SYNC_BLOCK_SMALL,
+                     committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+    chain = sync.builder
+    factory = ProviderFactory(MemDb())
+    init_genesis(factory, chain.genesis, dict(chain.accounts_at_genesis),
+                 storage=chain.storage_at_genesis, codes=chain.codes_at_genesis,
+                 committer=TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+    tree = EngineTree(factory, device=device, hot_state=True, persistence_threshold=2)
+    server = RpcServer()
+    server.register(EngineApi(tree))
+    server.register(EthApi(tree, None, chain.chain_id))
+
+    def call(method, *params):
+        out = json.loads(server.handle(json.dumps(
+            {"jsonrpc": "2.0", "id": 1, "method": method, "params": list(params)}).encode()))
+        assert "error" not in out, out
+        return out["result"]
+
+    def launches():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return tk.keccak256_words_masked.launches, fc.subtrie_levels.launches
+
+    out = {"statuses": [], "proofs": []}
+    before = launches()
+    for blk in chain.blocks[1:]:
+        st = call("engine_newPayloadV2", block_to_payload(blk))
+        out["statuses"].append((st["status"], st["latestValidHash"]))
+        fcu = call("engine_forkchoiceUpdatedV2", {"headBlockHash": "0x" + blk.hash.hex()})
+        assert fcu["payloadStatus"]["status"] == "VALID"
+    mid = launches()
+    writer = "0x" + SyncChain.WRITER.hex()
+    for n_slots in (3, 80):
+        slots = [hex(i + 1) for i in range(n_slots)]
+        got = call("eth_getProof", writer, slots, "latest")
+        direct = ProofCalculator(tree.overlay_provider(), tree.committer).account_proof(
+            SyncChain.WRITER, [(i + 1).to_bytes(32, "big") for i in range(n_slots)])
+        assert got["accountProof"] == ["0x" + n.hex() for n in direct.proof]
+        assert [sp["proof"] for sp in got["storageProof"]] == \
+            [["0x" + n.hex() for n in sp.proof] for sp in direct.storage_proofs]
+        out["proofs"].append(got)
+    end = launches()
+    assert tree.sparse_fallbacks == 0 and server.kernel_faults == 0
+    out["import"] = (mid[0] - before[0], mid[1] - before[1])
+    out["proof"] = (end[0] - mid[0], end[1] - mid[1])
+    out["head"] = tree.head_hash
+    return out
+
+
+@pytest.mark.cuda
+def test_rpc_on_card_matches_cpu():
+    """engine_newPayload through RpcServer.handle on device="cuda" launches
+    kernels 1 and 4 (the ordered roots, the keys, the hot-state arena's
+    finish) and eth_getProof launches kernel 1, at 3 and 80 slots; every
+    status VALID and every response equal to device="cpu"'s and to the
+    direct ProofCalculator call."""
+    require_card()
+    got, want = _rpc_on("cuda"), _rpc_on("cpu")
+    assert [s for s, _h in got["statuses"]] == ["VALID", "VALID"]
+    for key in ("statuses", "proofs", "head"):
+        assert got[key] == want[key], key
+    assert got["import"][0] > 0 and got["import"][1] > 0
+    assert got["proof"][0] > 0 and got["proof"][1] == 0
+
+
 def _unwind_crash_datadir(d, interrupted: bool = True):
     """A small datadir left by an engine tree with a WAL attached (5 blocks of
     one transfer, persisted to 4): with ``interrupted``, a deep-reorg unwind

@@ -32,6 +32,7 @@ from reth_tpu_torch.ops import supervisor as tsup
 from reth_tpu_torch.ops import warmup as tw
 from reth_tpu_torch.primitives.keccak import keccak256_batch_np
 from reth_tpu_torch.primitives.types import EMPTY_ROOT_HASH
+from reth_tpu_torch.rpc import engine_api as tengine_api
 from reth_tpu_torch.stages import hashing as thashing
 from reth_tpu_torch.stages import merkle as tmerkle
 from reth_tpu_torch.storage import MemDb, ProviderFactory
@@ -102,7 +103,15 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.storage.wal", "reth_tpu_torch.storage.nippyjar",
                 "reth_tpu_torch.storage.static_files", "reth_tpu_torch.storage.settings",
                 "reth_tpu_torch.storage.native", "reth_tpu_torch.storage.historical",
-                "reth_tpu_torch.prune"):
+                "reth_tpu_torch.prune", "reth_tpu_torch.rpc", "reth_tpu_torch.rpc.convert",
+                "reth_tpu_torch.rpc.server", "reth_tpu_torch.rpc.jwt",
+                "reth_tpu_torch.rpc.engine_api", "reth_tpu_torch.rpc.state_cache",
+                "reth_tpu_torch.rpc.gas_oracle", "reth_tpu_torch.rpc.eth",
+                "reth_tpu_torch.rpc.debug", "reth_tpu_torch.rpc.flashbots",
+                "reth_tpu_torch.rpc.miner", "reth_tpu_torch.rpc.net",
+                "reth_tpu_torch.rpc.otterscan", "reth_tpu_torch.rpc.gateway",
+                "reth_tpu_torch.rpc.ws", "reth_tpu_torch.rpc.ipc",
+                "reth_tpu_torch.consensus.debug_client"):
         assert mod in res["modules"]
 
 
@@ -136,6 +145,7 @@ def test_sources_name_no_jax_import():
     tinc.verify_state_root, tproof.ProofCalculator.__init__, tstages.default_stages,
     EthBeaconConsensus.__init__, texecution.ExecutionStage.__init__, tgenesis.init_genesis,
     ttesting.ChainBuilder.__init__, EngineTree.__init__, trecovery.recover_on_startup,
+    tengine_api.payload_to_block,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -193,6 +203,17 @@ def test_cuda_without_a_card_raises():
         tgenesis.init_genesis(ProviderFactory(MemDb()), None, {})
     with pytest.raises(RuntimeError):
         ttesting.ChainBuilder({})
+    # the RPC: a payload's ordered roots without the node's committer
+    payload = {"parentHash": "0x" + "00" * 32, "feeRecipient": "0x" + "00" * 20,
+               "stateRoot": "0x" + "00" * 32, "receiptsRoot": "0x" + "00" * 32,
+               "logsBloom": "0x" + "00" * 256, "prevRandao": "0x" + "00" * 32,
+               "blockNumber": "0x1", "gasLimit": "0x1", "gasUsed": "0x0", "timestamp": "0x1",
+               "extraData": "0x", "baseFeePerGas": "0x1", "transactions": [],
+               "withdrawals": [{"index": "0x0", "validatorIndex": "0x0",
+                                "address": "0x" + "00" * 20, "amount": "0x1"}]}
+    with pytest.raises(RuntimeError):
+        tengine_api.payload_to_block(payload)
+    assert tengine_api.payload_to_block(payload, device="cpu").header.number == 1
     with pytest.raises(ValueError):
         resolve("meta")
 
@@ -276,6 +297,24 @@ def test_stateless_chain_roots_on_the_device():
     assert chain.hasher.__self__.device == torch.device("cpu")
     assert chain.committer.device == torch.device("cpu")
     assert StatelessChain(hasher=keccak256_batch_np).committer is None
+
+
+def test_rpc_modules_stand_alone():
+    """The RPC and the debug consensus client import nothing of the JAX
+    package, and no module registers what waits for the node or the fleet."""
+    from reth_tpu_torch.consensus import debug_client
+    from reth_tpu_torch.rpc import debug, server
+
+    rpc_dir = ROOT / "reth_tpu_torch" / "rpc"
+    for path in list(rpc_dir.glob("*.py")) + [Path(debug_client.__file__)]:
+        src = path.read_text()
+        assert "import jax" not in src and "from reth_tpu." not in src, path
+        assert "from .. import health" not in src and "..obs" not in src, path
+    assert not (rpc_dir / "admin.py").exists()
+    for name in ("debug_healthCheck", "debug_sloStatus", "debug_metricsHistory",
+                 "debug_fleetMetrics"):
+        assert not hasattr(debug.DebugApi, name)
+    assert hasattr(server.RpcServer, "keep_fault")
 
 
 def test_block_production_modules_stand_alone():

@@ -249,3 +249,87 @@ def test_hotstate_metrics_match_reference(monkeypatch):
         {k: v for k, v in want.items() if k != "hotstate_h2d_bytes_per_commit"}
     assert got["hotstate_h2d_bytes_per_commit"][2][2] == want["hotstate_h2d_bytes_per_commit"][2][2]
     assert got["hotstate_arena_delta_epochs_total"][2] == 2 + 3
+
+
+# -- the RPC's helpers ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("wire", [
+    None, "garbage", 7, {}, {"t": "ab" * 32, "s": 5, "r": "node", "p": 1}, {"t": "abc"},
+    {"s": 9}, {"t": ""}, {"t": 3}, {"s": "9"}, {"t": None, "s": None}, {"t": "x", "s": None},
+])
+def test_context_from_wire_matches_reference(wire):
+    want, got = jtracing.context_from_wire(wire), ptracing.context_from_wire(wire)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert (got.trace_id, got.span_id) == (want.trace_id, want.span_id)
+
+
+def test_recent_traces_matches_reference():
+    """The same block traces, oldest first, bounded as the reference's."""
+    seen = []
+    for trc in (jtracing, ptracing):
+        was_on = trc.trace_enabled()
+        trc.set_trace_enabled(True)
+        try:
+            before = trc.recent_traces()
+            ids = [f"{i:064x}" for i in range(3)] + [f"{1:064x}"]
+            for tid in ids:
+                with trc.trace_block(tid, number=1):
+                    pass
+            after = trc.recent_traces()
+        finally:
+            trc.set_trace_enabled(was_on)
+        seen.append(([t for t in after if t in ids], after[-3:], len(after) <= 64,
+                     set(after) <= set(before) | set(ids)))
+    assert seen[1] == seen[0]
+    assert seen[0][0] == [f"{0:064x}", f"{2:064x}", f"{1:064x}"]
+
+
+@pytest.mark.parametrize("samples,pct", [([], 50), ([5], 0), ([5], 100), ([1, 2, 3, 4], 60),
+                                         (list(range(100)), 99), ([3, 3, 9], 50)])
+def test_sample_percentile_matches_reference(samples, pct):
+    assert pmetrics.sample_percentile(samples, pct) == jmetrics.sample_percentile(samples, pct)
+
+
+def test_update_process_metrics_sets_the_reference_gauges():
+    """The same gauges after one scrape; the build identity's labels name
+    torch where the reference's name jax."""
+    regs = jmetrics.MetricsRegistry(), pmetrics.MetricsRegistry()
+    jmetrics.update_process_metrics(regs[0])
+    pmetrics.update_process_metrics(regs[1])
+    names = [sorted(n.split("{")[0] for n, _ in r.items()) for r in regs]
+    assert names[1] == names[0]
+    assert "process_resident_memory_bytes" in names[1]
+    info = dict(regs[1].items())["reth_tpu_build_info"]
+    ref_info = dict(regs[0].items())["reth_tpu_build_info"]
+    assert info.value == ref_info.value == 1
+    assert set(info.labels) - {"torch"} == set(ref_info.labels) - {"jax"}
+    assert info.labels["version"] == ref_info.labels["version"]
+    assert info.labels["backend"] in ("cpu", "cuda") and "torch" in info.labels
+    assert regs[1].render().count("# TYPE") == regs[0].render().count("# TYPE")
+
+
+def test_gateway_metrics_match_reference():
+    """GatewayMetrics: the same gateway_* names, types, help and values
+    after the same records (time histograms by their counts)."""
+    regs = jmetrics.MetricsRegistry(), pmetrics.MetricsRegistry()
+    groups = jmetrics.GatewayMetrics(regs[0]), pmetrics.GatewayMetrics(regs[1])
+    for g in groups:
+        for cls in ("engine", "read", "read", "tx", "debug"):
+            g.record_request(cls)
+            g.record_wait(cls, 0.001)
+            g.record_service(cls, 0.002)
+        g.set_queue_depth("read", 3)
+        g.set_running("debug", 1)
+        g.record_shed("tx")
+        g.record_coalesced("read")
+        g.record_cache(hit=True)
+        g.record_cache(hit=False)
+        g.record_cache(hit=True)
+        g.record_invalidation(5)
+    helps = [{n: (type(m).__name__, m.help) for n, m in r.items()} for r in regs]
+    assert helps[1] == helps[0]
+    assert _values(regs[1]) == _values(regs[0])
+    # the factor moves on executions and coalesced joins: (5 + 1) / 5
+    assert _values(regs[1])["gateway_coalesce_factor"] == pytest.approx(1.2)

@@ -249,6 +249,52 @@ def test_kv_store_reads_equal(seed):
         assert after[0] == after[1]
 
 
+def test_published_key_index_is_shared_and_overlay_merge_is_sorted():
+    """Readers of one published table share one sorted index (the port's
+    shortcut); a commit publishes a new table with its own index, a writer's
+    clone keeps its own, and an overlay's merged index over layers with new
+    and deleted keys equals the sorted union, as the reference's."""
+    from reth_tpu.storage import overlay as joverlay
+    from reth_tpu_torch.storage import overlay as poverlay
+
+    rng = np.random.default_rng(7)
+    keys = sorted({bytes(rng.integers(0, 256, 4, dtype=np.uint8)) for _ in range(300)})
+    dbs = (jkv.MemDb(), pkv.MemDb())
+    for db in dbs:
+        with db.tx_mut() as tx:
+            for k in keys[::2]:
+                tx.put("T", k, b"v")
+    a, b = dbs[1].tx(), dbs[1].tx()
+    assert a._sorted_keys("T") is b._sorted_keys("T") == keys[::2]
+    w = dbs[1].tx_mut()
+    w.put("T", keys[1], b"w")
+    assert keys[1] in w._sorted_keys("T") and keys[1] not in a._sorted_keys("T")
+    w.commit()
+    fresh = dbs[1].tx()._sorted_keys("T")
+    assert fresh is not a._sorted_keys("T") and keys[1] in fresh
+    for db in dbs:
+        with db.tx_mut() as tx:
+            tx.put("T", keys[1], b"w")
+    merged = []
+    for db, ov in zip(dbs, (joverlay, poverlay)):
+        o = ov.OverlayTx(db.tx())
+        for k in keys[1::2][:120]:
+            o.put("T", k, b"n")
+        for k in keys[::2][:40:3]:
+            o.delete("T", k)
+        merged.append(o._sorted_keys("T"))
+        assert [k for k, _ in _walk(o.cursor("T"))] == merged[-1]
+    assert merged[1] == merged[0] == sorted(set(merged[0]))
+
+
+def _walk(cur):
+    out, e = [], cur.first()
+    while e is not None:
+        out.append(e)
+        e = cur.next()
+    return out
+
+
 def test_kv_image_quarantine_and_flush(tmp_path):
     """flush writes a pickle image both packages read; an unreadable image
     is moved aside in both, and the store starts empty."""
