@@ -56,7 +56,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, thirty main paths, the launch counters zeroed just before
+3. Slice phase, thirty-two main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -335,6 +335,32 @@
    and an engine call without the token must answer HTTP 401. Kernels 1 and
    4 (the import's hot-state arena) and no other; 0 kernel faults on both
    servers, no sparse or catch-all fallback; the walls of a, b and c logged.
+   Then networking, the online stages and era archives (NetCell, path
+   "net") on the "sync" path's database at block 8 (its first sync's
+   tables): a NetworkManager(device="cuda") with a fixed node key on
+   127.0.0.1, a Discv4 beside it, the era1 archives of blocks 0-4 (two
+   files and an index.txt of sha256 sums) on an http.server thread and
+   admin_* behind an RpcServer; the client a MemDb over the sync's genesis
+   tables. a) The client's Discv4 bootstraps off the server's enode and
+   bonds, and the client's NetworkManager dials the discovered record's
+   enode over encrypted RLPx, snappy on (AES on the port's csrc/aes.cpp);
+   b) Pipeline(client, [EraStage(EraDownloader(HttpEraSource(url), cache),
+   EthBeaconConsensus(device="cuda")), *default_stages(device="cuda")])
+   .run(4): MerkleStage from checkpoint 0 on kernels 2-3; c)
+   sync_from_peer(client, peer): the online stages, Headers and Bodies
+   baselined at 4, blocks 5-8 over eth/68, the offline tail on the card;
+   header 8's root, Finish at 8 and every data table equal to the sync's
+   (the stage checkpoints left out); d) snap/1 at header 8's root, every
+   response at most 512 KiB: account ranges from 0x00.., 0x80.. and the
+   last account's key (each verified by verify_account_range and equal to
+   the server's HashedAccounts rows), the storage writer's storage range
+   (its HashedStorages rows), every genesis code and four account-trie
+   paths' nodes (each hashing to what was asked), run under cProfile; e)
+   admin_nodeInfo, admin_peers, admin_addPeer and admin_removePeer of a
+   third manager over HTTP. Kernels 1-3 and no other; 0 kernel faults on
+   the managers, 0 peers penalized, 0 body windows re-queued; each leg's
+   wall, the stages of b, the frames and bytes of c and d on the wire
+   (before and after snappy) logged.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -353,8 +379,8 @@
    main path (keccak256_absorb: state_root; packed_level and branch_level:
    merkle stage, the full-size rebuild; subtrie_levels: k=8; keccak256_absorb
    also at "merkle incremental"'s launches, the "incremental_absorb" row,
-   at "sync"'s, the "sync_absorb" row, and at "engine"'s, the
-   "engine_absorb" row, with subtrie_levels at "engine"'s arena launches,
+   at "sync"'s, the "sync_absorb" row, at "engine"'s, the
+   "engine_absorb" row, and at "net"'s, the "net_absorb" row, with subtrie_levels at "engine"'s arena launches,
    the "engine_subtrie" row, replayed on the arena's buffer as found
    ("merkle stage"'s are state_root's shape, 16,384 one-block rows); and
    packed_level once more at state_root's
@@ -978,7 +1004,7 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
          "live tip service", "proofs", "sync", "recovery", "engine", "engine parallel",
-         "engine pipelined", "payload", "stateless", "rpc")
+         "engine pipelined", "payload", "stateless", "rpc", "net")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -1003,7 +1029,8 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "engine pipelined": ("keccak256_absorb",),
                 "payload": ("keccak256_absorb", "subtrie_levels"),
                 "stateless": ("keccak256_absorb",),
-                "rpc": ("keccak256_absorb", "subtrie_levels")}
+                "rpc": ("keccak256_absorb", "subtrie_levels"),
+                "net": ("keccak256_absorb", "packed_level", "branch_level")}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -1017,7 +1044,7 @@ ROW_KERNEL = {"template_levels": "packed_level", "sparse_absorb": "keccak256_abs
               "service_absorb": "keccak256_absorb", "incremental_absorb": "keccak256_absorb",
               "live_tip_absorb": "keccak256_absorb", "live_tip_subtrie": "subtrie_levels",
               "sync_absorb": "keccak256_absorb", "engine_absorb": "keccak256_absorb",
-              "engine_subtrie": "subtrie_levels"}
+              "engine_subtrie": "subtrie_levels", "net_absorb": "keccak256_absorb"}
 # the rows held and timed at their two launches only: no step breakdown, and
 # the plain version (about a second a chunk) timed once
 STEPLESS_ROWS = ("live_tip_subtrie", "engine_subtrie")
@@ -1290,6 +1317,9 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
         "engine_subtrie": (fc.subtrie_levels, fc.subtrie_levels_ref,
                            lambda *a: subtrie_cost(bound, *a), level_src,
                            "reth_tpu/ops/fused_commit.py:1046", "engine"),
+        "net_absorb": (keccak256_words_masked, keccak256_words_masked_ref,
+                       level(keccak_work), "reth_tpu_torch/ops/csrc/keccak.cu",
+                       "reth_tpu/ops/keccak_pallas.py:96", "net"),
     }
     rows = []
     for name, (kernel, ref, cost, source, replaces, path) in specs.items():
@@ -4163,6 +4193,414 @@ class RpcCell:
         log(f"rpc: launches {json.dumps(launches)}")
 
 
+# the "net" path: the sync path's database at block 8 behind a port
+# NetworkManager on 127.0.0.1 (fixed node keys), a client from the genesis
+# tables: blocks 0..NET_ERA_TO from era1 archives over HTTP, the rest online
+NET_SERVER_KEY, NET_CLIENT_KEY, NET_THIRD_KEY = 0x5E12E7, 0xC11E47, 0x7D12D
+NET_ERA_FILES = ((0, 2), (3, SYNC_UNWIND_TO))  # the era1 archives' block ranges
+NET_RESPONSE_BYTES = 512 * 1024  # every snap response at most (the host's MAC cost)
+NET_TRIE_PATHS = (b"", b"\x01", b"\x5a\x10", b"\xf0\x0f\xf0")  # account-trie paths asked
+
+
+class WireCounter:
+    """Counts one RLPx session's frames and bytes from its own side: frames
+    sent and received, their payloads as framed (after snappy) and as the
+    messages were (before snappy), and the bytes on the wire (the 32-byte
+    header and its MAC, the payload padded to 16, the frame MAC)."""
+
+    def __init__(self, session):
+        self.counts = {d: {"frames": 0, "wire": 0, "framed": 0, "messages": 0}
+                       for d in ("sent", "received")}
+        send_frame, send_msg, parse = session.send_frame, session.send_msg, session.parse_frame
+
+        def count(direction, framed):
+            c = self.counts[direction]
+            c["frames"] += 1
+            c["framed"] += framed
+            c["wire"] += 32 + framed + (-framed % 16) + 16
+
+        def counted_send_frame(payload):
+            count("sent", len(payload))
+            return send_frame(payload)
+
+        def counted_send_msg(msg_id, body):
+            self.counts["sent"]["messages"] += len(body)
+            return send_msg(msg_id, body)
+
+        def counted_parse(frame):
+            count("received", len(frame))
+            msg_id, body = parse(frame)
+            self.counts["received"]["messages"] += len(body)
+            return msg_id, body
+
+        session.send_frame, session.send_msg = counted_send_frame, counted_send_msg
+        session.parse_frame = counted_parse
+
+    def delta(self, before: dict) -> dict:
+        return {d: {k: v - before[d][k] for k, v in c.items()} for d, c in self.counts.items()}
+
+    def snapshot(self) -> dict:
+        return json.loads(json.dumps(self.counts))
+
+
+class NetCell:
+    """The "net" path: networking, the online stages and era archives on the
+    "sync" path's database at block 8 (251,372 accounts, 8 blocks of 245
+    transactions; its first sync's published tables, ``SyncCell.first``),
+    served by ``NetworkManager(device="cuda")`` on 127.0.0.1 with a fixed
+    node key, beside a ``Discv4`` and the era1 archives of blocks 0-4 (two
+    files and an ``index.txt`` of sha256 sums, ``export_era`` from the
+    server's database) on an ``http.server`` thread, and ``admin_*`` behind
+    the port's ``RpcServer``. The client is a ``MemDb`` over the sync's
+    genesis tables. Legs:
+
+    a) discovery: a client ``Discv4`` bootstraps off the server's enode and
+       bonds; the client's ``NetworkManager`` dials the discovered record's
+       enode over encrypted RLPx with snappy on;
+    b) era: ``Pipeline(client, [EraStage(EraDownloader(HttpEraSource(url),
+       cache), EthBeaconConsensus(device="cuda")), *default_stages(
+       device="cuda")]).run(4)``: MerkleStage from checkpoint 0 on kernels
+       2-3, the consensus roots and hashing on kernel 1;
+    c) online: ``sync_from_peer(client, peer)`` (no pipeline): Headers and
+       Bodies baselined at 4, blocks 5-8 over eth/68, the offline tail on
+       the card;
+    d) snap, at header 8's root, every response at most NET_RESPONSE_BYTES:
+       ``GetAccountRange`` from 0x00.., mid keyspace and the last account's
+       key, ``GetStorageRanges`` of the storage writer, ``GetByteCodes`` of
+       every genesis code, ``GetTrieNodes`` of NET_TRIE_PATHS; the server
+       proves on kernel 1; the leg runs under cProfile (the client's thread:
+       its ingress MAC's keccak and snappy);
+    e) admin over HTTP: ``admin_nodeInfo``, ``admin_peers``, then
+       ``admin_addPeer`` / ``admin_removePeer`` of a third manager."""
+
+    def __init__(self, sync: "SyncCell"):
+        self.sync = sync
+        self.dir = Path(HERE) / "reth_tpu_torch" / "build" / f"net-{os.getpid()}"
+        self.walls: dict[str, float] = {}
+        self.closers: list = []
+
+    def start(self) -> None:
+        """The server, its discovery, its archives over HTTP and its admin RPC."""
+        import http.server
+
+        from reth_tpu_torch.era import export_era
+        from reth_tpu_torch.era_sync import EraSource
+        from reth_tpu_torch.net import NetworkManager, Status
+        from reth_tpu_torch.net.discv4 import Discv4
+        from reth_tpu_torch.rpc import RpcServer
+        from reth_tpu_torch.rpc.admin import AdminApi
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+
+        t0 = time.perf_counter()
+        db = MemDb()
+        db._tables = self.sync.first  # published maps are immutable
+        self.served = ProviderFactory(db)
+        with self.served.provider() as p:
+            self.header8 = p.header_by_number(SYNC_BLOCKS)
+        genesis = self.sync.genesis.hash
+        self.status = Status(network_id=1, head=self.header8.hash, genesis=genesis)
+        self.client_status = Status(network_id=1, head=genesis, genesis=genesis)
+        self.server = NetworkManager(self.served, self.status, node_priv=NET_SERVER_KEY,
+                                     device="cuda")
+        self.closers.append(self.server.stop)
+        port = self.server.start()
+        self.disc = Discv4(NET_SERVER_KEY, host="127.0.0.1", tcp_port=port)
+        self.disc.start()
+        self.closers.append(self.disc.stop)
+        src = self.dir / "archives"
+        src.mkdir(parents=True, exist_ok=True)
+        for i, (first, last) in enumerate(NET_ERA_FILES):
+            export_era(self.served, first, last, src / f"sync-{i:05d}.era1")
+        EraSource.build_index(src)
+        self.era_bytes = sum(p.stat().st_size for p in src.glob("*.era1"))
+
+        class Quiet(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, directory=str(src), **kw)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+        threading.Thread(target=self.httpd.serve_forever, daemon=True,
+                         name="net-era-http").start()
+        self.closers.append(self.httpd.shutdown)
+        self.rpc = RpcServer()
+        self.rpc.register(AdminApi(self.server, self.disc, 1))
+        self.rpc_port = self.rpc.start()
+        self.closers.append(self.rpc.stop)
+        self.walls["setup"] = time.perf_counter() - t0
+        log(f"net: server {self.server.enode} (discv4 udp {self.disc.port}), era1 archives of "
+            f"blocks {NET_ERA_FILES} ({self.era_bytes} B) on "
+            f"http://127.0.0.1:{self.httpd.server_address[1]}, admin on 127.0.0.1:"
+            f"{self.rpc_port}; set up in {self.walls['setup']:.3f} s")
+
+    def close(self) -> None:
+        import shutil
+
+        for close in reversed(self.closers):
+            try:
+                close()
+            except Exception as e:  # noqa: BLE001 — a fault kept by a manager raises here
+                self.close_error = getattr(self, "close_error", None) or e
+        self.closers = []
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if getattr(self, "close_error", None) is not None:
+            raise self.close_error
+
+    def leg(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch_sync()
+        self.walls[name] = time.perf_counter() - t0
+        return out
+
+    def drive(self) -> None:
+        """Path "net": legs a-e, each one's wall kept."""
+        self.start()
+        self.requeued0 = self.requeued()
+        self.leg("a", self.discover)
+        self.leg("b", self.era)
+        self.before_c = self.wire.snapshot()
+        self.leg("c", self.online)
+        self.wire_c = self.wire.delta(self.before_c)
+        before = self.wire.snapshot()
+        self.snap = self.leg("d", lambda: host_profile(
+            "net, snap leg", self.snap_leg, focus=("keccak_f1600", "update", "digest",
+                                                   "compress", "decompress", "_mac_step",
+                                                   "_frame_mac", "recv_frame")))
+        self.wire_d = self.wire.delta(before)
+        self.leg("e", self.admin)
+
+    @staticmethod
+    def requeued() -> int:
+        from reth_tpu_torch.net.downloader import BodiesDownloader
+
+        return BodiesDownloader.requeued_total
+
+    def discover(self) -> None:
+        from reth_tpu_torch.net import NetworkManager
+        from reth_tpu_torch.net.discv4 import Discv4
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+
+        db = MemDb()
+        db._tables = self.sync.genesis_tables
+        self.client = ProviderFactory(db)
+        self.client_net = NetworkManager(self.client, self.client_status,
+                                         node_priv=NET_CLIENT_KEY, device="cuda")
+        self.closers.append(self.client_net.stop)
+        self.client_disc = Discv4(NET_CLIENT_KEY, host="127.0.0.1")
+        self.client_disc.start()
+        self.closers.append(self.client_disc.stop)
+        self.client_disc.bootstrap([self.disc.enode()])
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            rec = self.client_disc.table.by_id.get(self.disc.node_id)
+            if rec is not None and rec.bonded:
+                break
+            time.sleep(0.02)
+        else:
+            raise AssertionError("net: the client never bonded with the server's discv4")
+        self.record = rec.enode()
+        self.peer = self.client_net.connect_to(self.record)
+        self.wire = WireCounter(self.peer.session)
+
+    def era(self) -> None:
+        from reth_tpu_torch.consensus import EthBeaconConsensus
+        from reth_tpu_torch.era_sync import EraDownloader, EraStage, HttpEraSource
+        from reth_tpu_torch.stages import Pipeline, default_stages
+
+        url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.era_stage = EraStage(EraDownloader(HttpEraSource(url), self.dir / "cache"),
+                                  EthBeaconConsensus(device="cuda"))
+        stages = [self.era_stage, *default_stages(device="cuda")]
+        self.era_rows: list[dict] = []
+        Pipeline(self.client, [TimedStage(s, self.era_rows) for s in stages]).run(
+            SYNC_UNWIND_TO)
+
+    def online(self) -> None:
+        from reth_tpu_torch.net import sync_from_peer
+
+        self.tip = sync_from_peer(self.client, self.peer)
+
+    def snap_leg(self) -> dict:
+        from _torch_helpers import SyncChain
+
+        from reth_tpu_torch.net import snap
+        from reth_tpu_torch.primitives.keccak import keccak256
+
+        peer, root = self.peer, self.header8.state_root
+        with self.served.provider() as p:
+            cur = p.tx.cursor("HashedAccounts")
+            last = cur.last()[0]
+        origins = (b"\x00" * 32, b"\x80" + b"\x00" * 31, last)
+        out = {"origins": origins, "walls": {}}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            out["walls"][name] = time.perf_counter() - t0
+            return res
+
+        out["ranges"] = [timed(f"account range {i}", lambda o=o: peer.get_account_range(
+            root, o, b"\xff" * 32, response_bytes=NET_RESPONSE_BYTES))
+            for i, o in enumerate(origins)]
+        self.writer = keccak256(SyncChain.WRITER)
+        out["storage"] = timed("storage ranges", lambda: peer._snap_request(
+            snap.GetStorageRanges(next(peer._req_ids), root, [self.writer], b"", b"",
+                                  NET_RESPONSE_BYTES), snap.StorageRanges))
+        self.code_hashes = sorted(self.sync.codes)
+        out["codes"] = timed("byte codes", lambda: peer._snap_request(
+            snap.GetByteCodes(next(peer._req_ids), self.code_hashes, NET_RESPONSE_BYTES),
+            snap.ByteCodes))
+        out["nodes"] = timed("trie nodes", lambda: peer._snap_request(
+            snap.GetTrieNodes(next(peer._req_ids), root, [[p] for p in NET_TRIE_PATHS],
+                              NET_RESPONSE_BYTES), snap.TrieNodes))
+        return out
+
+    def admin(self) -> None:
+        from reth_tpu_torch.net import NetworkManager
+        from reth_tpu_torch.storage import MemDb, ProviderFactory
+
+        def call(method, *params):
+            status, body = http_post(self.rpc_port, json.dumps(
+                rpc_request(method, list(params))).encode())
+            out = json.loads(body)
+            if status != 200 or "error" in out:
+                raise AssertionError(f"net: {method}: HTTP {status}, {out.get('error')}")
+            return out["result"]
+
+        third = NetworkManager(ProviderFactory(MemDb()), self.client_status,
+                               node_priv=NET_THIRD_KEY, device="cuda")
+        third.start()
+        self.closers.append(third.stop)
+        self.third = third
+        self.admin_out = {"info": call("admin_nodeInfo"), "peers": call("admin_peers"),
+                          "add": call("admin_addPeer", third.enode)}
+        self.admin_out["peers_added"] = call("admin_peers")
+        self.admin_out["remove"] = call("admin_removePeer", third.enode)
+        self.admin_out["peers_removed"] = call("admin_peers")
+
+    def check(self) -> None:
+        """a) bonded, the dialed enode the server's, snappy on; b)-c) header
+        8's root, Finish at 8, every data table equal to the sync's at block
+        8 (store_digests; the stage checkpoints left out); d) each account
+        range verified (``verify_account_range``) and equal to the server's
+        HashedAccounts rows over its keys, the writer's slots its
+        HashedStorages rows, each code and trie node hashing to what was
+        asked; e) the admin answers; 0 swarm kernel faults, 0 peers
+        penalized, 0 body windows re-queued."""
+        from reth_tpu_torch.net import snap
+        from reth_tpu_torch.net.rlpx import node_id
+        from reth_tpu_torch.primitives.keccak import keccak256
+        from reth_tpu_torch.primitives.rlp import encode_int, rlp_decode, rlp_encode
+        from reth_tpu_torch.storage import tables as T
+
+        if self.record.split("@")[0] != self.server.enode.split("@")[0] or \
+                not self.peer.session.snappy_enabled:
+            raise AssertionError(f"net: a) dialed {self.record}, snappy "
+                                 f"{self.peer.session.snappy_enabled}")
+        with self.client.provider() as p:
+            header = p.header_by_number(SYNC_BLOCKS)
+            checkpoints = {s: p.stage_checkpoint(s) for s in ("Era", "Headers", "Bodies",
+                                                              "MerkleExecute", "Finish")}
+        if self.tip != SYNC_BLOCKS or header is None or header.hash != self.header8.hash or \
+                header.state_root != self.header8.state_root or checkpoints["Finish"] != 8:
+            raise AssertionError(f"net: c) tip {self.tip}, checkpoints {checkpoints}")
+        skip = ("StageCheckpoints", "StageCheckpointProgresses")
+        want_names = sorted(n for n, t in self.sync.first.items() if t and n not in skip)
+        got_names = sorted(n for n, t in self.client.db._tables.items() if t and n not in skip)
+        t0 = time.perf_counter()
+        want = table_digests(self.served.db, want_names)
+        got = store_digests(self.client.db, want_names)
+        if got != want or got_names != want_names:
+            raise AssertionError(f"net: c) the client's tables differ from the sync's at block "
+                                 f"8: {[n for n in want_names if got.get(n) != want[n]]}, "
+                                 f"tables {got_names}")
+        digest_s = time.perf_counter() - t0
+        root = self.header8.state_root
+        run = self.snap
+        n_accounts = 0
+        with self.served.provider() as p:
+            for origin, rng in zip(run["origins"], run["ranges"]):
+                if not rng.accounts or not snap.verify_account_range(root, origin, rng):
+                    raise AssertionError(f"net: d) the range from {origin.hex()} does not "
+                                         f"verify ({len(rng.accounts)} accounts)")
+                cur = p.tx.cursor("HashedAccounts")
+                entry = cur.seek(origin)
+                for key, body in rng.accounts:
+                    if entry is None or entry[0] != key or \
+                            snap.slim_account(T.decode_account(entry[1])) != body:
+                        raise AssertionError(f"net: d) the range from {origin.hex()} differs "
+                                             f"from HashedAccounts at {key.hex()}")
+                    entry = cur.next()
+                n_accounts += len(rng.accounts)
+                size = sum(32 + len(b) for _, b in rng.accounts) + sum(map(len, rng.proof))
+                if size > NET_RESPONSE_BYTES + 4096:
+                    raise AssertionError(f"net: d) a range of {size} B")
+            slots = [(v[:32], v) for _k, v in p.tx.cursor("HashedStorages").walk_dup(
+                self.writer)]
+        got_slots = run["storage"].slots
+        if len(got_slots) != 1 or [h for h, _ in got_slots[0]] != [h for h, _ in slots]:
+            raise AssertionError(f"net: d) the writer's storage range has "
+                                 f"{sum(map(len, got_slots))} slots of {len(slots)}")
+        for (h, body), (_h, row) in zip(got_slots[0], slots):
+            if body != rlp_encode(encode_int(T.decode_storage_entry(row)[1])):
+                raise AssertionError(f"net: d) the writer's slot {h.hex()} differs")
+        codes = run["codes"].codes
+        if sorted(keccak256(c) for c in codes) != self.code_hashes:
+            raise AssertionError(f"net: d) {len(codes)} codes of {len(self.code_hashes)}")
+        nodes = run["nodes"].nodes
+        refs = {root}
+        for n in nodes:
+            item = rlp_decode(n)
+            for child in (item[:16] if len(item) == 17 else item[1:]):
+                if isinstance(child, bytes) and len(child) == 32:
+                    refs.add(child)
+        if not nodes or keccak256(nodes[0]) != root or any(
+                keccak256(n) not in refs for n in nodes if len(n) >= 32):
+            raise AssertionError(f"net: d) {len(nodes)} trie nodes do not chain to the root")
+        info, add = self.admin_out["info"], self.admin_out["add"]
+        client_id, third_id = node_id(NET_CLIENT_KEY).hex(), node_id(NET_THIRD_KEY).hex()
+        ids = lambda key: [x["id"] for x in self.admin_out[key]]  # noqa: E731
+        if info["enode"] != self.server.enode or client_id not in ids("peers") or \
+                add is not True or third_id not in ids("peers_added") or \
+                self.admin_out["remove"] is not True or third_id in ids("peers_removed"):
+            raise AssertionError(f"net: e) admin answered {json.dumps(self.admin_out)[:400]}")
+        penalized = [n.hex()[:16] for m in (self.server, self.client_net)
+                     for n, r in m.peers_manager.peers.items() if r.reputation < 0]
+        faults = (self.server.kernel_faults, self.client_net.kernel_faults)
+        requeued = self.requeued() - self.requeued0
+        if faults != (0, 0) or penalized or requeued:
+            raise AssertionError(f"net: kernel faults {faults}, penalized {penalized}, "
+                                 f"{requeued} body windows re-queued")
+        self.counts = dict(accounts=n_accounts, slots=len(slots), codes=len(codes),
+                           nodes=len(nodes), digest_s=digest_s, checkpoints=checkpoints)
+        log(f"net: a) bonded and dialed the discovered enode, snappy on; c) header 8's root "
+            f"{root.hex()}, checkpoints {json.dumps(checkpoints)}, every row of "
+            f"{len(want_names)} tables equal to the sync's at block 8 ({digest_s:.1f} s); "
+            f"d) {n_accounts} accounts in {len(run['ranges'])} ranges, each verified and equal "
+            f"to HashedAccounts, {len(slots)} writer slots, {len(codes)} codes, {len(nodes)} "
+            f"trie nodes chained to the root; e) nodeInfo, peers, add and remove as asked; "
+            f"0 kernel faults, 0 peers penalized, 0 body windows re-queued")
+
+    def report(self, launches: dict) -> None:
+        w = self.walls
+        log(f"net: legs a {w['a']:.3f} s (discovery, bond, dial), b {w['b']:.3f} s (era import "
+            f"of blocks 1-{SYNC_UNWIND_TO} and the offline stages), c {w['c']:.3f} s (online "
+            f"{SYNC_UNWIND_TO + 1}-{SYNC_BLOCKS}), d {w['d']:.3f} s (snap under cProfile), e "
+            f"{w['e']:.3f} s (admin); set-up {w['setup']:.3f} s outside the path")
+        for r in self.era_rows:
+            log(f"net: b) {r['stage']} {r['kind']} {r['wall_s']:.4f} s")
+        log(f"net: d) " + ", ".join(f"{k} {v:.3f} s" for k, v in self.snap["walls"].items()))
+        for leg, delta in (("c", self.wire_c), ("d", self.wire_d)):
+            for d, c in delta.items():
+                log(f"net: {leg}) wire {d}: {c['frames']} frames, {c['wire']} B on the wire, "
+                    f"{c['framed']} B framed (after snappy), {c['messages']} B of messages "
+                    f"(before snappy)")
+        log(f"net: launches {json.dumps(launches)}")
+
+
 def attempt_future(fut, timeout: float = 120.0) -> tuple:
     """A submitted transaction's outcome: ("ok", hash) or ("err", class,
     message)."""
@@ -5196,6 +5634,17 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
             rpc.report(launches["rpc"])
         finally:
             rpc.close()
+        # networking, the online stages and era archives over the sync's
+        # database at block 8
+        net = NetCell(sync)
+        try:
+            run_path("net", net.drive)
+            log(f"main path net: {walls.pop('net'):.3f} s wall")
+            recorder.path = None
+            net.check()
+            net.report(launches["net"])
+        finally:
+            net.close()
         # the drills, but the hot tip's, in a child process beside the paths
         # below
         kids["drills"] = ChildProcess("drills", "--drills", [])

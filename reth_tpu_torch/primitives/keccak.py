@@ -5,6 +5,7 @@ port imports nothing of that package).
 Ethereum's Keccak-256 (original Keccak padding 0x01, NOT NIST SHA3's 0x06):
 
 - ``keccak256``          — pure-Python, bit-exact reference.
+- ``Keccak256``          — the same, incremental (the RLPx frame MACs).
 - ``keccak256_batch_np`` — numpy-vectorised batch version over uint64 lanes.
 - ``keccak256_words_np`` / ``keccak256_words_masked_np`` — the numpy twins
   of the device absorb over pre-padded words (``trie/turbo.py``'s numpy
@@ -162,6 +163,48 @@ def keccak256(data: bytes) -> bytes:
         state = keccak_f1600(state)
     out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
     return out
+
+
+class Keccak256:
+    """Incremental (streaming) keccak-256 with copyable state.
+
+    The RLPx frame-MAC scheme (net/rlpx.py) keeps two forever-running
+    keccak states (egress/ingress) and reads 16-byte digests mid-stream;
+    ``digest()`` pads a COPY so the running state is unaffected."""
+
+    def __init__(self, data: bytes = b""):
+        self._state = [0] * 25
+        self._buf = b""
+        if data:
+            self.update(data)
+
+    def update(self, data: bytes) -> "Keccak256":
+        buf = self._buf + bytes(data)
+        off = 0
+        while len(buf) - off >= RATE:
+            block = buf[off : off + RATE]
+            for i in range(RATE // 8):
+                self._state[i] ^= int.from_bytes(block[8 * i : 8 * i + 8], "little")
+            self._state = keccak_f1600(self._state)
+            off += RATE
+        self._buf = buf[off:]
+        return self
+
+    def copy(self) -> "Keccak256":
+        k = Keccak256()
+        k._state = list(self._state)
+        k._buf = self._buf
+        return k
+
+    def digest(self) -> bytes:
+        state = list(self._state)
+        padded = _pad(self._buf)  # buffered remainder < RATE => one block
+        for off in range(0, len(padded), RATE):
+            blk = padded[off : off + RATE]
+            for i in range(RATE // 8):
+                state[i] ^= int.from_bytes(blk[8 * i : 8 * i + 8], "little")
+            state = keccak_f1600(state)
+        return b"".join(state[i].to_bytes(8, "little") for i in range(4))
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``stages`` (reference crates/stages: the
 `Stage` trait, `Pipeline`, the stage implementations and the
-`DefaultStages` ordering), without the online stages (``HeadersStage``,
-``BodiesStage``, ``online_stages``: ROADMAP). Execution and sender recovery
+`DefaultStages` ordering), with the online stages (``HeadersStage``,
+``BodiesStage``, ``online_stages``). Execution and sender recovery
 run on the host; the hashing stages, the Merkle stages and the consensus's
 receipts roots run on ``device`` (the card unless ``device="cpu"``).
 """
@@ -13,6 +13,7 @@ import torch
 from .api import ExecInput, ExecOutput, Pipeline, Stage, StageError, UnwindInput
 from .execution import ExecutionStage
 from .finish import FinishStage
+from .headers_bodies import BodiesStage, HeadersStage, online_stages
 from .hashing import AccountHashingStage, StorageHashingStage
 from .index_history import IndexAccountHistoryStage, IndexStorageHistoryStage
 from .merkle import MerkleStage, MerkleUnwindStage
@@ -60,5 +61,8 @@ __all__ = [
     "IndexAccountHistoryStage",
     "IndexStorageHistoryStage",
     "FinishStage",
+    "HeadersStage",
+    "BodiesStage",
     "default_stages",
+    "online_stages",
 ]

@@ -7,7 +7,9 @@ and test_torch_rpc_debug.py.
 pool with its batcher and its canonical-state maintenance, the payload
 service, the dev-mode miner, one shared lock, the public server (eth, net,
 web3, txpool, debug, otterscan, flashbots, miner) and the auth server
-(engine, eth), the latter with an optional JWT secret. ``P``
+(engine, eth), the latter with an optional JWT secret; given a
+``network``, the public server also serves ``admin_*`` (the node's
+``enable_admin``). ``P``
 is a namespace of ``tests/_torch_block_pkgs.py`` (``REF``, ``PORT``,
 ``PORT_CARD``) with the package's ``rpc/`` modules added (``RREF``,
 ``RPORT``, ``RPORT_CARD``); its genesis is the reference ``ChainBuilder``'s,
@@ -32,6 +34,9 @@ import urllib.request
 from _torch_block_pkgs import PORT, PORT_CARD, REF, Account, ChainBuilder, Wallet, genesis_factory
 from reth_tpu.consensus import debug_client as jdebug_client
 from reth_tpu.consensus import validation as jvalidation
+from reth_tpu.net import server as jnetserver
+from reth_tpu.net import wire as jwire
+from reth_tpu.rpc import admin as jadmin
 from reth_tpu.rpc import convert as jconvert
 from reth_tpu.rpc import debug as jdebug
 from reth_tpu.rpc import engine_api as jengine_api
@@ -48,6 +53,9 @@ from reth_tpu.rpc import ws as jws
 from reth_tpu.trie import proof as jproof
 from reth_tpu_torch.consensus import debug_client as pdebug_client
 from reth_tpu_torch.consensus import validation as pvalidation
+from reth_tpu_torch.net import server as pnetserver
+from reth_tpu_torch.net import wire as pwire
+from reth_tpu_torch.rpc import admin as padmin
 from reth_tpu_torch.rpc import convert as pconvert
 from reth_tpu_torch.rpc import debug as pdebug
 from reth_tpu_torch.rpc import engine_api as pengine_api
@@ -81,11 +89,13 @@ def _with_rpc(P, **mods):
 _JRPC = dict(server=jserver, convert=jconvert, eth=jeth, engine_api=jengine_api,
              debug=jdebug, flashbots=jflashbots, miner=jminer, net=jnet,
              otterscan=jotterscan, gateway=jgateway, ws=jws, ipc=jipc, jwt=jjwt,
-             debug_client=jdebug_client, validation=jvalidation, proof=jproof)
+             debug_client=jdebug_client, validation=jvalidation, proof=jproof,
+             admin=jadmin, netserver=jnetserver, wire=jwire)
 _PRPC = dict(server=pserver, convert=pconvert, eth=peth, engine_api=pengine_api,
              debug=pdebug, flashbots=pflashbots, miner=pminer, net=pnet,
              otterscan=potterscan, gateway=pgateway, ws=pws, ipc=pipc, jwt=pjwt,
-             debug_client=pdebug_client, validation=pvalidation, proof=pproof)
+             debug_client=pdebug_client, validation=pvalidation, proof=pproof,
+             admin=padmin, netserver=pnetserver, wire=pwire)
 
 RREF = _with_rpc(REF, **_JRPC)
 RPORT = _with_rpc(PORT, **_PRPC)
@@ -121,7 +131,7 @@ class RpcNode:
     """One package's node surfaces, wired as ``node.py:496-559`` wires them."""
 
     def __init__(self, P, builder, *, chain_id: int = 1, jwt_secret: bytes | None = None,
-                 persistence_threshold: int = 2, **tree_kw):
+                 persistence_threshold: int = 2, network=None, discovery=None, **tree_kw):
         self.P = P
         self.builder = builder
         self.factory = genesis_factory(P, builder)
@@ -157,6 +167,8 @@ class RpcNode:
         self.rpc.register(P.flashbots.BundleApi(self.eth_api))
         self.rpc.register(P.flashbots.ValidationApi(self.eth_api))
         self.rpc.register(P.miner.MinerApi(self.payload_service, self.pool))
+        if network is not None:  # the node's enable_admin (node.py:645-666)
+            self.rpc.register(P.admin.AdminApi(network, discovery, chain_id))
         self.engine_api = P.engine_api.EngineApi(self.tree, self.payload_service,
                                                  pool=self.pool)
         self.authrpc = P.server.RpcServer(lock=self.lock, jwt_secret=jwt_secret)

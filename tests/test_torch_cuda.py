@@ -1029,3 +1029,114 @@ def test_failed_paged_engine_build_raises_on_card(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_build.BuildError, match="building pagedkv.cpp failed"):
         native.PagedDb(tmp_path / "db")
+
+
+def _net_legs(device: str, tmp_path) -> dict:
+    """The smoke's "net" legs b and c at the small sync chain's size: a port
+    ``NetworkManager`` on 127.0.0.1 serves a database synced to block 3; a
+    fresh client imports blocks 0-1 from era1 archives over HTTP
+    (``EraStage`` before ``default_stages(device=)``), then syncs blocks 2-3
+    from the server over encrypted RLPx (``sync_from_peer``: the online
+    stages on ``device``). Returns the client's tables after each leg, the
+    checkpoints and each leg's kernel launches."""
+    import http.server
+    import threading
+    import types
+
+    from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain
+    from reth_tpu_torch import era, era_sync, testing
+    from reth_tpu_torch.consensus import EthBeaconConsensus
+    from reth_tpu_torch.net import NetworkManager, PeerConnection, Status, sync_from_peer
+    from reth_tpu_torch.primitives import keccak as pkeccak
+    from reth_tpu_torch.primitives import secp256k1, types as ptypes
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.stages import Pipeline, default_stages
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import import_chain, init_genesis
+
+    host = TrieCommitter(hasher=keccak256_batch_np, device="cpu")
+    pkg = types.SimpleNamespace(testing=testing, types=ptypes, keccak=pkeccak,
+                                secp256k1=secp256k1)
+    chain = SyncChain(pkg, n_accounts=200, n_slots=80, seed=47, n_wallets=4, n_blocks=3,
+                      sizes=SYNC_BLOCK_SMALL, committer=host).builder
+
+    def genesis_db():
+        f = ProviderFactory(MemDb())
+        init_genesis(f, chain.genesis, dict(chain.accounts_at_genesis),
+                     storage=chain.storage_at_genesis, codes=chain.codes_at_genesis,
+                     committer=host, device="cpu")
+        return f
+
+    served = genesis_db()
+    import_chain(served, chain.blocks[1:], EthBeaconConsensus(host, device="cpu"))
+    Pipeline(served, default_stages(committer=host, consensus=EthBeaconConsensus(
+        host, device="cpu"), device="cpu")).run(3)
+    src = tmp_path / f"era-{device}"
+    src.mkdir()
+    era.export_era(served, 0, 1, src / "chain-00000.era1")
+    era_sync.EraSource.build_index(src)
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, directory=str(src), **kw)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    status = Status(network_id=1, head=chain.tip.hash, genesis=chain.genesis.hash)
+    server = NetworkManager(served, status, node_priv=0x5E4, device="cpu")
+    server.start()
+
+    def launches():
+        return (tk.keccak256_words_masked.launches, fc.packed_level.launches,
+                fc.branch_level.launches, fc.subtrie_levels.launches)
+
+    out = {}
+    try:
+        client = genesis_db()
+        before = launches()
+        source = era_sync.HttpEraSource(f"http://127.0.0.1:{httpd.server_address[1]}")
+        stage = era_sync.EraStage(era_sync.EraDownloader(source, tmp_path / f"cache-{device}"),
+                                  EthBeaconConsensus(device=device))
+        Pipeline(client, [stage, *default_stages(device=device)]).run(1)
+        torch.cuda.synchronize()
+        mid = launches()
+        out["era"] = {n: dict(t) for n, t in client.db._tables.items() if t}
+        peer = PeerConnection.connect("127.0.0.1", server.port, Status(
+            network_id=1, head=chain.genesis.hash, genesis=chain.genesis.hash),
+            secp256k1.pubkey_from_priv(0x5E4))
+        try:
+            assert sync_from_peer(client, peer, device=device) == 3
+        finally:
+            peer.close()
+        torch.cuda.synchronize()
+        end = launches()
+        out["online"] = {n: dict(t) for n, t in client.db._tables.items() if t}
+        with client.provider() as p:
+            out["checkpoints"] = {s: p.stage_checkpoint(s)
+                                  for s in ("Era", "Headers", "Bodies", "MerkleExecute",
+                                            "Finish")}
+            out["root"] = p.header_by_number(3).state_root == chain.tip.state_root
+        out["launches"] = ([b - a for a, b in zip(before, mid)],
+                           [b - a for a, b in zip(mid, end)])
+    finally:
+        server.stop()
+        httpd.shutdown()
+    return out
+
+
+@pytest.mark.cuda
+def test_net_legs_on_card_match_cpu(tmp_path):
+    """Era import then online sync (the smoke's "net" legs b and c) on
+    device="cuda" and device="cpu": the same rows in every table after each
+    leg, the root at block 3, the era leg's MerkleStage from checkpoint 0 on
+    kernels 1-3 and the online leg's stages on kernel 1, no kernel 4."""
+    require_card()
+    got, want = _net_legs("cuda", tmp_path), _net_legs("cpu", tmp_path)
+    assert got["era"] == want["era"] and got["online"] == want["online"]
+    assert got["root"] and got["checkpoints"] == want["checkpoints"]
+    era_l, online_l = got["launches"]
+    assert all(n > 0 for n in era_l[:3]) and era_l[3] == 0
+    assert online_l[0] > 0 and online_l[3] == 0

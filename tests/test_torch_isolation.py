@@ -25,6 +25,9 @@ from reth_tpu_torch.engine import native_exec
 from reth_tpu_torch.engine.sparse_root import SparseRootTask
 from reth_tpu_torch.engine.tree import EngineTree
 from reth_tpu_torch.metrics import MetricsRegistry
+from reth_tpu_torch.net import downloader as tdownloader
+from reth_tpu_torch.net import server as tnetserver
+from reth_tpu_torch.net import snap as tsnap
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import hash_service as ths
 from reth_tpu_torch.ops import keccak as tk
@@ -54,7 +57,7 @@ names = [m.name for m in pkgutil.walk_packages(reth_tpu_torch.__path__, "reth_tp
 for name in names:
     __import__(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "reth_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "reth_tpu", "cryptography"))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -111,7 +114,17 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.rpc.miner", "reth_tpu_torch.rpc.net",
                 "reth_tpu_torch.rpc.otterscan", "reth_tpu_torch.rpc.gateway",
                 "reth_tpu_torch.rpc.ws", "reth_tpu_torch.rpc.ipc",
-                "reth_tpu_torch.consensus.debug_client"):
+                "reth_tpu_torch.consensus.debug_client", "reth_tpu_torch.net",
+                "reth_tpu_torch.net._aes", "reth_tpu_torch.net.wire",
+                "reth_tpu_torch.net.snappy", "reth_tpu_torch.net.ecies",
+                "reth_tpu_torch.net.rlpx", "reth_tpu_torch.net.p2p",
+                "reth_tpu_torch.net.sessions", "reth_tpu_torch.net.reputation",
+                "reth_tpu_torch.net.swarm", "reth_tpu_torch.net.server",
+                "reth_tpu_torch.net.snap", "reth_tpu_torch.net.downloader",
+                "reth_tpu_torch.net.discv4", "reth_tpu_torch.net.discv5",
+                "reth_tpu_torch.net.enr", "reth_tpu_torch.net.dnsdisc",
+                "reth_tpu_torch.net.nat", "reth_tpu_torch.stages.headers_bodies",
+                "reth_tpu_torch.era", "reth_tpu_torch.era_sync", "reth_tpu_torch.rpc.admin"):
         assert mod in res["modules"]
 
 
@@ -123,12 +136,15 @@ def test_probe_code_names_no_jax_and_nothing_of_reth_tpu():
 
 
 def test_sources_name_no_jax_import():
+    """No port source imports jax, anything of reth_tpu, or the cryptography
+    package (the networking's AES is the port's own csrc/aes.cpp)."""
     for path in (ROOT / "reth_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
                 assert "jax" not in stripped and "reth_tpu." not in stripped.replace(
                     "reth_tpu_torch", ""), f"{path}: {stripped}"
+                assert "cryptography" not in stripped, f"{path}: {stripped}"
 
 
 @pytest.mark.parametrize("entry", [
@@ -145,7 +161,10 @@ def test_sources_name_no_jax_import():
     tinc.verify_state_root, tproof.ProofCalculator.__init__, tstages.default_stages,
     EthBeaconConsensus.__init__, texecution.ExecutionStage.__init__, tgenesis.init_genesis,
     ttesting.ChainBuilder.__init__, EngineTree.__init__, trecovery.recover_on_startup,
-    tengine_api.payload_to_block,
+    tengine_api.payload_to_block, tsnap.SnapServer.__init__, tnetserver.NetworkManager.__init__,
+    tdownloader.sync_from_peer, tdownloader.BodiesDownloader.__init__,
+    tdownloader.FullBlockClient.__init__, tstages.online_stages,
+    tstages.HeadersStage.__init__, tstages.BodiesStage.__init__,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -214,6 +233,18 @@ def test_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError):
         tengine_api.payload_to_block(payload)
     assert tengine_api.payload_to_block(payload, device="cpu").header.number == 1
+    # the networking: the snap server's proofs, the online stages and the
+    # downloaders' body roots
+    with pytest.raises(RuntimeError):
+        tsnap.SnapServer(ProviderFactory(MemDb()))
+    with pytest.raises(RuntimeError):
+        tstages.online_stages(None)
+    with pytest.raises(RuntimeError):
+        tdownloader.BodiesDownloader([])
+    with pytest.raises(RuntimeError):
+        tdownloader.FullBlockClient(None)
+    assert tsnap.SnapServer(ProviderFactory(MemDb()), device="cpu").committer.device == \
+        torch.device("cpu")
     with pytest.raises(ValueError):
         resolve("meta")
 
@@ -301,16 +332,18 @@ def test_stateless_chain_roots_on_the_device():
 
 def test_rpc_modules_stand_alone():
     """The RPC and the debug consensus client import nothing of the JAX
-    package, and no module registers what waits for the node or the fleet."""
+    package, and no module registers what waits for the node or the fleet;
+    ``admin_*`` is served over the port's networking."""
     from reth_tpu_torch.consensus import debug_client
-    from reth_tpu_torch.rpc import debug, server
+    from reth_tpu_torch.rpc import admin, debug, server
 
     rpc_dir = ROOT / "reth_tpu_torch" / "rpc"
     for path in list(rpc_dir.glob("*.py")) + [Path(debug_client.__file__)]:
         src = path.read_text()
         assert "import jax" not in src and "from reth_tpu." not in src, path
         assert "from .. import health" not in src and "..obs" not in src, path
-    assert not (rpc_dir / "admin.py").exists()
+    for name in ("admin_nodeInfo", "admin_peers", "admin_addPeer", "admin_removePeer"):
+        assert hasattr(admin.AdminApi, name)
     for name in ("debug_healthCheck", "debug_sloStatus", "debug_metricsHistory",
                  "debug_fleetMetrics"):
         assert not hasattr(debug.DebugApi, name)

@@ -34,8 +34,12 @@ import pytest
 
 from _torch_rpc_pkgs import RPORT, RREF, RpcNode, both, http, request, wallets_builder
 from reth_tpu import metrics as jmetrics
+from reth_tpu.storage import MemDb as JMemDb
+from reth_tpu.storage import ProviderFactory as JFactory
 from reth_tpu.primitives.keccak import keccak256
 from reth_tpu_torch import metrics as pmetrics
+from reth_tpu_torch.storage import MemDb as PMemDb
+from reth_tpu_torch.storage import ProviderFactory as PFactory
 from reth_tpu_torch.ops._build import LaunchError
 
 PKGS = pytest.mark.parametrize("P", [RREF, RPORT], ids=["reference", "port"])
@@ -537,8 +541,7 @@ def test_metrics_endpoint_and_absent_routes():
 
 
 ABSENT = ("debug_healthCheck", "debug_sloStatus", "debug_metricsHistory",
-          "debug_fleetMetrics", "admin_nodeInfo", "admin_peers", "admin_addPeer",
-          "fleet_status")
+          "debug_fleetMetrics", "fleet_status")
 
 
 def sc_absent(P):
@@ -553,7 +556,8 @@ def sc_absent(P):
 
 def test_absent_methods_are_not_served():
     """The port serves every method the reference's node wires but the health,
-    SLO and fleet ones (and admin_*, which needs the networking)."""
+    SLO and fleet ones (admin_* is served where the node has a network:
+    test_admin_methods_over_the_network)."""
     (ref_out, ref_served), (port_out, port_served) = sc_absent(RREF), sc_absent(RPORT)
     for raw in port_out[:len(ABSENT)]:
         assert json.loads(raw)["error"]["code"] == -32601
@@ -564,6 +568,60 @@ def test_absent_methods_are_not_served():
     assert correlated["code"] == -32602 and "correlated" in correlated["message"]
     assert "correlated" not in json.loads(ref_out[-2]).get("error", {}).get("message", "")
     assert json.loads(port_out[-1])["error"]["code"] == json.loads(ref_out[-1])["error"]["code"]
+
+
+def sc_admin(P):
+    """admin_* through the public server of a node with a network (fixed node
+    keys): nodeInfo, then peers before and after a second manager dials in,
+    addPeer / removePeer of a third, a malformed enode. Listening ports are
+    ephemeral, so they are masked."""
+    b, _w = wallets_builder(P)
+    status = P.wire.Status(network_id=1, head=b.genesis.hash, genesis=b.genesis.hash)
+    kw = {"device": "cpu"} if P is RPORT else {}
+    store = (JMemDb, JFactory) if P is RREF else (PMemDb, PFactory)
+    nets = [P.netserver.NetworkManager(store[1](store[0]()), status, node_priv=key, **kw)
+            for key in (0xAD1, 0xAD2, 0xAD3)]
+    ports = [n.start() for n in nets]
+
+    def mask(raw: bytes) -> bytes:
+        for i, port in enumerate(ports):
+            raw = raw.replace(f":{port}".encode(), f":P{i}".encode()).replace(
+                f'"listener": {port}'.encode(), f'"listener": "P{i}"'.encode())
+        return raw
+
+    try:
+        with RpcNode(P, b, network=nets[0]) as n:
+            out = [n.call("admin_nodeInfo"), n.call("admin_peers")]
+            peer = nets[1].connect_to(nets[0].enode)
+            deadline = time.monotonic() + 10
+            while not nets[0].peers and time.monotonic() < deadline:
+                time.sleep(0.02)
+            out.append(n.call("admin_peers"))
+            peer.close()
+            deadline = time.monotonic() + 10
+            while nets[0].peers and time.monotonic() < deadline:
+                time.sleep(0.02)
+            out.append(n.call("admin_addPeer", nets[2].enode))
+            out.append(str(len(nets[0].peers)).encode())
+            out.append(n.call("admin_removePeer", nets[2].enode))
+            out.append(n.call("admin_addPeer", "enode://zz@nope"))
+            return [mask(raw) for raw in out]
+    finally:
+        for net in nets:
+            net.stop()
+
+
+def test_admin_methods_over_the_network():
+    """admin_nodeInfo and admin_peers are the reference's JSON byte for byte
+    with the same node keys; addPeer / removePeer move the peer set alike."""
+    got = both(sc_admin)
+    info = json.loads(got[0])["result"]
+    assert info["enode"].startswith("enode://") and info["ports"]["listener"] == "P0"
+    assert json.loads(got[1])["result"] == []
+    assert len(json.loads(got[2])["result"]) == 1
+    assert [json.loads(r)["result"] for r in got[3:] if r.startswith(b"{")] == [
+        True, True, False]
+    assert got[4] == b"1"
 
 
 # -- the departure: a kernel fault under handle() --------------------------------
