@@ -56,7 +56,7 @@
    writes, hashing stages and MerkleStage._incremental (the block's root and
    tables), and block 3's state rebuilt single-shot again (its root and
    tables must be the incremental route's).
-3. Slice phase, thirty-two main paths, the launch counters zeroed just before
+3. Slice phase, thirty-three main paths, the launch counters zeroed just before
    each and read just after (and every watchdog thread joined first):
    "default", the full-state rebuild (at --rebuild-accounts /
    --rebuild-slots, 250,000 / 100,000, cut from the 1,000,000 / 400,000 the
@@ -361,6 +361,24 @@
    the managers, 0 peers penalized, 0 body windows re-queued; each leg's
    wall, the stages of b, the frames and bytes of c and d on the wire
    (before and after snappy) logged.
+   The member mesh (MeshCell, path "mesh", right after "rebuild leased"):
+   rosters of HashMesh.build(1) and of cuda:0 named four and three times,
+   each entry a member with its own stream and replica of the digest
+   buffer. a) The rebuild through TurboCommitter(mesh=) on each roster with
+   FusedMeshEngine and with SubtrieMeshEngine at k=8: roots and branch
+   nodes equal the "default" path's, every replica byte-equal after each
+   commit; b) MeshKeccak over the kernel checks' 65,543 messages on four
+   members and sharded_keccak over one-block rows on four and three, equal
+   to kernel 1 on one member; c) a meshed HashService leases 2 of 4 members
+   to the account trie's rebuild while a live client hashes on the other
+   2 (live requests complete during the lease, no bypass); d) the wedge
+   drill: member 2 wedged, shed, the batch replayed bit-identical on three
+   members, no numpy replay, mesh_shrinks_total 1, the member back after
+   its breaker's cooldown. Kernels 1-4 and exchange_slots (the digest
+   exchange between replicas); its median and largest launch are held
+   against their plain version (index_copy_) and timed beside it, the
+   bound and one index_copy_ on the replicas stacked (the kernels line's
+   exchange_slots row, after step 5's rows).
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -698,7 +716,7 @@ ENFORCED = {"fused_level.cu": ("packed_level_kernel", "branch_level_kernel",
                                "subtrie_levels_kernel"),
             "keccak.cu": ("keccak256_absorb_kernel",)}
 KERNEL_FUNCTIONS = ENFORCED["fused_level.cu"] + ENFORCED["keccak.cu"] + (
-    "keccak256_absorb_unstaged_kernel",)
+    "keccak256_absorb_unstaged_kernel", "exchange_slots_kernel")
 
 
 def check_ptxas(src_name: str, text: str) -> None:
@@ -993,7 +1011,7 @@ def kernel_checks(args, account_jobs, bound: Bound) -> dict:
     return probe, check1
 
 
-KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels")
+KERNELS = ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels", "exchange_slots")
 # the main paths, each driven with the launch counts zeroed just before it:
 # the rebuild on either engine, then the same two under the device
 # supervisor (backend="auto", the reference's --hasher auto), state_root() on
@@ -1004,7 +1022,7 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "service", "sparse service", "sparse service k=8", "rebuild leased", "merkle stage",
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
          "live tip service", "proofs", "sync", "recovery", "engine", "engine parallel",
-         "engine pipelined", "payload", "stateless", "rpc", "net")
+         "engine pipelined", "payload", "stateless", "rpc", "net", "mesh")
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -1030,7 +1048,9 @@ PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_le
                 "payload": ("keccak256_absorb", "subtrie_levels"),
                 "stateless": ("keccak256_absorb",),
                 "rpc": ("keccak256_absorb", "subtrie_levels"),
-                "net": ("keccak256_absorb", "packed_level", "branch_level")}
+                "net": ("keccak256_absorb", "packed_level", "branch_level"),
+                "mesh": ("keccak256_absorb", "packed_level", "branch_level", "subtrie_levels",
+                         "exchange_slots")}
 # kernels a main path may launch besides its own: the leased rebuild's live
 # client dispatches through kernel 1 whenever the lease is not held
 PATH_MAY = {"rebuild leased": ("keccak256_absorb",)}
@@ -1052,8 +1072,11 @@ STEPLESS_ROWS = ("live_tip_subtrie", "engine_subtrie")
 # it was before the launch (the arena's: rows of earlier epochs), so that the
 # timed replay starts from it
 KEEP_BUFFER_PATHS = ("sparse arena", "live tip", "engine")
-# the one place the port may launch kernel 1 from
+# the one place the port may launch kernel 1 from off the mesh, and the
+# mesh's two (a member's range of a MeshKeccak bucket, sharded_keccak's rows)
 KECCAK_DEVICE = "reth_tpu_torch/ops/keccak.py:KeccakDevice._hash_bucket"
+KECCAK_MESH = ("reth_tpu_torch/parallel/mesh.py:MeshKeccak._hash_bucket.<locals>.launch",
+               "reth_tpu_torch/ops/keccak.py:keccak256_words")
 
 
 class _Recorded:
@@ -1087,7 +1110,12 @@ class _Recorded:
         base = args[-1].clone() if keep else None
         out = self.fn(*args)
         if self.fn.launches != before:
-            if self.name == "keccak256_absorb":
+            if self.name == "exchange_slots":
+                # the slots and bounds, and the replicas' rows and count
+                bufs, slots, bounds = args
+                rec.calls[rec.path][self.name].append(
+                    (slots, tuple(bounds), bufs[0].shape[0], len(bufs)))
+            elif self.name == "keccak256_absorb":
                 rec.calls[rec.path][self.name].append(args)
                 caller = sys._getframe(2).f_code
                 rec.callers.add(f"{os.path.relpath(caller.co_filename, HERE)}:"
@@ -1114,7 +1142,8 @@ class MainPathRecorder:
         self.sites = [(ok, "keccak256_words_masked", "keccak256_absorb"),
                       (fc, "packed_level", "packed_level"),
                       (fc, "branch_level", "branch_level"),
-                      (fc, "subtrie_levels", "subtrie_levels")]
+                      (fc, "subtrie_levels", "subtrie_levels"),
+                      (fc, "exchange_slots", "exchange_slots")]
         self.path = PATHS[0]
         self.calls: dict[str, dict[str, list]] = {p: {k: [] for k in KERNELS} for p in PATHS}
         self.callers: set[str] = set()
@@ -5314,6 +5343,312 @@ def rebuild_leased(run_path, rebuild, committer, service) -> list:
     return res
 
 
+# the "mesh" path's rosters: the real topology, and one card named four and
+# three times (three: tiers the members do not divide evenly)
+MESH_ROSTERS = ((None, "HashMesh.build(1)"), (4, "cuda:0 x4"), (3, "cuda:0 x3"))
+MESH_ENGINES = ((0, "FusedMeshEngine"), (8, "SubtrieMeshEngine k=8"))
+MESH_LEASED = 2  # members the service leases to the rebuild, of four
+MESH_WEDGED = 2  # the member the drill wedges
+MESH_RESET_S = 0.5  # the drill's breaker cooldown
+MESH_SINGLE_ROWS = 16_380  # sharded_keccak's one-block rows (divisible by 3 and 4)
+
+
+class MeshCell:
+    """The "mesh" path: the port's member mesh (parallel/mesh.py,
+    ops/fused_commit.py FusedMeshEngine / SubtrieMeshEngine, the meshed
+    HashService) on the card. Rosters may name cuda:0 more than once: each
+    entry is a member with its own stream and its own replica of the digest
+    buffer, so a roster of four runs the sharding, the exchange, the
+    breakers and the lease on one card. No number of it is a multi-card
+    figure.
+
+    a) The rebuild (``rebuild``, slice_phase's) through TurboCommitter(mesh=)
+       on each roster of MESH_ROSTERS, with each engine of MESH_ENGINES;
+       roots and branch nodes must equal the "default" path's (``want``),
+       and every live replica must be byte-equal after each commit (the
+       engines check it at the terminal fetch). b) Kernel 1: MeshKeccak
+       over the 65,543 messages of the kernel checks on four members, and
+       sharded_keccak over one-block rows on four and three, each equal to
+       kernel 1 on one member (``check_keccak``, after the path's counts).
+       c) A meshed HashService leases MESH_LEASED of
+       four members to the account trie's rebuild while a live client hashes
+       on the other two: live dispatches complete during the lease, no lease
+       bypass, the roots the default path's. d) The wedge drill: member
+       MESH_WEDGED wedged (FaultInjector(device_wedge=)), shed, the batch
+       replayed bit-identical on the three left, no numpy replay, one
+       shrink; the member rejoins after its breaker's cooldown."""
+
+    def __init__(self, rebuild, want, account_want, account_jobs, seed: int,
+                 device: str = "cuda"):
+        self.device = device  # "cpu" rehearses the path on the plain versions
+        self.member = "cuda:0" if device == "cuda" else "cpu"
+        self.rebuild = rebuild
+        self.want = want
+        self.account_want = account_want
+        self.account_jobs = account_jobs
+        self.seed = seed
+        self.walls: dict[str, float] = {}
+        self.stats: dict[str, str] = {}
+        self.checks = {}
+
+    def drive(self):
+        self._rebuilds()
+        self._keccak()
+        self._lease()
+        self._wedge()
+
+    def _roster(self, n):
+        from reth_tpu_torch.metrics import MetricsRegistry
+        from reth_tpu_torch.parallel import HashMesh
+
+        if n is None:
+            return HashMesh.build(1, device=self.device, registry=MetricsRegistry())
+        return HashMesh([self.member] * n, registry=MetricsRegistry())
+
+    def _sync(self) -> None:
+        if self.device == "cuda":
+            torch_sync()
+
+    def _rebuilds(self) -> None:
+        from reth_tpu_torch.trie.turbo import TurboCommitter
+
+        for n, roster in MESH_ROSTERS:
+            hm = self._roster(n)
+            for k, engine in MESH_ENGINES:
+                c = TurboCommitter(backend="device", device=self.device, mesh=hm,
+                                   subtrie_levels=k)
+                made = track_engines(c, "_device_engine")
+                self._sync()
+                t0 = time.perf_counter()
+                res = self.rebuild(c)
+                self._sync()
+                wall = time.perf_counter() - t0
+                label = f"{roster}, {engine}"
+                if [r.root for r in res] != [r.root for r in self.want]:
+                    raise AssertionError(f"mesh: rebuild roots on {label} differ from the "
+                                         f"default path's")
+                if [r.branch_nodes for r in res] != [r.branch_nodes for r in self.want]:
+                    raise AssertionError(f"mesh: rebuild branch nodes on {label} differ from "
+                                         f"the default path's")
+                checked = sum(e.replicas_checked for e in made)
+                if checked != (len(made) if hm.n_devices > 1 else 0):
+                    raise AssertionError(f"mesh: {checked} replica checks for {len(made)} "
+                                         f"commits on {label}")
+                self.walls[label] = wall
+                self.stats[label] = (
+                    f"{len(made)} commits, {sum(e.dispatches for e in made)} dispatches, "
+                    f"{sum(e.member_launches for e in made)} member launches, "
+                    f"{sum(e.exchanges for e in made)} exchanges, "
+                    f"{sum(e.uploads for e in made)} host-to-device copies, replicas "
+                    f"byte-equal after {checked} of them")
+                log(f"mesh: rebuild on {label}: {wall:.3f} s wall; {len(res)} roots and "
+                    f"{sum(len(r.branch_nodes) for r in res)} branch nodes equal the default "
+                    f"path's; {self.stats[label]}")
+
+    def _keccak(self) -> None:
+        """Kernel 1's two mesh front-ends on the path; ``check_keccak``
+        compares them with kernel 1 on one member afterwards, outside the
+        path's counts."""
+        from reth_tpu_torch.parallel import MeshKeccak, sharded_keccak
+        from reth_tpu_torch.primitives.keccak import pad_batch
+
+        rng = np.random.default_rng(self.seed)  # kernel_checks' 65,543 messages
+        lens = list(rng.integers(0, 601, size=65536)) + [0, 135, 136, 271, 272, 543, 544]
+        msgs = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lens]
+        hm4 = self._roster(4)
+        front = MeshKeccak(hm4, min_tier=1024, block_tier=4)
+        t0 = time.perf_counter()
+        four = front.hash_sharded(msgs, hm4.mesh)
+        wall = time.perf_counter() - t0
+        single = [rng.integers(0, 136, dtype=np.int64) for _ in range(MESH_SINGLE_ROWS)]
+        words = np.ascontiguousarray(pad_batch(
+            [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in single],
+            1)).view("<u4").reshape(-1, 34)
+        sharded = {n: sharded_keccak(self._roster(n), words) for n in (4, 3)}
+        self._kernel1 = (front, hm4, msgs, four, words, sharded)
+        self.checks["keccak"] = {"messages": len(msgs), "sharded_wall_s": round(wall, 4),
+                                 "single_block_rows": MESH_SINGLE_ROWS}
+
+    def check_keccak(self) -> None:
+        """After the path: MeshKeccak's digests on four members and
+        sharded_keccak's on four and three against kernel 1 on one member."""
+        import torch
+
+        from reth_tpu_torch.ops.keccak import keccak256_words
+        from reth_tpu_torch.primitives.keccak import keccak256
+
+        front, hm4, msgs, four, words, sharded = self._kernel1
+        one = front.hash_sharded(msgs, hm4._mesh_for((0,)))
+        if four != one or four[:64] != [keccak256(m) for m in msgs[:64]]:
+            raise AssertionError("mesh: MeshKeccak on four members differs from kernel 1 on one")
+        want = keccak256_words(torch.from_numpy(words).to(self.device), 1).cpu().numpy()
+        for n, got in sharded.items():
+            if not np.array_equal(got, want):
+                raise AssertionError(f"mesh: sharded_keccak on {n} members differs from kernel "
+                                     f"1 on one")
+        log(f"mesh: MeshKeccak over {len(msgs)} messages on four members "
+            f"({self.checks['keccak']['sharded_wall_s']:.3f} s) and sharded_keccak over "
+            f"{MESH_SINGLE_ROWS} one-block rows on four and three members equal kernel 1 on "
+            f"one member")
+
+    def _lease(self) -> None:
+        from reth_tpu_torch.metrics import MetricsRegistry
+        from reth_tpu_torch.ops.hash_service import HashService
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+        from reth_tpu_torch.trie.turbo import TurboCommitter
+
+        hm = self._roster(4)
+        svc = HashService(mesh=hm, rebuild_devices=MESH_LEASED, registry=MetricsRegistry(),
+                          device=self.device)
+        try:
+            c = TurboCommitter(backend="device", device=self.device, hash_service=svc)
+            made = track_engines(c, "_device_engine")
+            rng = np.random.default_rng(self.seed + 5)
+            msgs = [rng.integers(0, 256, size=32, dtype=np.uint8).tobytes() for _ in range(512)]
+            want = keccak256_batch_np(msgs)
+            stop = threading.Event()
+            live = {"during": 0, "total": 0, "bad": 0}
+
+            def client():
+                while not stop.is_set():
+                    held = svc.rebuild_mesh() is not None
+                    ok = svc.client("live")(msgs) == want
+                    live["total"] += 1
+                    live["bad"] += not ok
+                    live["during"] += held and svc.rebuild_mesh() is not None
+
+            t = threading.Thread(target=client, name="mesh-live-client")
+            t.start()
+            try:
+                res = c.commit_hashed_pipelined(self.account_jobs, collect_branches=True,
+                                                start_depth=2)
+            finally:
+                stop.set()
+                t.join()
+            snap = svc.snapshot()
+        finally:
+            svc.stop()
+        if [r.root for r in res] != [r.root for r in self.account_want] or \
+                [r.branch_nodes for r in res] != [r.branch_nodes for r in self.account_want]:
+            raise AssertionError("mesh: the leased account-trie rebuild differs from the "
+                                 "default path's")
+        sizes = {e.mesh.size for e in made}
+        if (not live["during"] or live["bad"] or snap["lease_bypasses"]
+                or snap["mesh"]["submesh_leases"] != 1 or sizes != {MESH_LEASED}
+                or snap["mesh"]["leased"] != 0):
+            raise AssertionError(f"mesh: the sub-mesh lease: live {live}, engines over "
+                                 f"{sizes} members, {snap}")
+        self.checks["lease"] = {**live, "lease_bypasses": snap["lease_bypasses"],
+                                "sharded": snap["mesh"]["sharded_dispatches"]}
+        log(f"mesh: sub-mesh lease of {MESH_LEASED} of 4 members for the account trie's "
+            f"rebuild (engine over {sizes} members, roots equal the default path's); live "
+            f"lane {live['total']} requests, {live['during']} completed during the lease, 0 "
+            f"wrong, 0 lease bypasses; service {json.dumps(snap['mesh'])}")
+
+    def _wedge(self) -> None:
+        from reth_tpu_torch.metrics import MetricsRegistry
+        from reth_tpu_torch.ops.hash_service import HashService
+        from reth_tpu_torch.ops.supervisor import DeviceBreakerBoard, FaultInjector
+        from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+
+        hm = self._roster(4)
+        inj = FaultInjector(device_wedge=(MESH_WEDGED,))
+        board = DeviceBreakerBoard(hm, failure_threshold=1, reset_timeout=MESH_RESET_S)
+        svc = HashService(mesh=hm, breaker_board=board, device_injector=inj,
+                          registry=MetricsRegistry(), device=self.device)
+        try:
+            rng = np.random.default_rng(self.seed + 6)
+            msgs = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+                    for n in rng.integers(1, 300, size=4096)]
+            want = keccak256_batch_np(msgs)
+            fut = svc.submit("live", msgs)
+            shed_ok = fut.result(120) == want and fut.completions == 1
+            shed = svc.snapshot()["mesh"]
+            replays_shed = svc.replays
+            inj.device_wedge = frozenset()  # the fault clears
+            time.sleep(MESH_RESET_S + 0.2)
+            back_ok = svc.client("payload")(msgs) == want
+            back = svc.snapshot()["mesh"]
+        finally:
+            svc.stop()
+        shrinks = hm.metrics._shrinks.value
+        if not (shed_ok and back_ok and shed["healthy"] == 3 and shed["mesh_replays"] == 1
+                and replays_shed == 0 and svc.replays == 0 and shrinks == 1
+                and back["healthy"] == 4 and back["recoveries"] == 1
+                and board.breakers[MESH_WEDGED].state == "closed"):
+            raise AssertionError(f"mesh: the wedge drill: shed {shed}, back {back}, numpy "
+                                 f"replays {svc.replays}, mesh_shrinks_total {shrinks}")
+        self.checks["wedge"] = {"shed": MESH_WEDGED, "mesh_replays": shed["mesh_replays"],
+                                "numpy_replays": svc.replays, "mesh_shrinks_total": shrinks,
+                                "recoveries": back["recoveries"]}
+        log(f"mesh: wedge drill: member {MESH_WEDGED} shed, the batch of {len(msgs)} replayed "
+            f"bit-identical on 3 members (mesh replays {shed['mesh_replays']}, numpy replays 0, "
+            f"mesh_shrinks_total {shrinks:.0f}); after the {MESH_RESET_S} s cooldown it rejoined "
+            f"(recoveries {back['recoveries']}, breaker closed)")
+
+
+def exchange_row(recorder, launches: dict, rng) -> dict:
+    """The kernels line's row of exchange_slots, at the "mesh" path's median
+    and largest launch: bit for bit against its plain version (index_copy_
+    from each member's replica into the others') on fresh random replicas,
+    then timed by CUDA events beside the plain version, the bound (bytes
+    over the HBM rate: each row's slot and 32 bytes read once, 32 bytes
+    written to each other replica) and one index_copy_ of the same rows into
+    the replicas stacked in one tensor, the source rows gathered beforehand
+    (the library yardstick)."""
+    import torch
+
+    from reth_tpu_torch.ops import fused_commit as fc
+
+    name = "exchange_slots"
+    row = dict(name=name, route="cuda", source="reth_tpu_torch/ops/csrc/fused_level.cu",
+               replaces="reth_tpu/ops/fused_commit.py:892",
+               launches_by_path={p: launches[p][name] for p in PATHS})
+    row["launches"] = sum(row["launches_by_path"].values())
+    calls = recorder.calls["mesh"][name]
+    sizes = sorted(recorder.rows(name, a) for a in calls)
+    log(f"{name} (main path mesh): {len(calls)} launches, rows per launch min {sizes[0]}, "
+        f"median {sizes[len(sizes) // 2]}, max {sizes[-1]}")
+    for label, (slots, bounds, s_rows, m) in recorder.picks(name, "mesh").items():
+        base = [torch.from_numpy(rng.integers(0, 256, size=(s_rows, 32), dtype=np.uint8)).to("cuda")
+                for _ in range(m)]
+        k_bufs = [b.clone() for b in base]
+        r_bufs = [b.clone() for b in base]
+        fc.exchange_slots(k_bufs, slots, bounds)
+        fc.exchange_slots_ref(r_bufs, slots, bounds)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(k_bufs, r_bufs))
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at the mesh path's "
+                                 f"{label} launch (max abs err {err})")
+        n = slots.shape[0]
+        ms = cuda_ms(lambda: fc.exchange_slots(k_bufs, slots, bounds), 50, hold_ms=HOLD_MS)
+        plain_ms = cuda_ms(lambda: fc.exchange_slots_ref(r_bufs, slots, bounds), 3)
+        stacked = torch.stack(base).view(m * s_rows, 32)
+        dst, src = [], []
+        for j in range(m):
+            own = slots[bounds[j]:bounds[j + 1]]
+            for k in range(m):
+                if k != j:
+                    dst.append(own + k * s_rows)
+                    src.append(own + j * s_rows)
+        dst = torch.cat(dst)
+        rows = stacked.index_select(0, torch.cat(src))
+        lib_ms = cuda_ms(lambda: stacked.index_copy_(0, dst, rows), 50, hold_ms=HOLD_MS)
+        nbytes = n * (8 + 32 + 32 * (m - 1))
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name} at the mesh path's {label} launch ({n} rows over {m} replicas of "
+            f"{s_rows} rows, {nbytes} B): bit-exact vs plain; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes)")
+        if label == "median":
+            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                       library_ms=lib_ms, rows_timed=n, replicas=m)
+        else:
+            row.update(largest_ms=ms, largest_plain_ms=plain_ms, largest_bound_ms=b_ms,
+                       largest_library_ms=lib_ms, largest_rows_timed=n, largest_replicas=m)
+    return row
+
+
 def control_drills() -> list[dict]:
     """Drills of warm-up and the service on the card, each on its rung:
     a) RETH_TPU_FAULT_COMPILE_WEDGE=1 (the first step wedges past its budget,
@@ -5537,7 +5872,8 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
                           hasher=KeccakDevice(min_tier=1024, block_tier=4, device="cuda").hash_batch)
     sr_auto = TrieCommitter(supervisor=sup, device="cuda")
     wrappers = {"keccak256_absorb": keccak256_words_masked, "packed_level": fc.packed_level,
-                "branch_level": fc.branch_level, "subtrie_levels": fc.subtrie_levels}
+                "branch_level": fc.branch_level, "subtrie_levels": fc.subtrie_levels,
+                "exchange_slots": fc.exchange_slots}
 
     recorder = MainPathRecorder()
     launches, got, walls, guarded = {}, {}, {}, {}
@@ -5581,6 +5917,14 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
         service_runs = {name: run_path(name, lambda: cell.drive(name, sparse_walls))
                         for name in SERVICE_SPARSE_PATHS}
         got["rebuild leased"] = rebuild_leased(run_path, rebuild, leased, svc_rebuild)
+        # the member mesh: rosters that name cuda:0 several times
+        recorder.path = None
+        mesh = MeshCell(rebuild, got["default"], got["default"][len(storage_jobs):],
+                        account_jobs, args.seed)
+        run_path("mesh", mesh.drive)
+        log(f"main path mesh: {walls.pop('mesh'):.3f} s wall")
+        recorder.path = None
+        mesh.check_keccak()
         # every rebuild's numpy twin, outside the paths, while the sync
         # chain's child may still be sealing
         recorder.path = None
@@ -5809,11 +6153,12 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
                                      f"{launches[path][name]} counted")
     # the template levels splice and hash in kernel 2; kernel 1 hashes keys
     # only, launched by KeccakDevice alone
-    if hasattr(fc, "keccak256_words_masked") or recorder.callers != {KECCAK_DEVICE}:
+    if (hasattr(fc, "keccak256_words_masked") or KECCAK_DEVICE not in recorder.callers
+            or not recorder.callers <= {KECCAK_DEVICE, *KECCAK_MESH}):
         raise AssertionError(f"keccak256_absorb was launched from {sorted(recorder.callers)}; "
-                             f"only {KECCAK_DEVICE} launches it")
-    log(f"keccak256_absorb launched only by {KECCAK_DEVICE}; state_root's template levels "
-        f"went through packed_level ({launches['state_root']['packed_level']} launches)")
+                             f"only {KECCAK_DEVICE} and the mesh's {KECCAK_MESH} launch it")
+    log(f"keccak256_absorb launched only by {sorted(recorder.callers)}; state_root's template "
+        f"levels went through packed_level ({launches['state_root']['packed_level']} launches)")
     # the rebuilds and state_root have no profiled runs since "recovery"
     # came (the time limit; their findings stand in PERF.md)
     for name in SPARSE_PATHS:
@@ -6383,6 +6728,7 @@ def smoke(args, t_start: float, srcs, paths, kids: dict) -> int:
     log(f"hot drills (the drills' child): {json.dumps(res['hot'])}")
     log(f"control drills: {json.dumps(res['control'])}")
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
+    rows.append(exchange_row(recorder, launches, np.random.default_rng(args.seed + 4)))
     for r in rows:
         if r["name"] == "subtrie_levels":
             r.update(probe)

@@ -32,6 +32,8 @@ def require_sm90(dev: torch.device) -> None:
         raise RuntimeError("no CUDA device is available (pass device='cpu' to run "
                            "the plain PyTorch versions)")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"no CUDA device {index}: {torch.cuda.device_count()} visible")
     cap = torch.cuda.get_device_capability(index)
     if cap != (9, 0):
         raise RuntimeError(

@@ -11,7 +11,8 @@ fused engines' launches and the k-level engine's fault ladder),
 probes), ``HotStateMetrics`` (the hot-state plane's node cache and
 device digest arena), ``HashServiceMetrics`` (the shared hash service's
 lanes), ``WarmupMetrics`` (the warm-up manager's menu and compile
-cache), and the engine's three: ``ExecMetrics`` (the optimistic scheduler
+cache), ``MeshMetrics`` (the member mesh's topology, shrinks, leases and
+partition split), and the engine's three: ``ExecMetrics`` (the optimistic scheduler
 and the BAL wave executor), ``EngineTreeMetrics`` (the invalid-header
 cache, the orphan buffer, reorgs and cancelled inserts) and
 ``BlockPipelineMetrics`` (the cross-block import pipeline), and block
@@ -699,6 +700,59 @@ class WarmupMetrics:
 
     def set_cache_entries(self, n: int) -> None:
         self._cache_entries.set(n)
+
+
+class MeshMetrics:
+    """The member mesh (``parallel/mesh.py`` and the meshed hash service):
+    topology (members in the roster, healthy, leased), the per-member
+    breakers' shrinks and recoveries, replays on a shrunken mesh, sub-mesh
+    leases, and the partition-rule split of coalesced dispatches (sharded
+    over the live members or kept on one). Names as in the reference."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry or REGISTRY
+        self._total = reg.gauge("mesh_devices_total", "devices in the hashing mesh roster")
+        self._healthy = reg.gauge("mesh_devices_healthy", "mesh devices passing their breaker")
+        self._unhealthy = reg.gauge("mesh_devices_unhealthy",
+                                    "mesh devices shed by per-device breakers (SLO input)")
+        self._leased = reg.gauge("mesh_devices_leased",
+                                 "devices currently claimed by a sub-mesh lease (rebuild)")
+        self._shrinks = reg.counter("mesh_shrinks_total",
+                                    "times a breaker trip removed a device from the live mesh")
+        self._recoveries = reg.counter("mesh_recoveries_total",
+                                       "devices re-admitted after their breaker cooldown")
+        self._submesh_leases = reg.counter(
+            "mesh_submesh_leases_total", "sub-mesh leases granted (rebuild claims k of n devices)")
+        self._sharded = reg.counter("mesh_sharded_dispatches_total",
+                                    "coalesced dispatches batch-sharded across the mesh")
+        self._single = reg.counter("mesh_single_dispatches_total",
+                                   "scalar/sub-threshold dispatches kept on one device")
+        self._replays = reg.counter("mesh_replays_total",
+                                    "in-flight batches replayed on a shrunken mesh after a trip")
+
+    def set_topology(self, *, total: int, healthy: int, leased: int) -> None:
+        self._total.set(total)
+        self._healthy.set(healthy)
+        self._unhealthy.set(total - healthy)
+        self._leased.set(leased)
+
+    def record_shrink(self) -> None:
+        self._shrinks.increment()
+
+    def record_recovery(self) -> None:
+        self._recoveries.increment()
+
+    def record_submesh_lease(self) -> None:
+        self._submesh_leases.increment()
+
+    def record_sharded(self) -> None:
+        self._sharded.increment()
+
+    def record_single(self) -> None:
+        self._single.increment()
+
+    def record_replay(self) -> None:
+        self._replays.increment()
 
 
 class ExecMetrics:

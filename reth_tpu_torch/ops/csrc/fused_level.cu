@@ -1,7 +1,9 @@
 // Kernels 2 and 3: one trie level hashed against the resident digest buffer;
 // kernel 4 (subtrie_levels, at the end): up to k dependent levels in one
 // persistent launch, each level through the same row assembly, a narrow
-// level with five lanes to a row (the five-lane tiles below).
+// level with five lanes to a row (the five-lane tiles below); and the
+// mesh's digest exchange (exchange_slots, before the host entry points),
+// which copies a level's digests between the members' replicas.
 //
 // packed_level replaces the JAX package's ops/fused_commit.py _packed_level
 // (an XLA program): gather each PACKED row's RLP bytes from the level's
@@ -630,6 +632,48 @@ __global__ void keccak_perm_probe_kernel(uint64_t* out, int perms, int lanes5) {
     }
 }
 
+// exchange_slots: the mesh's digest exchange (ops/fused_commit.py
+// FusedMeshEngine / SubtrieMeshEngine). It replaces no TPU kernel: it is the
+// counterpart of the all-gather XLA inserts after each level's scatter into
+// the reference's replicated digest buffer (ops/fused_commit.py
+// FusedMeshEngine, _subtrie_program(mesh=)). Each member of a mesh hashes its
+// own row range of a level into its own replica of the (S, 32) buffer; this
+// kernel then copies the 32-byte row at each of the level's slots from the
+// replica of the member that wrote it (the range in `bounds` holding the row)
+// into every other replica. One warp a row: lane l moves 16-byte chunk l & 1
+// to destination l >> 1 (16 destinations a pass), every lane loading its
+// chunk from the owner (the loads of a chunk broadcast within the warp).
+// Bound: bytes, 8 (slot) + 32 read + 32 written per destination a row, far
+// below any instruction limit. The replicas are passed by value
+// (__grid_constant__, so the owner's runtime index reads kernel parameter
+// space, no local copy). On one card the replicas share its memory; across
+// cards the launching card reaches the others' replicas by peer access
+// (exchange_enable_peers).
+constexpr int EXCHANGE_MAX_MEMBERS = 16;
+constexpr int EXCHANGE_ROWS = 8;  // rows (warps) a block
+
+struct ExchangeArgs {
+    uint8_t* bufs[EXCHANGE_MAX_MEMBERS];
+    int64_t bounds[EXCHANGE_MAX_MEMBERS + 1];  // member j wrote rows [bounds[j], bounds[j+1])
+    int members;
+};
+
+__global__ void __launch_bounds__(32 * EXCHANGE_ROWS)
+    exchange_slots_kernel(const __grid_constant__ ExchangeArgs a,
+                          const int64_t* __restrict__ slots, int64_t n) {
+    const int64_t row = (int64_t)blockIdx.x * EXCHANGE_ROWS + (threadIdx.x >> 5);
+    if (row >= n) return;
+    const int lane = threadIdx.x & 31;
+    int owner = 0;
+    while (owner + 1 < a.members && row >= a.bounds[owner + 1]) ++owner;
+    const int64_t off = slots[row] * 32 + 16 * (lane & 1);
+    const uint4 v = *(const uint4*)(a.bufs[owner] + off);
+    for (int d = lane >> 1; d < a.members - 1; d += 16) {
+        const int k = d < owner ? d : d + 1;
+        *(uint4*)(a.bufs[k] + off) = v;
+    }
+}
+
 // Once per kernel: allow its dynamic shared memory (above the 48 KB default).
 template <typename K>
 static int allow_smem(K kernel, bool& done) {
@@ -745,4 +789,53 @@ extern "C" int keccak_perm_probe(void* out, int perms, int lanes5, void* stream)
     keccak_perm_probe_kernel<<<1, LANES5_GROUP, 0, (cudaStream_t)stream>>>((uint64_t*)out, perms,
                                                                            lanes5);
     return (int)cudaGetLastError();
+}
+
+// The mesh's digest exchange (exchange_slots_kernel above): bufs holds
+// `members` replica pointers and bounds members + 1 row boundaries, both in
+// host memory; slots (n int64) lies on the launching card.
+extern "C" int exchange_slots(void* const* bufs, const int64_t* bounds, int members,
+                              const void* slots, int64_t n, void* stream) {
+    if (n <= 0 || members <= 1) return 0;
+    if (members > EXCHANGE_MAX_MEMBERS) return (int)cudaErrorInvalidValue;
+    ExchangeArgs a = {};
+    for (int j = 0; j < members; ++j) {
+        a.bufs[j] = (uint8_t*)bufs[j];
+        a.bounds[j] = bounds[j];
+    }
+    a.bounds[members] = bounds[members];
+    a.members = members;
+    const int64_t grid = (n + EXCHANGE_ROWS - 1) / EXCHANGE_ROWS;
+    exchange_slots_kernel<<<(unsigned)grid, 32 * EXCHANGE_ROWS, 0, (cudaStream_t)stream>>>(
+        a, (const int64_t*)slots, n);
+    return (int)cudaGetLastError();
+}
+
+// Peer access between every pair of distinct cards in `devices` (n of
+// them), so that an exchange launched on one card reaches the replicas on
+// the others. Cards already enabled are skipped; the current card is kept.
+extern "C" int exchange_enable_peers(const int* devices, int n) {
+    int current = 0;
+    cudaError_t err = cudaGetDevice(&current);
+    for (int i = 0; err == cudaSuccess && i < n; ++i) {
+        for (int j = 0; err == cudaSuccess && j < n; ++j) {
+            if (devices[i] == devices[j]) continue;
+            int ok = 0;
+            err = cudaDeviceCanAccessPeer(&ok, devices[i], devices[j]);
+            if (err != cudaSuccess) break;
+            if (!ok) {
+                err = cudaErrorPeerAccessUnsupported;
+                break;
+            }
+            err = cudaSetDevice(devices[i]);
+            if (err != cudaSuccess) break;
+            err = cudaDeviceEnablePeerAccess(devices[j], 0);
+            if (err == cudaErrorPeerAccessAlreadyEnabled) {
+                cudaGetLastError();  // clear it: the pair is enabled
+                err = cudaSuccess;
+            }
+        }
+    }
+    cudaSetDevice(current);
+    return (int)err;
 }

@@ -78,6 +78,14 @@ def _csr_rows(start: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(torch.arange(n, device=start.device), start.diff())
 
 
+def _csr_span(start: torch.Tensor) -> tuple[int, int]:
+    """The entries a CSR index covers, ``[start[0], start[n])``. The kernels
+    index the entry arrays by ``start``'s values, so a view of a level's
+    rows (a mesh member's range) keeps the level's whole entry arrays and
+    its own slice of ``start``; ``start[0]`` is 0 for a whole level."""
+    return (int(start[0]), int(start[-1])) if start.shape[0] else (0, 0)
+
+
 # -- kernel 2: one level of PACKED rows ---------------------------------------
 
 
@@ -102,10 +110,11 @@ def packed_level_ref(flat, row_off, row_len, slots, hole_start, hole_off, hole_s
     into ``buf`` in place."""
     rows, counts = _padded_rows(flat, row_off, row_len)
     L = rows.shape[1]
-    if hole_off.shape[0]:
+    h0, h1 = _csr_span(hole_start)
+    if h1 > h0:
         hole_row = _csr_rows(hole_start)
-        sidx = (hole_row * L + hole_off)[:, None] + torch.arange(32, device=buf.device)
-        rows.view(-1)[sidx.reshape(-1)] = buf[hole_src].reshape(-1)
+        sidx = (hole_row * L + hole_off[h0:h1])[:, None] + torch.arange(32, device=buf.device)
+        rows.view(-1)[sidx.reshape(-1)] = buf[hole_src[h0:h1]].reshape(-1)
     d = keccak256_words_masked_ref(_bytes_to_words(rows), counts)
     buf[slots] = _digests_to_bytes(d)
 
@@ -127,6 +136,10 @@ def _fused_lib() -> ctypes.CDLL:
     lib.subtrie_levels_lanes5_rows.argtypes = []
     lib.keccak_perm_probe.restype = c_int
     lib.keccak_perm_probe.argtypes = [p, c_int, c_int, p]
+    lib.exchange_slots.restype = c_int
+    lib.exchange_slots.argtypes = [p, p, c_int, p, i64, p]
+    lib.exchange_enable_peers.restype = c_int
+    lib.exchange_enable_peers.argtypes = [p, c_int]
     return lib
 
 
@@ -152,9 +165,10 @@ def packed_level(flat, row_off, row_len, slots, hole_start, hole_off, hole_src, 
 
     ``flat`` u8: the level's concatenated row bytes; ``row_off`` i64 /
     ``row_len`` i32 / ``slots`` i64: per row; ``hole_start`` i64 (n+1,):
-    each row's first hole (holes sorted by row); ``hole_off`` i32 /
-    ``hole_src`` i64: the hole's byte offset in its row and the buffer slot
-    of the digest spliced there. ``buf``: (S, 32) u8, updated in place."""
+    each row's first hole (holes sorted by row; ``hole_start`` indexes the
+    hole arrays, so it may start past 0); ``hole_off`` i32 / ``hole_src``
+    i64: the hole's byte offset in its row and the buffer slot of the digest
+    spliced there. ``buf``: (S, 32) u8, updated in place."""
     args = (flat, row_off, row_len, slots, hole_start, hole_off, hole_src, buf)
     _check("packed_level", args, _PACKED_TYPES, buf)
     # flat is read as aligned 8-byte words; it needs no slack past its end
@@ -203,11 +217,12 @@ def branch_level_ref(masks, slots, ch_start, ch_nib, ch_src, buf):
     flat[(base + hl[:, None] + csum).reshape(-1)] = torch.where(
         present == 1, 0xA0, 0x80).to(torch.uint8).reshape(-1)
     flat[base[:, 0] + total - 1] = 0x80
-    if ch_nib.shape[0]:
+    c0, c1 = _csr_span(ch_start)
+    if c1 > c0:
         ch_row = _csr_rows(ch_start)
-        off = hl[ch_row] + csum[ch_row, ch_nib.long()] + 1
+        off = hl[ch_row] + csum[ch_row, ch_nib[c0:c1].long()] + 1
         sidx = (ch_row * L + off)[:, None] + torch.arange(32, device=dev)
-        flat[sidx.reshape(-1)] = buf[ch_src].reshape(-1)
+        flat[sidx.reshape(-1)] = buf[ch_src[c0:c1]].reshape(-1)
     counts = total // RATE + 1
     col = torch.arange(L, device=dev)[None, :]
     rows ^= (col == total[:, None]).to(torch.uint8)
@@ -336,6 +351,85 @@ def subtrie_lanes5_rows() -> int:
     if n <= 0:
         raise RuntimeError(f"subtrie_levels: occupancy query failed (CUDA error {-n})")
     return n
+
+
+# -- the mesh's digest exchange ---------------------------------------------------
+
+# the most members one exchange launch takes (csrc/fused_level.cu)
+EXCHANGE_MAX_MEMBERS = 16
+_peers_enabled: set[tuple[int, ...]] = set()
+
+
+def _check_exchange(bufs, slots, bounds) -> int:
+    m = len(bufs)
+    if m == 0:
+        raise ValueError("exchange_slots: no replicas")
+    for b in bufs:
+        _check("exchange_slots", (), (), b)
+        if (b.shape != bufs[0].shape or not b.is_contiguous()
+                or b.device.type != bufs[0].device.type):
+            raise ValueError("exchange_slots: replicas must be contiguous (S, 32) uint8 tensors "
+                             "of one shape and one device type")
+    if (slots.dtype != torch.int64 or slots.dim() != 1 or not slots.is_contiguous()
+            or slots.device != bufs[0].device):
+        raise ValueError(f"exchange_slots: slots must be a contiguous 1-D int64 tensor on "
+                         f"{bufs[0].device}")
+    n = slots.shape[0]
+    if (len(bounds) != m + 1 or bounds[0] != 0 or bounds[-1] != n
+            or any(b > a for a, b in zip(bounds[1:], bounds[:-1]))):
+        raise ValueError(f"exchange_slots: bounds must rise from 0 to {n} in {m + 1} steps, "
+                         f"got {list(bounds)}")
+    return n
+
+
+def exchange_slots_ref(bufs, slots, bounds):
+    """Plain PyTorch version of the exchange: for each member j, the rows at
+    ``slots[bounds[j]:bounds[j+1]]`` of its replica ``bufs[j]`` are
+    ``index_copy_``-ed into every other replica."""
+    for j, src in enumerate(bufs):
+        lo, hi = bounds[j], bounds[j + 1]
+        if hi <= lo:
+            continue
+        ids = slots[lo:hi]
+        rows = src.index_select(0, ids)
+        for k, dst in enumerate(bufs):
+            if k != j:
+                dst.index_copy_(0, ids.to(dst.device), rows.to(dst.device))
+
+
+def exchange_slots(bufs, slots, bounds):
+    """Copy a level's digests between the mesh members' replicas
+    (``csrc/fused_level.cu exchange_slots``): member j wrote the rows at
+    ``slots[bounds[j]:bounds[j+1]]`` into its replica ``bufs[j]``; afterwards
+    every replica holds every row. ``bufs``: (S, 32) u8 replicas, ``slots``:
+    (n,) int64 on the first replica's device, ``bounds``: m + 1 ints on the
+    host. CPU replicas run the plain version; CUDA replicas launch the
+    kernel on the first replica's card (the current stream there), reaching
+    replicas on other cards by peer access."""
+    n = _check_exchange(bufs, slots, bounds)
+    m = len(bufs)
+    if m < 2 or n == 0:
+        return
+    if bufs[0].device.type == "cpu":
+        exchange_slots_ref(bufs, slots, bounds)
+        return
+    if m > EXCHANGE_MAX_MEMBERS:
+        raise ValueError(f"exchange_slots: {m} replicas, at most {EXCHANGE_MAX_MEMBERS}")
+    lib = _fused_lib()
+    cards = tuple(sorted({b.device.index for b in bufs}))
+    if len(cards) > 1 and cards not in _peers_enabled:
+        ids = (ctypes.c_int * len(cards))(*cards)
+        _build.check_launch(lib.exchange_enable_peers(ids, len(cards)), "exchange_enable_peers")
+        _peers_enabled.add(cards)
+    ptrs = (ctypes.c_void_p * m)(*(b.data_ptr() for b in bufs))
+    bnd = (ctypes.c_int64 * (m + 1))(*bounds)
+    with torch.cuda.device(bufs[0].device):
+        err = lib.exchange_slots(ptrs, bnd, m, slots.data_ptr(), n, stream_handle(bufs[0]))
+    _build.check_launch(err, "exchange_slots")
+    exchange_slots.launches += 1
+
+
+exchange_slots.launches = 0
 
 
 # -- template levels (TrieCommitter's bucket protocol) -------------------------
@@ -861,7 +955,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
     warm; while it is not, the flush runs one level a launch, still on the
     card, and later flushes promote once it is. The reference's padding
     floors (``row_floor`` / ``hole_floor``) have no counterpart: the port
-    launches exact row counts. The mesh variant is not ported."""
+    launches exact row counts. ``SubtrieMeshEngine`` is the mesh variant."""
 
     _CHUNK_BTIER_CAP = 8
 
@@ -959,7 +1053,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
             return
         chunks = self._chunk_plan(plan, 1 if self._mode == "perlevel" else self.k)
         if (self._mode == "fused" and self.k > 1 and self.warmup is not None
-                and not self.warmup.route_bucket("fused.subtrie", self.k, DEFAULT_SUBTRIE_TIER)):
+                and not self.warmup.route_bucket("fused.subtrie", self.k, *self._route_key())):
             # degraded routing: the k-level shape is not warm, so this flush
             # runs one level a launch; the engine stays on "fused"
             fused_metrics.record_fallback()
@@ -969,9 +1063,9 @@ class SubtrieFusedEngine(MegaFusedEngine):
         mode = "perlevel" if self._mode == "perlevel" or len(chunks) >= len(plan) else "fused"
         try:
             self._materialize()
-            self._run_chunks(self._to_device(u8), self._to_device(idx), t_off, plan, chunks, mode)
+            self._run_chunks(u8, idx, t_off, plan, chunks, mode)
         except Exception as e:  # noqa: BLE001 — every launch fault takes the ladder
-            if not self.ladder or self._delta:
+            if not self.ladder or self._delta or not self._ladder_takes(e):
                 raise
             self._degrade(e)
 
@@ -1000,9 +1094,15 @@ class SubtrieFusedEngine(MegaFusedEngine):
                  np.array([p[_ROWS] for _, _, p in plan[lo:lo + count]], dtype=np.int64))
                 for lo, count in chunks]
 
+    def _route_key(self) -> tuple[int, int]:
+        """(batch tier, member count) of this engine's k-level menu shape."""
+        return DEFAULT_SUBTRIE_TIER, 1
+
     def _run_chunks(self, u8: torch.Tensor, idx: torch.Tensor, t_off: int, plan: list,
                     chunks: list[tuple[int, int]], mode: str) -> None:
-        """One launch of kernel 4 per chunk, each announced to the injector."""
+        """Upload a flush's host buffers, then one launch of kernel 4 per
+        chunk, each announced to the injector."""
+        u8, idx = self._to_device(u8), self._to_device(idx)
         for args in self._chunk_args(u8, idx, t_off, plan, chunks):
             levels = args[2].shape[0]
             if self.injector is not None:
@@ -1011,6 +1111,11 @@ class SubtrieFusedEngine(MegaFusedEngine):
             self._count_dispatch(levels)
 
     # -- fault ladder ---------------------------------------------------------
+
+    def _ladder_takes(self, err: Exception) -> bool:
+        """Does the armed ladder answer ``err`` (every launch fault does on one
+        card; the mesh engine raises real kernel faults)?"""
+        return True
 
     def _degrade(self, err: Exception) -> None:
         fused_metrics.record_fallback()
@@ -1022,6 +1127,8 @@ class SubtrieFusedEngine(MegaFusedEngine):
                 self._replay_journal_device()
                 return
             except Exception as e2:  # noqa: BLE001 — the numpy rung below
+                if not self._ladder_takes(e2):
+                    raise
                 fused_metrics.record_fallback()
                 err = e2
         tracing.fault_event("subtrie_fallback", target="ops::fused_commit", rung="cpu",
@@ -1041,8 +1148,7 @@ class SubtrieFusedEngine(MegaFusedEngine):
         slots = self._buf.shape[0] if self._buf is not None else self._s_tier
         self._buf = torch.zeros((slots, 32), dtype=torch.uint8, device=self.device)
         for u8, idx, plan, t_off in self._journal:
-            self._run_chunks(self._to_device(u8), self._to_device(idx), t_off, plan,
-                             self._chunk_plan(plan, 1), "perlevel")
+            self._run_chunks(u8, idx, t_off, plan, self._chunk_plan(plan, 1), "perlevel")
 
     def _run_plan_numpy(self, u8: np.ndarray, idx: np.ndarray, plan: list) -> None:
         """Numpy-twin rung: decode the staged plan (the port's layout: row
@@ -1111,6 +1217,268 @@ class SubtrieFusedEngine(MegaFusedEngine):
         out = self._buf.index_select(0, ids).cpu().numpy()
         self._pinned = []
         return out
+
+
+# -- the member mesh: rows sharded over members, the digest buffer replicated ----
+
+
+class ReplicaMismatch(RuntimeError):
+    """A mesh engine's replicas of the digest buffer differ after a commit."""
+
+
+def _member_step(p, lo: int, hi: int) -> tuple:
+    """Rows ``[lo, hi)`` of the staged level ``p`` (a step-table row) as a
+    step-table row of its own: the per-row arrays advance to row ``lo``; the
+    row bytes, and the entry arrays the CSR start index points into, stay
+    whole (the kernels index them by the rows' own offsets and starts)."""
+    q = list(p)
+    q[_ROWS] = hi - lo
+    q[_SLOTS] += 8 * lo
+    q[_START] += 8 * lo
+    if p[_KIND] == 0:
+        q[_ROW_OFF] += 8 * lo
+        q[_ROW_LEN] += 4 * lo
+    else:
+        q[_BYTES] += 4 * lo
+    return tuple(q)
+
+
+def _host_starts(idx: np.ndarray, p) -> np.ndarray:
+    """The staged level ``p``'s CSR start index, read from the host buffer."""
+    return idx[p[_START]:p[_START] + 8 * (p[_ROWS] + 1)].view(np.int64)
+
+
+class MeshReplicas:
+    """The mesh half of :class:`FusedMeshEngine` and :class:`SubtrieMeshEngine`
+    (the reference shards each level's rows over a jax mesh and keeps the
+    digest buffer replicated, XLA gathering each level's digests).
+
+    The engine takes a ``parallel/mesh.py`` HashMesh, whose live membership
+    it snapshots at construction (one commit, one membership), or a
+    ``Mesh`` (a sub-mesh lease's). Each member keeps a replica of the digest
+    buffer (``_buf`` is the first member's; setting it replicates it). A
+    staged level runs as: each member's row range (``Mesh.ranges``) launched
+    on the member's stream into its replica, then one ``exchange_slots``
+    launch on the first member's stream, which waits for every member's
+    launch; every member's next level waits for the exchange. The order is
+    kept by CUDA events (``Stream.wait_stream``), never by host syncs. A
+    flush's staged buffers are copied once to each distinct card of the
+    mesh. ``member_launches`` and ``exchanges`` count what an engine
+    launched. The terminal fetch first checks that every replica is
+    byte-equal to the first member's (``ReplicaMismatch`` if not; counted in
+    ``replicas_checked``), then reads the first member's."""
+
+    def _init_mesh(self, mesh, min_tier: int) -> int:
+        """Take the membership; returns ``min_tier`` rounded up to a multiple
+        of the member count (as the reference rounds its tiers)."""
+        live_snapshot = getattr(mesh, "live_snapshot", None)
+        if live_snapshot is not None:
+            mesh, _ = live_snapshot()
+            if mesh is None:
+                raise RuntimeError("HashMesh has no live devices")
+        self.mesh = mesh
+        self._replicas: list[torch.Tensor] = []
+        self.member_launches = 0
+        self.exchanges = 0
+        self.replicas_checked = 0  # terminal fetches whose replicas were compared
+        return -(-min_tier // mesh.size) * mesh.size
+
+    @property
+    def _buf(self):
+        return self._replicas[0] if self._replicas else None
+
+    @_buf.setter
+    def _buf(self, t):
+        if t is None:
+            self._replicas = []
+            return
+        reps = [t] + [t.to(d, copy=True) for d in self.mesh.devices[1:]]
+        for r in reps:
+            self.mesh.keep(r)
+        self._replicas = reps
+
+    def _copy_to(self, host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """A host buffer on ``dev``, copied on the caller's stream."""
+        self.uploads += 1
+        t = host.to(dev, non_blocking=True)
+        self.mesh.keep(t)
+        return t
+
+    def _to_cards(self, host: torch.Tensor) -> dict:
+        """``host`` copied once to each distinct card of the mesh."""
+        out: dict = {}
+        for d in self.mesh.devices:
+            if d not in out:
+                out[d] = self._copy_to(host, d)
+        return out
+
+    def _mesh_level(self, p, idx: dict, launch) -> None:
+        """One staged level: ``launch(j, lo, hi)`` for each member with rows,
+        on its stream, then the exchange of the level's slots (read from the
+        first member's copy of the staged indices ``idx``)."""
+        mesh = self.mesh
+        n = p[_ROWS]
+        ranges = mesh.ranges(n)
+        for j, (lo, hi) in enumerate(ranges):
+            if hi > lo:
+                with mesh.on(j):
+                    launch(j, lo, hi)
+                self.member_launches += 1
+        if len(self._replicas) < 2:
+            return
+        streams = mesh.streams
+        slots = idx[mesh.devices[0]][p[_SLOTS]:p[_SLOTS] + 8 * n].view(torch.int64)
+        with mesh.on(0):
+            if streams[0] is not None:
+                for s in streams[1:]:
+                    streams[0].wait_stream(s)
+            exchange_slots(self._replicas, slots, [lo for lo, _ in ranges] + [n])
+        if streams[0] is not None:
+            for s in streams[1:]:
+                s.wait_stream(streams[0])
+        self.exchanges += 1
+
+    def _verify_replicas(self) -> None:
+        if len(self._replicas) < 2:
+            return
+        first = self._replicas[0]
+        for j, r in enumerate(self._replicas[1:], 1):
+            if not torch.equal(first, r.to(first.device)):
+                raise ReplicaMismatch(f"replica {j} of {len(self._replicas)} differs from "
+                                      f"replica 0 after the commit")
+        self.replicas_checked += 1
+
+    def _ladder_takes(self, err: Exception) -> bool:
+        return not _build.is_kernel_fault(err)
+
+
+class FusedMeshEngine(MeshReplicas, MegaFusedEngine):
+    """The fused level commit over a member mesh (the reference's
+    ``FusedMeshEngine``): staged as ``MegaFusedEngine`` stages, executed at
+    each window flush and at the terminal fetch. Each level's rows split
+    into the members' ranges; each member launches kernel 2 (packed rows,
+    and the template levels' route, ``dispatch_level``) or kernel 3 (branch
+    rows) on its range into its own replica, then ``exchange_slots`` gives
+    every replica the level's digests (see :class:`MeshReplicas`). A
+    ``min_tier`` that the member count does not divide is rounded up, as in
+    the reference. ``dispatches`` counts levels, as the single-card
+    engines do; ``member_launches`` the launches."""
+
+    def __init__(self, mesh, min_tier: int = 1024):
+        min_tier = self._init_mesh(mesh, min_tier)
+        super().__init__(min_tier=min_tier, device=self.mesh.devices[0])
+
+    def flush_window(self) -> None:
+        """Execute what the window staged (the digest buffer stays)."""
+        self._execute()
+
+    def _execute(self) -> None:
+        self._materialize()
+        if not self._plan:
+            return
+        plan = self._plan
+        u8h, idxh = self._stage_host()
+        self._reset_staging()
+        idx_np = idxh.numpy()
+        u8, idx = self._to_cards(u8h), self._to_cards(idxh)
+        mesh = self.mesh
+        mesh.fork()
+        try:
+            for _b_tier, _n_entries, p in plan:
+                level = packed_level if p[_KIND] == 0 else branch_level
+                starts = _host_starts(idx_np, p)
+
+                def launch(j, lo, hi, p=p, level=level, starts=starts):
+                    d = mesh.devices[j]
+                    level(*_step_args(u8[d], idx[d], _member_step(p, lo, hi), int(starts[hi])),
+                          self._replicas[j])
+
+                self._mesh_level(p, idx, launch)
+                self._count_dispatch()
+        finally:
+            mesh.join()
+
+    def finish(self) -> np.ndarray:
+        self._execute()
+        self._verify_replicas()
+        return super().finish()
+
+    def fetch_slots(self, slots: np.ndarray) -> np.ndarray:
+        self._execute()
+        self._verify_replicas()
+        return super().fetch_slots(slots)
+
+
+class SubtrieMeshEngine(MeshReplicas, SubtrieFusedEngine):
+    """The k-level engine over a member mesh (the reference's
+    ``SubtrieMeshEngine``): staged and chunked as ``SubtrieFusedEngine``
+    (the chunks of up to k levels, the injector's calls, ``dispatches`` one
+    a chunk, the warm-up's ("fused.subtrie", k, tier, member count) shape
+    with the tier rounded to the member count), but each staged level runs
+    as one-step launches of kernel 4, one a member on its row range into its
+    replica, with the exchange between steps: kernel 4's grid barrier spans
+    one launch, and no barrier spans members. This matches the reference's
+    per-step sharding constraint and all-gather; it costs a launch per
+    member and an exchange per level where one card takes one launch per
+    chunk (``member_launches``, ``exchanges``). A one-member mesh runs each
+    chunk as one launch, as on one card. The fault ladder, when
+    armed, answers injected faults as on one card; a real kernel fault
+    raises."""
+
+    def __init__(self, mesh, min_tier: int = 1024, k: int | None = None, warmup=None,
+                 injector=None, ladder: bool = False):
+        min_tier = self._init_mesh(mesh, min_tier)
+        super().__init__(min_tier=min_tier, k=k, warmup=warmup, injector=injector,
+                         ladder=ladder, device=self.mesh.devices[0])
+
+    def _route_key(self) -> tuple[int, int]:
+        m = self.mesh.size
+        return -(-DEFAULT_SUBTRIE_TIER // m) * m, m
+
+    def _run_chunks(self, u8h: torch.Tensor, idxh: torch.Tensor, t_off: int, plan: list,
+                    chunks: list[tuple[int, int]], mode: str) -> None:
+        mesh = self.mesh
+        if mesh.size == 1:
+            # one member: no barrier has to span members, so each chunk is
+            # one launch, as on one card
+            super()._run_chunks(u8h, idxh, t_off, plan, chunks, mode)
+            self.member_launches += len(chunks)
+            return
+        idx_np = idxh.numpy()
+        # each member's rows of each step as a step table of its own
+        table = np.zeros((len(plan), mesh.size, _PARAM_W), dtype=np.int64)
+        rows = np.zeros((len(plan), mesh.size), dtype=np.int64)
+        for s, (_, _, p) in enumerate(plan):
+            for j, (lo, hi) in enumerate(mesh.ranges(p[_ROWS])):
+                table[s, j] = _member_step(p, lo, hi)
+                rows[s, j] = hi - lo
+        u8, idx = self._to_cards(u8h), self._to_cards(idxh)
+        steps = self._to_cards(torch.from_numpy(table))
+        mesh.fork()
+        try:
+            for first, count in chunks:
+                if self.injector is not None:
+                    self.injector.on_chunk(mode, count)
+                for s in range(first, first + count):
+                    def launch(j, lo, hi, s=s):
+                        d = mesh.devices[j]
+                        subtrie_levels(u8[d], idx[d], steps[d][s, j:j + 1], rows[s, j:j + 1],
+                                       self._replicas[j])
+
+                    self._mesh_level(plan[s][2], idx, launch)
+                self._count_dispatch(count)
+        finally:
+            mesh.join()
+
+    def finish(self) -> np.ndarray:
+        self._execute()
+        self._verify_replicas()
+        return super().finish()
+
+    def fetch_slots(self, slots: np.ndarray) -> np.ndarray:
+        self._execute()
+        self._verify_replicas()
+        return super().fetch_slots(slots)
 
 
 # -- hot-state plane, device half: the persistent digest arena -----------------

@@ -45,11 +45,25 @@ and multiplexes every client over it:
   build failure raises to the caller, and one that still surfaces at a
   dispatch fails its futures.
 
+- **Member mesh** (``mesh=``, a ``parallel/mesh.py`` HashMesh): the
+  service owns a mesh instead of one backend. The partition-rule table
+  (``HashMesh.spec_for``) decides how each coalesced dispatch shards: large
+  batches over the live members (``MeshKeccak``, kernel 1 a member), scalar
+  and small ones on one member. The exclusive lease becomes a **sub-mesh
+  lease** (``lease(devices=k)``, default ``rebuild_devices``,
+  ``RETH_TPU_MESH_REBUILD_DEVICES`` or half the mesh): the rebuild claims k
+  members from the roster's tail (``rebuild_mesh()``) while the lanes keep
+  dispatching on the rest, with no pause and no bypass onto the twin.
+  ``pipeline_lease()`` carves the import pipeline's double-buffer sub-mesh.
+  Per-member breakers (``breaker_board=``, ``ops/supervisor.py
+  DeviceBreakerBoard``) shed a member that an injected wedge names
+  (``device_injector=``, ``RETH_TPU_FAULT_DEVICE_WEDGE``) and the same batch
+  replays on the survivors; the numpy twin replays it only once every
+  member has tripped (``MeshExhausted``). A real kernel fault is not shed:
+  it fails the batch's futures, as without a mesh.
+
 Each lane's queue waits are kept (:meth:`HashService.lane_waits`: count,
-p50, p99) beside the ``hash_service_*`` metrics. The mesh (``mesh=``,
-``breaker_board=``, ``device_injector=``, ``rebuild_devices=``) is not
-ported and raises ``NotImplementedError``; ``pipeline_lease()`` and
-``rebuild_mesh()`` return None, as the reference does without a mesh.
+p50, p99) beside the ``hash_service_*`` metrics.
 """
 
 from __future__ import annotations
@@ -66,7 +80,8 @@ import torch
 from .. import tracing
 from ..device import resolve
 from ..metrics import HashServiceMetrics
-from ._build import BuildError
+from ..parallel.mesh import MeshExhausted, MeshKeccak
+from ._build import BuildError, is_kernel_fault
 from .keccak import _next_tier
 
 # priority order, highest first: the index is the priority
@@ -259,9 +274,34 @@ class HashClient:
         return f"HashClient(lane={self.lane!r})"
 
 
+class PipelineLease:
+    """A double-buffered sub-mesh held by the cross-block import pipeline:
+    the speculative block's key prehash runs on the leased members (the
+    service's sharded hasher) while the committing block's lanes keep the
+    rest. ``release()`` is idempotent."""
+
+    def __init__(self, service: "HashService", sub):
+        self._service = service
+        self._sub = sub
+        self.devices = len(sub.indices)
+        self.released = False
+
+    def hash(self, msgs: list[bytes]) -> list[bytes]:
+        if self.released:  # a late straggler batch: the twin, never racy
+            return self._service._cpu(msgs)
+        return self._service._mesh_hasher.hash_sharded(msgs, self._sub.mesh)
+
+    def release(self) -> None:
+        if self.released:
+            return
+        self.released = True
+        self._sub.release()
+
+
 class LeasedTurboBackend:
-    """Array-protocol proxy that holds the service's exclusive lease for one
-    turbo commit, from ``begin`` to the terminal ``finish`` / ``fetch_slots``.
+    """Array-protocol proxy that holds the service's lease (exclusive, or a
+    sub-mesh lease on a meshed service) for one turbo commit, from ``begin``
+    to the terminal ``finish`` / ``fetch_slots``.
     The rebuild streams its windows straight at the inner engine while the
     coalesced lanes pause. ``factory`` builds the engine once the lease is
     held."""
@@ -345,7 +385,14 @@ class HashService:
     docstring). Window requests run through
     ``SubtrieFusedEngine(k=subtrie_levels)`` on ``device``, gated by
     ``warmup``. On the card, kernels 1 and 4 are built (where missing) and
-    loaded before the dispatcher starts, so a failed build raises here."""
+    loaded before the dispatcher starts, so a failed build raises here.
+
+    ``mesh``: a ``parallel/mesh.py`` HashMesh: coalesced dispatches route
+    through ``MeshKeccak`` by the partition rules, window requests through
+    ``SubtrieMeshEngine``, and ``lease`` is a sub-mesh lease of
+    ``rebuild_devices`` members. ``breaker_board`` (default a
+    ``DeviceBreakerBoard`` over the mesh) and ``device_injector`` (default
+    ``FaultInjector.from_env()``) drive the per-member shedding."""
 
     def __init__(self, backend=None, supervisor=None, *,
                  cpu_hasher=None,
@@ -361,11 +408,6 @@ class HashService:
                  rebuild_devices: int | None = None, warmup=None,
                  subtrie_levels: int | None = None, registry=None,
                  device: str | torch.device = "cuda"):
-        for name, value in (("mesh", mesh), ("breaker_board", breaker_board),
-                            ("device_injector", device_injector),
-                            ("rebuild_devices", rebuild_devices)):
-            if value is not None:
-                raise NotImplementedError(f"HashService({name}=...): the mesh is not ported")
         self.device = resolve(device)
         env = os.environ
         # window requests: k levels a launch, from RETH_TPU_SUBTRIE_LEVELS as
@@ -416,7 +458,27 @@ class HashService:
                                     else env.get("RETH_TPU_SERVICE_LEASE_BYPASS", "0.02"))
         self.min_tier = min_tier
         self.metrics = HashServiceMetrics(registry)
-        self.mesh = None
+        # the member mesh: partition-rule routing, per-member breakers,
+        # sub-mesh leases
+        self.mesh = mesh
+        self._mesh_hasher = None
+        self.breaker_board = breaker_board
+        self.device_injector = device_injector
+        self.rebuild_devices = rebuild_devices
+        if mesh is not None:
+            self._mesh_hasher = MeshKeccak(mesh, min_tier=min_tier, block_tier=4, warmup=warmup)
+            if breaker_board is None:
+                from .supervisor import DeviceBreakerBoard
+
+                self.breaker_board = DeviceBreakerBoard(mesh)
+            if device_injector is None:
+                from .supervisor import FaultInjector
+
+                self.device_injector = FaultInjector.from_env()
+            if rebuild_devices is None:
+                self.rebuild_devices = int(env.get("RETH_TPU_MESH_REBUILD_DEVICES", 0)
+                                           or max(1, mesh.n_devices // 2))
+        self._submesh = None  # the sub-mesh lease a rebuild holds
         self._cond = threading.Condition()
         self._queues: dict[str, list] = {lane: [] for lane in LANES}
         self._queued_msgs: dict[str, int] = {lane: 0 for lane in LANES}
@@ -435,6 +497,11 @@ class HashService:
         self.lease_bypasses = 0
         self.build_failures = 0
         self.failed_dispatches = 0  # unsupervised faults raised to the callers
+        self.submesh_leases = 0
+        self.pipeline_leases = 0
+        self.mesh_sharded = 0
+        self.mesh_single = 0
+        self.mesh_replays = 0
         self._thread = threading.Thread(target=self._run, daemon=True, name="hash-service")
         self._thread.start()
 
@@ -530,14 +597,48 @@ class HashService:
 
     @contextmanager
     def lease(self, what: str = "rebuild", devices: int | None = None):
-        """Exclusive device lease for a rebuild commit: coalesced dispatching
-        pauses until release (an in-flight dispatch drains first); queued
-        requests that age past ``lease_bypass_s`` are hashed on the numpy
-        twin meanwhile. ``devices`` (a sub-mesh width) belongs to the mesh
-        and is ignored without one, as in the reference."""
+        """Device lease for a rebuild commit.
+
+        **Exclusive** (no mesh, or a mesh that cannot spare ``devices``
+        members and keep one): coalesced dispatching pauses until release
+        (an in-flight dispatch drains first); queued requests that age past
+        ``lease_bypass_s`` are hashed on the numpy twin meanwhile.
+
+        **Sub-mesh** (a mesh; ``devices`` defaults to ``rebuild_devices``):
+        the rebuild claims ``devices`` members (``rebuild_mesh()`` names
+        them to its engine factory) while coalesced dispatching goes on over
+        the live members left: nothing pauses, nothing bypasses."""
+        if devices is None and self.mesh is not None:
+            devices = self.rebuild_devices
+        if self.mesh is not None and devices:
+            t0 = time.monotonic()
+            sub = None
+            with self._cond:
+                while self._leased or self._submesh is not None:
+                    self._cond.wait()
+                try:
+                    sub = self.mesh.lease_submesh(devices, what=what)
+                except MeshExhausted:
+                    pass  # too few live members: the exclusive lease below
+                else:
+                    self._submesh = sub
+                    self._lease_what = what
+                    self.leases += 1
+                    self.submesh_leases += 1
+            if sub is not None:
+                self.metrics.record_lease(time.monotonic() - t0)
+                try:
+                    yield self
+                finally:
+                    with self._cond:
+                        sub.release()
+                        self._submesh = None
+                        self._lease_what = None
+                        self._cond.notify_all()
+                return
         t0 = time.monotonic()
         with self._cond:
-            while self._leased or self._dispatching:
+            while self._leased or self._submesh is not None or self._dispatching:
                 self._cond.wait()
             self._leased = True
             self._lease_what = what
@@ -552,8 +653,10 @@ class HashService:
                 self._cond.notify_all()
 
     def rebuild_mesh(self):
-        """The mesh leased to the rebuild: None, there is no mesh."""
-        return None
+        """The ``Mesh`` leased to the rebuild now (None outside a sub-mesh
+        lease): what ``TurboCommitter``'s engine factory forms over."""
+        sub = self._submesh
+        return sub.mesh if sub is not None else None
 
     def lease_backend(self, inner=None, *, factory=None) -> LeasedTurboBackend:
         """Wrap a turbo engine (or its ``factory``, called once the lease is
@@ -562,8 +665,19 @@ class HashService:
         return LeasedTurboBackend(self, inner, factory=factory)
 
     def pipeline_lease(self, devices: int | None = None):
-        """The import pipeline's sub-mesh: None, there is no mesh."""
-        return None
+        """The import pipeline's double-buffer sub-mesh: ``devices`` members
+        (default half the mesh) for the speculative block's key prehash,
+        taken at once or not at all (None: no mesh, or too few live
+        members to leave the commit side one). Never pauses the lanes."""
+        if self.mesh is None or self._mesh_hasher is None:
+            return None
+        k = int(devices) if devices else max(1, self.mesh.n_devices // 2)
+        try:
+            sub = self.mesh.lease_submesh(k, what="pipeline")
+        except MeshExhausted:
+            return None
+        self.pipeline_leases += 1
+        return PipelineLease(self, sub)
 
     # -- dispatcher ---------------------------------------------------------------
 
@@ -651,11 +765,70 @@ class HashService:
                         self._dispatching = False
                         self._cond.notify_all()
 
-    def _window_engine(self):
-        """The k-level engine of one window dispatch on the service's
-        device."""
-        from .fused_commit import SubtrieFusedEngine
+    def _mesh_dispatch(self, msgs: list[bytes], lane: str) -> list[bytes]:
+        """One coalesced batch over the mesh, with partial-mesh degradation:
+        the partition rules pick the sharded or the one-member route; a
+        failed dispatch feeds the per-member breakers (an attributed wedge
+        sheds its member at once) and the SAME batch replays on the shrunken
+        mesh (hashing is stateless, so the replay is bit-identical). Raises
+        :class:`MeshExhausted` when no member is left (the caller's numpy
+        replay is the final rung), and a real kernel fault at once."""
+        board = self.breaker_board
+        program = "keccak.scalar" if len(msgs) == 1 else "keccak.masked"
+        attempts = 0
+        while True:
+            if board is not None:
+                board.poll()  # cooled-down members rejoin (trial by fire)
+            spec, mesh = self.mesh.spec_for(lane, program, len(msgs))
+            if mesh is None:
+                raise MeshExhausted("no live mesh device (all breakers open or leased)")
+            indices = mesh.indices
+            try:
+                if self.device_injector is not None:
+                    self.device_injector.on_mesh_dispatch(indices)
+                out = self._mesh_hasher.hash_sharded(msgs, mesh)
+            except BaseException as e:  # noqa: BLE001 — shed and replayed, or raised
+                if is_kernel_fault(e):
+                    raise
+                attempts += 1
+                idx = getattr(e, "device_index", None)
+                if board is None or attempts > self.mesh.n_devices + 1:
+                    raise
+                if idx is not None:
+                    board.record_failure(idx, attributed=True)
+                else:
+                    # no attribution: every participant is suspect (thresholded)
+                    for i in indices:
+                        board.record_failure(i)
+                self.mesh_replays += 1
+                self.mesh.metrics.record_replay()
+                tracing.event("ops::hash_service", "mesh_replay", msgs=len(msgs), shed=idx,
+                              error=type(e).__name__, live=self.mesh.healthy_count)
+                continue
+            if board is not None:
+                board.record_success(indices)
+            if len(spec) and len(indices) > 1:
+                self.mesh_sharded += 1
+                self.mesh.metrics.record_sharded()
+            else:
+                self.mesh_single += 1
+                self.mesh.metrics.record_single()
+            return out
 
+    def _window_engine(self, lane: str = "live", rows: int = 0):
+        """The k-level engine of one window dispatch: on the service's
+        device, or with a mesh over the members the partition rules pick for
+        ("fused.subtrie", ``rows``)."""
+        from .fused_commit import SubtrieFusedEngine, SubtrieMeshEngine
+
+        if self.mesh is not None:
+            if self.breaker_board is not None:
+                self.breaker_board.poll()
+            _spec, mesh = self.mesh.spec_for(lane, "fused.subtrie", rows)
+            if mesh is None:
+                raise MeshExhausted("no live mesh device (all breakers open or leased)")
+            return SubtrieMeshEngine(mesh, min_tier=self.min_tier, k=self.subtrie_levels,
+                                     warmup=self.warmup)
         return SubtrieFusedEngine(min_tier=self.min_tier, k=self.subtrie_levels,
                                   warmup=self.warmup, device=self.device)
 
@@ -673,8 +846,11 @@ class HashService:
         return engine.finish()
 
     def _replayable(self, err: BaseException) -> bool:
-        """A fault the twin replays: a launch, copy or sync fault (a
-        ``RuntimeError``, not a build failure) on a supervised service."""
+        """A fault the twin replays: an exhausted mesh (its final rung), or a
+        launch, copy or sync fault (a ``RuntimeError``, not a build failure)
+        on a supervised service."""
+        if isinstance(err, MeshExhausted):
+            return True
         return (self.replays_faults and isinstance(err, RuntimeError)
                 and not isinstance(err, BuildError))
 
@@ -709,7 +885,7 @@ class HashService:
             try:
                 if self.injector is not None:
                     self.injector.on_dispatch()
-                digests = self._run_window_on(self._window_engine(), req)
+                digests = self._run_window_on(self._window_engine(req.lane, req.rows), req)
             except BaseException as e:  # noqa: BLE001 — replayed or raised to the caller
                 if not self._replayable(e):
                     self._fail([req], e)
@@ -777,7 +953,10 @@ class HashService:
             else:
                 if self.injector is not None:
                     self.injector.on_dispatch()
-                digests = self._backend(msgs)
+                if self.mesh is not None:
+                    digests = self._mesh_dispatch(msgs, batch[0].lane)
+                else:
+                    digests = self._backend(msgs)
         except BaseException as first_error:  # noqa: BLE001 — replayed or raised to the callers
             if bypass or not self._replayable(first_error):
                 self._fail(batch, first_error)
@@ -862,7 +1041,8 @@ class HashService:
         with self._cond:
             queued = dict(self._queued_msgs)
             leased = self._lease_what
-        return {
+            sub = self._submesh
+        out = {
             "queued": queued,
             "queued_total": sum(queued.values()),
             "dispatches": self.dispatches,
@@ -876,3 +1056,13 @@ class HashService:
             "leased_by": leased,
             "fault_injection": self.injector.active() if self.injector is not None else False,
         }
+        if self.mesh is not None:
+            out["mesh"] = {**self.mesh.snapshot(), "sharded_dispatches": self.mesh_sharded,
+                           "single_dispatches": self.mesh_single,
+                           "mesh_replays": self.mesh_replays,
+                           "submesh_leases": self.submesh_leases,
+                           "submesh_held": list(sub.indices) if sub is not None else None,
+                           "pipeline_leases": self.pipeline_leases}
+            if self.device_injector is not None:
+                out["fault_injection"] = out["fault_injection"] or self.device_injector.active()
+        return out

@@ -40,9 +40,15 @@ Two facts of CUDA shape the port:
   is still dead, and the next device commit then trips again (the
   reference's breaker policy, kept as it is).
 
-Not ported: ``DeviceBreakerBoard`` and ``FaultInjector.on_mesh_dispatch``
-(the mesh); a supervisor armed with ``RETH_TPU_FAULT_DEVICE_WEDGE`` raises
-``NotImplementedError``.
+The member mesh (``parallel/mesh.py``) has its own middle rung:
+:class:`DeviceBreakerBoard`, one breaker a member, and
+``FaultInjector.on_mesh_dispatch`` (``RETH_TPU_FAULT_DEVICE_WEDGE``), which
+wedges a named member so that the meshed hash service sheds it and replays
+the batch on the survivors. A real kernel fault on the mesh
+(``_build.is_kernel_fault``) is not shed: it raises, as everywhere else in
+the port. On a roster that names one card more than once every member
+shares that card's CUDA context, where a fault is sticky, so shedding one
+member would only hide it.
 """
 
 from __future__ import annotations
@@ -109,8 +115,9 @@ class InjectedWedge(DeviceDispatchError):
 
 
 class InjectedDeviceWedge(DeviceDispatchError):
-    """Fault injection wedged one mesh device (RETH_TPU_FAULT_DEVICE_WEDGE);
-    carries the device index. The port has no mesh yet, so nothing raises it."""
+    """Fault injection wedged one mesh member (RETH_TPU_FAULT_DEVICE_WEDGE);
+    carries its roster index, so the per-member breaker can attribute the
+    failure and shrink the mesh around it."""
 
     def __init__(self, device_index: int, msg: str):
         super().__init__(msg)
@@ -211,10 +218,11 @@ class FaultInjector:
     rebuild window raises :class:`InjectedPipelineAbort`. ``compile_wedge``:
     the first N warm-up steps (negative: every one) sleep well past their
     watchdog budget (:meth:`on_compile`), the warm-up retry and breaker
-    drill. ``device_wedge`` is parsed and held as in the reference; its hook
-    belongs to the mesh, which is not ported, so a
-    :class:`DeviceSupervisor` given it raises ``NotImplementedError``
-    rather than run a drill that injects nothing.
+    drill. ``device_wedge``: a set of mesh member (roster) indices; any mesh
+    dispatch whose live members still include one of them raises
+    :class:`InjectedDeviceWedge`, attributed to it (:meth:`on_mesh_dispatch`),
+    the per-member breaker and shrunken-mesh replay drill; wedging every
+    index drills the final numpy rung.
 
     Env form (:meth:`from_env`): ``RETH_TPU_FAULT_WEDGE_EVERY`` /
     ``RETH_TPU_FAULT_DELAY`` / ``RETH_TPU_FAULT_PROBE_FAIL`` /
@@ -257,6 +265,22 @@ class FaultInjector:
     def active(self) -> bool:
         return bool(self.wedge_every or self.delay or self.probe_fail or self.pipeline_abort
                     or self.compile_wedge or self.device_wedge)
+
+    def on_mesh_dispatch(self, device_indices) -> None:
+        """Called before every mesh dispatch with its live members' roster
+        indices. If a wedged member still takes part, the dispatch fails,
+        attributed to that member."""
+        if not self.device_wedge:
+            return
+        hit = sorted(self.device_wedge.intersection(device_indices))
+        if not hit:
+            return
+        with self._lock:
+            self.devices_wedged += 1
+        tracing.fault_event("RETH_TPU_FAULT_DEVICE_WEDGE", target="parallel::mesh",
+                            device=hit[0], live=list(device_indices))
+        raise InjectedDeviceWedge(hit[0], f"injected wedge on mesh device {hit[0]} "
+                                          f"(live mesh {list(device_indices)})")
 
     def on_compile(self, budget: float) -> None:
         """Called inside every warm-up step's worker thread. A wedged step
@@ -394,6 +418,77 @@ class CircuitBreaker:
                 self._set_state(OPEN)
 
 
+class DeviceBreakerBoard:
+    """Per-member circuit breakers over a ``parallel/mesh.py`` HashMesh: the
+    middle rung of the ladder (member, shrunken mesh, numpy twin). One
+    :class:`CircuitBreaker` a member; a trip sheds that member from the
+    mesh's health mask (the in-flight batch replays on the survivors)
+    instead of sending the whole node to the twin, which only happens once
+    every member has tripped (:meth:`exhausted`).
+
+    Recovery is trial by fire, as in the reference: :meth:`poll` re-admits a
+    member whose open cooldown elapsed (half-open); the next clean dispatch
+    that includes it closes its breaker, the next attributed failure
+    re-opens it with doubled backoff. Defaults come from
+    ``RETH_TPU_DEVICE_BREAKER_TRIPS`` (3) and ``RETH_TPU_DEVICE_BREAKER_RESET``
+    (30 s)."""
+
+    def __init__(self, mesh, failure_threshold: int | None = None,
+                 reset_timeout: float | None = None, clock=time.monotonic):
+        if failure_threshold is None:
+            failure_threshold = int(os.environ.get("RETH_TPU_DEVICE_BREAKER_TRIPS", "3"))
+        if reset_timeout is None:
+            reset_timeout = float(os.environ.get("RETH_TPU_DEVICE_BREAKER_RESET", "30"))
+        self.mesh = mesh
+        self.breakers = [CircuitBreaker(failure_threshold=failure_threshold,
+                                        reset_timeout=reset_timeout, clock=clock)
+                         for _ in range(mesh.n_devices)]
+        self.trips = 0
+
+    def record_failure(self, idx: int, attributed: bool = False) -> bool:
+        """Count one failure against member ``idx``: an ATTRIBUTED one (the
+        error names the member, as an injected wedge does) opens its breaker
+        at once, an unattributed one counts toward the threshold. True when
+        this call shed the member."""
+        b = self.breakers[idx]
+        if attributed:
+            b.force_open()
+        else:
+            b.record_failure()
+        if b.state == OPEN and self.mesh.is_healthy(idx):
+            self.trips += 1
+            return self.mesh.mark_unhealthy(
+                idx, reason="attributed wedge" if attributed else "unattributed dispatch failures")
+        return False
+
+    def record_success(self, indices) -> None:
+        """A dispatch over ``indices`` completed: clear their failure counts
+        and close any half-open breaker that just passed its trial."""
+        for i in indices:
+            self.breakers[i].record_success()
+
+    def poll(self) -> int:
+        """Re-admit members whose open cooldown elapsed; returns how many
+        rejoined. Called before each mesh dispatch, so recovery needs no
+        thread of its own."""
+        rejoined = 0
+        for i, b in enumerate(self.breakers):
+            if not self.mesh.is_healthy(i) and b.allow():
+                if self.mesh.mark_healthy(i):
+                    rejoined += 1
+        return rejoined
+
+    def exhausted(self) -> bool:
+        """No member is healthy: the caller takes the final rung."""
+        return self.mesh.healthy_count == 0
+
+    def snapshot(self) -> dict:
+        states = [b.state for b in self.breakers]
+        return {"devices": len(states), "open": sum(1 for s in states if s == OPEN),
+                "half_open": sum(1 for s in states if s == HALF_OPEN), "trips": self.trips,
+                "states": states}
+
+
 class DeviceSupervisor:
     """Owns every device call on the state-commitment path.
 
@@ -417,9 +512,6 @@ class DeviceSupervisor:
             failure_threshold=int(os.environ.get("RETH_TPU_BREAKER_TRIPS", "3")),
             reset_timeout=float(os.environ.get("RETH_TPU_BREAKER_RESET", "30")))
         self.injector = injector if injector is not None else FaultInjector.from_env()
-        if self.injector is not None and self.injector.device_wedge:
-            raise NotImplementedError("RETH_TPU_FAULT_DEVICE_WEDGE (the mesh) drills a path "
-                                      "that is not ported yet")
         self._probe_fn = probe_fn or probe_device
         self.metrics = SupervisorMetrics(registry)
         self.failovers = 0

@@ -41,7 +41,15 @@ kernel source and each kernel takes any row count. So the lifecycle maps:
   supervised fused commits on the twin. A launch fault in a WARM shape is
   handled as it always is.
 
-The mesh's menu variants (``mesh_sizes``) are not ported and raise.
+- **The mesh's variants** (``mesh_sizes``, a shape's ``mesh_size`` > 1,
+  keyed ``@m{n}``): the same shapes with each batch tier rounded up to a
+  multiple of the member count, warmed through the mesh front-ends
+  (``MeshKeccak``'s sharded launch, ``FusedMeshEngine``,
+  ``SubtrieMeshEngine``) over the first ``mesh_size`` members of the
+  manager's ``HashMesh`` roster, so a roster that names one card more than
+  once warms on that card. Without a roster that large the step raises, as
+  the reference's does when too few devices are found. The compile cache's
+  directory gains ``-m{n}``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -89,7 +97,7 @@ PROGRAM_SOURCE = {"keccak.masked": "keccak.cu", "keccak.exact": "keccak.cu",
 # the C entries a kernel library must export (by library stem)
 ENTRY_SYMBOLS = {"keccak": ("keccak256_absorb", "keccak256_absorb_rows_per_block"),
                  "fused_level": ("packed_level", "branch_level", "subtrie_levels",
-                                 "subtrie_levels_resident")}
+                                 "subtrie_levels_resident", "exchange_slots")}
 
 
 @dataclass(frozen=True)
@@ -98,7 +106,8 @@ class MenuShape:
 
     ``program``: "keccak.masked" | "keccak.exact" | "fused.plain" |
     "fused.splice" | "fused.subtrie", the kind strings the dispatch sites
-    route by. ``mesh_size`` > 1 names the mesh's variant, not ported."""
+    route by. ``mesh_size`` > 1 names the mesh's variant, sharded over that
+    many members."""
 
     program: str
     block_tier: int
@@ -125,10 +134,10 @@ def default_menu(min_tier: int = DEFAULT_MIN_TIER,
     block-tier ladder at the base batch tier for larger messages, clamped at
     the ceilings; with ``include_fused`` the level kernels' shapes at the
     base tier and one k-level shape per k > 1 of ``subtrie_ks`` (its
-    ``block_tier`` slot carries k). ``mesh_sizes`` with a size above 1
-    raises ``NotImplementedError``: the mesh is not ported."""
-    if any(m > 1 for m in mesh_sizes):
-        raise NotImplementedError("default_menu(mesh_sizes=...): the mesh is not ported")
+    ``block_tier`` slot carries k). ``mesh_sizes`` adds each size's mesh
+    variants (above 1): the batch ladder from ``min_tier`` rounded up to a
+    member-count multiple (the tiers ``parallel/mesh.py mesh_tier`` and the
+    mesh engines' rounded floors mint)."""
     shapes: list[MenuShape] = []
     t = min_tier
     while t <= max_batch_tier:
@@ -144,27 +153,103 @@ def default_menu(min_tier: int = DEFAULT_MIN_TIER,
         for k in subtrie_ks:
             if k > 1:
                 shapes.append(MenuShape("fused.subtrie", k, DEFAULT_SUBTRIE_TIER))
+    for m in mesh_sizes:
+        if m <= 1:
+            continue
+        floor = -(-min_tier // m) * m
+        t = floor
+        while t <= max_batch_tier:
+            shapes.append(MenuShape("keccak.masked", block_tier, t, m))
+            t *= 2
+        if include_fused:
+            shapes.append(MenuShape("fused.plain", block_tier, floor, m))
+            shapes.append(MenuShape("fused.splice", block_tier, floor, m))
+            for k in subtrie_ks:
+                if k > 1:
+                    shapes.append(MenuShape("fused.subtrie", k,
+                                            -(-DEFAULT_SUBTRIE_TIER // m) * m, m))
     return shapes
 
 
-def build_shape(shape: MenuShape, device: str | torch.device = "cuda") -> None:
+def _mesh_for_shape(shape: MenuShape, mesh):
+    """The membership a mesh shape warms over: the first ``mesh_size``
+    members of ``mesh`` (a ``parallel/mesh.py`` HashMesh)."""
+    found = 0 if mesh is None else mesh.n_devices
+    if found < shape.mesh_size:
+        raise ValueError(f"menu shape needs {shape.mesh_size} devices, found {found}")
+    if shape.batch_tier % shape.mesh_size:
+        raise ValueError(f"mesh menu tier {shape.batch_tier} not divisible by "
+                         f"mesh size {shape.mesh_size}")
+    return mesh._mesh_for(tuple(range(shape.mesh_size)))
+
+
+def _warm_subtrie(eng) -> None:
+    """One commit of one packed and one branch level through a k-level
+    engine, staged into one chunk: the k-level shape's launch."""
+    eng.begin(4)
+    s1, s2 = eng.alloc_slot(), eng.alloc_slot()
+    row = b"\x01" * 40
+    eng.dispatch_packed(np.frombuffer(row, dtype=np.uint8), np.zeros((1,), dtype=np.uint32),
+                        np.array([len(row)], dtype=np.uint32), np.array([s1], dtype=np.int32),
+                        None, 4)
+    eng.dispatch_branch(np.array([0x0001], dtype=np.uint16), np.array([s2], dtype=np.int32),
+                        np.array([[0], [0], [s1]], dtype=np.int32))
+    eng.finish()
+
+
+def _warm_level(eng, rows: int, holes_per_row: int, b: int) -> None:
+    """One commit of one level of ``rows`` packed rows of ``b`` rate blocks,
+    ``holes_per_row`` holes a row, through a level engine."""
+    from ..primitives.keccak import RATE
+
+    length = b * RATE - 1
+    eng.begin(rows)
+    slots = np.array([eng.alloc_slot() for _ in range(rows)], dtype=np.int64)
+    holes = np.stack([np.repeat(np.arange(rows), holes_per_row),
+                      np.tile(np.arange(holes_per_row) * 32, rows),
+                      np.zeros(rows * holes_per_row, dtype=np.int64)]) if holes_per_row else None
+    eng.dispatch_packed(np.zeros(rows * length, dtype=np.uint8),
+                        np.arange(rows, dtype=np.int64) * length,
+                        np.full(rows, length, dtype=np.int32), slots, holes, b)
+    eng.finish()
+
+
+def build_shape(shape: MenuShape, device: str | torch.device = "cuda", mesh=None) -> None:
     """One launch of ``shape``'s kernel at exactly that shape on ``device``,
     waited for. On the card the kernel's library is loaded, never built (the
     manager builds before it walks the menu); on the CPU the kernel's plain
-    version runs."""
+    version runs. A mesh shape (``mesh_size`` > 1) runs over the first
+    ``mesh_size`` members of ``mesh`` (a HashMesh) instead: ``keccak.*``
+    through ``MeshKeccak``'s sharded launch of ``batch_tier`` rows,
+    ``fused.*`` through ``FusedMeshEngine`` / ``SubtrieMeshEngine``."""
     from ..primitives.keccak import RATE
-    from .fused_commit import SubtrieFusedEngine, packed_level
+    from .fused_commit import (FusedMeshEngine, SubtrieFusedEngine, SubtrieMeshEngine,
+                               packed_level)
     from .keccak import WORDS_PER_BLOCK, keccak256_words_masked
 
-    if shape.mesh_size != 1:
-        raise NotImplementedError("mesh menu shapes: the mesh is not ported")
     dev = resolve(device)
     src = PROGRAM_SOURCE.get(shape.program)
     if src is None:
         raise ValueError(f"unknown menu program {shape.program!r}")
+    n, b = shape.batch_tier, shape.block_tier
+    if shape.mesh_size > 1:
+        sub = _mesh_for_shape(shape, mesh)
+        if any(d.type == "cuda" for d in sub.devices):
+            _build.load_kernel(src, build_missing=False)
+        if shape.program.startswith("keccak."):
+            from ..parallel.mesh import MeshKeccak
+
+            count = b if shape.program == "keccak.exact" else 1
+            msgs = [b"\x00" * (count * RATE - 1)] * n
+            MeshKeccak(mesh, min_tier=n, block_tier=b).hash_sharded(msgs, sub)
+        elif shape.program == "fused.subtrie":
+            _warm_subtrie(SubtrieMeshEngine(sub, min_tier=64, k=b))
+        else:
+            _warm_level(FusedMeshEngine(sub, min_tier=64), n,
+                        4 if shape.program == "fused.splice" else 0, b)
+        return
     if dev.type == "cuda":
         _build.load_kernel(src, build_missing=False)
-    n, b = shape.batch_tier, shape.block_tier
     if shape.program.startswith("keccak."):
         words = torch.zeros((n, b * WORDS_PER_BLOCK), dtype=torch.uint32, device=dev)
         count = b if shape.program == "keccak.exact" else 1
@@ -188,16 +273,7 @@ def build_shape(shape: MenuShape, device: str | torch.device = "cuda") -> None:
         return
     # fused.subtrie: one packed and one branch level through the engine the
     # runtime uses, staged into one launch of kernel 4
-    eng = SubtrieFusedEngine(min_tier=64, k=b, device=dev)
-    eng.begin(4)
-    s1, s2 = eng.alloc_slot(), eng.alloc_slot()
-    row = b"\x01" * 40
-    eng.dispatch_packed(np.frombuffer(row, dtype=np.uint8), np.zeros((1,), dtype=np.uint32),
-                        np.array([len(row)], dtype=np.uint32), np.array([s1], dtype=np.int32),
-                        None, 4)
-    eng.dispatch_branch(np.array([0x0001], dtype=np.uint16), np.array([s2], dtype=np.int32),
-                        np.array([[0], [0], [s1]], dtype=np.int32))
-    eng.finish()
+    _warm_subtrie(SubtrieFusedEngine(min_tier=64, k=b, device=dev))
 
 
 def kernel_source_digest(paths: list[str | Path] | None = None) -> str:
@@ -258,12 +334,12 @@ class CompileCache:
 
     def __init__(self, base_dir: str | Path, sources=None, *,
                  probe_budget: float | None = None, mesh_size: int = 1):
-        if mesh_size != 1:
-            raise NotImplementedError("CompileCache(mesh_size=...): the mesh is not ported")
         self.base = Path(base_dir)
         self.digest = kernel_source_digest(sources)
         self.mesh_size = mesh_size
-        self.dir = self.base / f"cuda-{self.digest}"
+        # the key gains the mesh size, as the reference's does
+        suffix = f"-m{mesh_size}" if mesh_size != 1 else ""
+        self.dir = self.base / f"cuda-{self.digest}{suffix}"
         self.probe_budget = probe_budget
         self.enabled = False
         self.quarantined = 0
@@ -362,18 +438,19 @@ class WarmupManager:
     ``on_device_recovered()`` (the supervisor's half-open probe success)
     re-runs FAILED shapes. ``builder(shape)`` replaces the per-shape launch
     (:func:`build_shape` on ``device``), ``compiler(sources, build_dir)``
-    the build (``_build.build`` on the card; on the CPU nothing is built)."""
+    the build (``_build.build`` on the card; on the CPU nothing is built).
+    ``mesh`` (a ``parallel/mesh.py`` HashMesh) is the roster the menu's
+    mesh shapes warm over."""
 
     def __init__(self, menu: list[MenuShape] | None = None, *,
                  supervisor=None, cache: CompileCache | None = None,
                  budget: float | None = None, attempts: int | None = None,
                  backoff: float | None = None, builder=None, injector=None,
                  verify_cache: bool = True, enable_cache: bool = True,
-                 registry=None, compiler=None, device: str | torch.device = "cuda"):
+                 registry=None, compiler=None, mesh=None, device: str | torch.device = "cuda"):
         self.device = resolve(device)
         self.menu = list(menu if menu is not None else default_menu())
-        if any(s.mesh_size != 1 for s in self.menu):
-            raise NotImplementedError("mesh menu shapes: the mesh is not ported")
+        self.mesh = mesh
         self.sup = supervisor
         self.cache = cache
         if budget is None:
@@ -389,7 +466,7 @@ class WarmupManager:
         # enable_cache=False: validate and quarantine only, never point the
         # process's kernel directory at the cache (unit-test scope)
         self.enable_cache = enable_cache
-        self._builder = builder or functools.partial(build_shape, device=self.device)
+        self._builder = builder or functools.partial(build_shape, device=self.device, mesh=mesh)
         if compiler is None and self.device.type == "cuda":
             compiler = _build.build
         self._compiler = compiler
@@ -723,8 +800,9 @@ def build_warmup(supervisor=None, cache_dir: str | Path | None = None,
                  mesh_size: int = 1, **kw) -> WarmupManager:
     """The shared constructor: a manager over the default menu, with the
     compile cache under ``cache_dir`` when one is given. ``mesh_size`` > 1
-    raises ``NotImplementedError``: the mesh is not ported."""
-    if mesh_size > 1:
-        raise NotImplementedError("build_warmup(mesh_size=...): the mesh is not ported")
-    cache = CompileCache(cache_dir) if cache_dir else None
+    adds the mesh's menu variants and keys the cache by the mesh size; pass
+    the roster they warm over as ``mesh=``."""
+    if menu is None and mesh_size > 1:
+        menu = default_menu(mesh_sizes=(mesh_size,))
+    cache = CompileCache(cache_dir, mesh_size=mesh_size) if cache_dir else None
     return WarmupManager(menu=menu, supervisor=supervisor, cache=cache, registry=registry, **kw)

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..device import resolve
-from ..ops.fused_commit import FusedLevelEngine, _Bucket
+from ..ops.fused_commit import FusedLevelEngine, FusedMeshEngine, _Bucket
 from ..ops.keccak import KeccakDevice
 from ..ops.supervisor import SupervisedBackend, SupervisedHasher
 from ..primitives.keccak import RATE, keccak256
@@ -131,10 +131,10 @@ class TrieCommitter:
         WarmupManager``) adds degraded serving: the default hasher's
         ``KeccakDevice`` hashes each un-warm bucket on the host until its
         shape is warm (a supervised fused commit is gated through the
-        supervisor the manager attached to). ``mesh`` is the reference's
-        seam for the mesh, not ported, and raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("TrieCommitter(mesh=...) is not ported yet")
+        supervisor the manager attached to). ``mesh`` (a ``parallel/mesh.py``
+        HashMesh, or one of its memberships) shards the fused level loop
+        over its live members: the engine is a ``FusedMeshEngine``; ``hasher``
+        and the unfused path ignore it, as in the reference."""
         # the card this committer hashes on, checked when it hashes there;
         # the rebuilds built from it (stages/merkle.py) run on it too
         self.device = (resolve(device) if fused or hasher is None
@@ -145,11 +145,16 @@ class TrieCommitter:
         self._engine = None
         if fused:
             dev = self.device
-            if supervisor is not None:
-                self._engine = SupervisedBackend(
-                    supervisor, lambda: FusedLevelEngine(min_tier=min_tier, device=dev), device=dev)
+            if mesh is not None:
+                def engine_factory():
+                    return FusedMeshEngine(mesh, min_tier=min_tier)
             else:
-                self._engine = FusedLevelEngine(min_tier=min_tier, device=dev)
+                def engine_factory():
+                    return FusedLevelEngine(min_tier=min_tier, device=dev)
+            if supervisor is not None:
+                self._engine = SupervisedBackend(supervisor, engine_factory, device=dev)
+            else:
+                self._engine = engine_factory()
         elif hasher is None:
             if supervisor is not None:
                 hasher = SupervisedHasher(supervisor, min_tier=min_tier, warmup=warmup,
@@ -164,11 +169,15 @@ class TrieCommitter:
         # this committer: ``hasher`` is then a lane-bound client, and
         # ``for_lane`` hands each call site its own priority lane
         self.hash_service = None
+        # the member mesh (parallel/mesh.py HashMesh) a node hangs off this
+        # committer, as the reference's --mesh wiring does
+        self.hash_mesh = None
 
     def attach_warmup(self, manager) -> None:
         """Late-bind a warm-up manager to a built committer: per-bucket
-        routing for the ``KeccakDevice``-backed hashers (the supervised fused
-        path is gated through the supervisor the manager attached to)."""
+        routing for the ``KeccakDevice``-backed hashers and a meshed hash
+        service's ``MeshKeccak`` (the supervised fused path is gated through
+        the supervisor the manager attached to)."""
         self.warmup = manager
         h = self.hasher
         if isinstance(h, SupervisedHasher):
@@ -178,6 +187,10 @@ class TrieCommitter:
             owner = getattr(h, "__self__", None)  # KeccakDevice.hash_batch
             if isinstance(owner, KeccakDevice):
                 owner.warmup = manager
+        svc = self.hash_service
+        if svc is not None and getattr(svc, "_mesh_hasher", None) is not None:
+            # a meshed service's sharded front-end routes by the menu too
+            svc._mesh_hasher.warmup = manager
 
     def for_lane(self, lane: str) -> "TrieCommitter":
         """A shallow clone whose ``hasher`` is the hash service's client on

@@ -35,7 +35,8 @@ from .. import tracing
 from ..device import resolve
 from ..metrics import pipeline_metrics, trie_metrics
 from ..ops import _build
-from ..ops.fused_commit import MegaFusedEngine, SubtrieFusedEngine
+from ..ops.fused_commit import (FusedMeshEngine, MegaFusedEngine, SubtrieFusedEngine,
+                                SubtrieMeshEngine)
 from ..ops.supervisor import DeviceSupervisor, FaultInjector, SupervisedBackend
 from ..primitives.keccak import RATE, keccak256, keccak256_words_masked_np
 from ..primitives.types import EMPTY_ROOT_HASH
@@ -777,17 +778,26 @@ class TurboCommitter:
     commit ("device" or "auto") holds the service's exclusive lease from
     ``begin`` to its terminal fetch (``lease_backend``), and drops it when
     the commit aborts or fails; the coalesced lanes pause meanwhile, and
-    their aged requests bypass onto the twin. The numpy backend takes no
-    lease. ``mesh`` is the reference's seam for the mesh, not ported, and
-    raises ``NotImplementedError``."""
+    their aged requests bypass onto the twin. On a meshed service
+    (``HashService(mesh=)``) the lease is a sub-mesh lease: the commit's
+    engine forms over the k members the lease carved out
+    (``rebuild_mesh()``) while the live lanes keep the rest. The numpy
+    backend takes no lease.
+
+    ``mesh`` (a ``parallel/mesh.py`` HashMesh, or one of its ``Mesh``
+    memberships): the device engine shards each level's rows over its live
+    members (``ops/fused_commit.py FusedMeshEngine``, or
+    ``SubtrieMeshEngine`` for k > 1); taken from the hash service when not
+    given. A sub-mesh lease held by the commit wins over it."""
 
     def __init__(self, backend: str = "device", min_tier: int = 1024, mesh=None,
                  supervisor=None, hash_service=None, subtrie_levels: int | None = None,
                  device: str | torch.device = "cuda"):
         if backend not in ("device", "numpy", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError("TurboCommitter(mesh=...) is not ported yet")
+        if mesh is None and hash_service is not None:
+            mesh = getattr(hash_service, "mesh", None)
+        self.mesh = mesh
         self.supervisor = supervisor
         self.hash_service = hash_service
         if subtrie_levels is None:
@@ -802,7 +812,18 @@ class TurboCommitter:
 
     def _device_engine(self, ladder: bool = False) -> MegaFusedEngine:
         """A commit's device engine; ``ladder`` arms the k-level engine's
-        fault ladder, which only the supervised route asks for."""
+        fault ladder, which only the supervised route asks for. Over the
+        sub-mesh the service leased to this commit, else over ``mesh``, the
+        engine is a mesh engine."""
+        svc = self.hash_service
+        sub = svc.rebuild_mesh() if svc is not None and hasattr(svc, "rebuild_mesh") else None
+        mesh = sub if sub is not None else self.mesh
+        if mesh is not None:
+            if self.subtrie_levels > 1:
+                return SubtrieMeshEngine(mesh, min_tier=self.min_tier, k=self.subtrie_levels,
+                                         warmup=getattr(self.supervisor, "warmup", None),
+                                         ladder=ladder)
+            return FusedMeshEngine(mesh, min_tier=self.min_tier)
         if self.subtrie_levels > 1:
             return SubtrieFusedEngine(min_tier=self.min_tier, k=self.subtrie_levels,
                                       warmup=getattr(self.supervisor, "warmup", None),

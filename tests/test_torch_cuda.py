@@ -1140,3 +1140,93 @@ def test_net_legs_on_card_match_cpu(tmp_path):
     era_l, online_l = got["launches"]
     assert all(n > 0 for n in era_l[:3]) and era_l[3] == 0
     assert online_l[0] > 0 and online_l[3] == 0
+
+
+# -- the member mesh: exchange_slots and the mesh engines ------------------------
+
+
+def _exchange_case(m: int, rows: int, n: int, seed: int):
+    """``m`` random replicas of ``rows`` slots, ``n`` distinct slots split
+    into m ranges in roster order (the last one short)."""
+    rng = np.random.default_rng(seed)
+    base = [torch.from_numpy(rng.integers(0, 256, size=(rows, 32), dtype=np.uint8)).cuda()
+            for _ in range(m)]
+    slots = torch.from_numpy(rng.choice(np.arange(1, rows), size=n, replace=False)).cuda()
+    shard = -(-n // m)
+    bounds = [min(j * shard, n) for j in range(m)] + [n]
+    return base, slots, bounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(2, 1), (3, 1000), (4, 4097), (16, 300)])
+def test_exchange_slots_matches_index_copy_on_card(m, n):
+    require_card()
+    base, slots, bounds = _exchange_case(m, 5000, n, seed=m)
+    k_bufs = [b.clone() for b in base]
+    r_bufs = [b.clone() for b in base]
+    before = fc.exchange_slots.launches
+    fc.exchange_slots(k_bufs, slots, bounds)
+    fc.exchange_slots_ref(r_bufs, slots, bounds)
+    torch.cuda.synchronize()
+    assert fc.exchange_slots.launches == before + 1
+    for a, b in zip(k_bufs, r_bufs):
+        assert torch.equal(a, b)
+    assert all(torch.equal(k_bufs[0][slots], b[slots]) for b in k_bufs[1:])
+
+
+@pytest.mark.cuda
+def test_exchange_slots_refuses_more_members_than_one_launch_takes():
+    require_card()
+    base, slots, bounds = _exchange_case(fc.EXCHANGE_MAX_MEMBERS + 1, 64, 40, seed=1)
+    with pytest.raises(ValueError):
+        fc.exchange_slots(base, slots, bounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 8])
+def test_mesh_engines_on_repeated_card_match_single_engine(k):
+    """TurboCommitter(mesh=) over cuda:0 named three times (FusedMeshEngine,
+    SubtrieMeshEngine at k=8) gives the single-card engine's roots and
+    branch nodes, launches the exchange, and leaves the replicas equal."""
+    from reth_tpu_torch.parallel import HashMesh
+
+    require_card()
+    jobs = prefix_jobs(3000, seed=9)
+    one = tturbo.TurboCommitter(device="cuda", subtrie_levels=k)
+    want = one.commit_hashed_pipelined(jobs, collect_branches=True, start_depth=2)
+    hm = HashMesh(["cuda:0"] * 3, registry=MetricsRegistry())
+    mesh = tturbo.TurboCommitter(device="cuda", subtrie_levels=k, mesh=hm)
+    made = []
+    factory = mesh._device_engine
+    mesh._device_engine = lambda *a, **kw: made.append(factory(*a, **kw)) or made[-1]
+    before = fc.exchange_slots.launches
+    got = mesh.commit_hashed_pipelined(jobs, collect_branches=True, start_depth=2)
+    serial = mesh.commit_hashed_many(jobs, collect_branches=True, start_depth=2)
+    torch.cuda.synchronize()
+    assert [r.root for r in got] == [r.root for r in serial] == [r.root for r in want]
+    assert [r.branch_nodes for r in got] == [r.branch_nodes for r in want]
+    assert fc.exchange_slots.launches > before
+    assert [e.replicas_checked for e in made] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_mesh_without_a_card_or_with_a_failed_build_raises(monkeypatch, tmp_path):
+    """A mesh member on a card that is not there raises at once, and a kernel
+    library that does not build raises out of the mesh engine's commit and
+    out of the meshed service, never replayed on the CPU."""
+    from reth_tpu_torch.ops import _build
+    from reth_tpu_torch.ops.hash_service import HashService
+    from reth_tpu_torch.parallel import HashMesh
+
+    require_card()
+    with pytest.raises(RuntimeError):
+        HashMesh([f"cuda:{torch.cuda.device_count()}"])
+    hm = HashMesh(["cuda:0"] * 2, registry=MetricsRegistry())
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["--no-such-nvcc-flag"])
+    monkeypatch.setattr(_build, "_kernel_dir", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(_build.BuildError):
+        tturbo.TurboCommitter(device="cuda", mesh=hm).commit_hashed_many(
+            prefix_jobs(200, seed=3), start_depth=2)
+    with pytest.raises(_build.BuildError):
+        HashService(mesh=hm, registry=MetricsRegistry())

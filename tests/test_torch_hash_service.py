@@ -589,13 +589,35 @@ def test_only_launch_faults_replay_and_only_under_a_supervisor(supervised):
     assert s.replays_faults is supervised
 
 
-def test_mesh_seams_are_not_ported():
-    for kw in (dict(mesh=object()), dict(breaker_board=object()), dict(device_injector=object()),
-               dict(rebuild_devices=2)):
-        with pytest.raises(NotImplementedError):
-            _svc(**kw)
-    s = _svc()
-    assert s.pipeline_lease() is None and s.rebuild_mesh() is None
+def test_mesh_seams_take_their_objects_like_reference():
+    """The service's mesh arguments are ported: without a mesh the lease is
+    exclusive and the mesh seams answer None; with one, the defaults are the
+    reference's (a DeviceBreakerBoard over the mesh, half the mesh leased to
+    a rebuild) and the snapshot grows the reference's "mesh" keys."""
+    import jax
+
+    from reth_tpu.parallel.mesh import HashMesh as JHashMesh
+    from reth_tpu_torch.parallel import HashMesh
+
+    for pkg in ("jax", "port"):
+        s = _svc(pkg)
+        assert s.pipeline_lease() is None and s.rebuild_mesh() is None
+        assert "mesh" not in s.snapshot()
+        s.stop()
+    board, inj = object(), psup.FaultInjector(device_wedge=(1,))
+    meshed = {"jax": _svc("jax", mesh=JHashMesh(jax.devices()[:4], registry=JRegistry())),
+              "port": _svc(mesh=HashMesh(["cpu"] * 4, registry=pmetrics.MetricsRegistry()))}
+    try:
+        assert isinstance(meshed["port"].breaker_board, psup.DeviceBreakerBoard)
+        assert meshed["port"].rebuild_devices == meshed["jax"].rebuild_devices == 2
+        assert (sorted(meshed["port"].snapshot()["mesh"])
+                == sorted(meshed["jax"].snapshot()["mesh"]))
+    finally:
+        for s in meshed.values():
+            s.stop()
+    s = _svc(mesh=HashMesh(["cpu"] * 2, registry=pmetrics.MetricsRegistry()),
+             breaker_board=board, device_injector=inj, rebuild_devices=1)
+    assert (s.breaker_board, s.device_injector, s.rebuild_devices) == (board, inj, 1)
     s.stop()
 
 

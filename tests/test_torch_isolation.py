@@ -33,6 +33,7 @@ from reth_tpu_torch.ops import hash_service as ths
 from reth_tpu_torch.ops import keccak as tk
 from reth_tpu_torch.ops import supervisor as tsup
 from reth_tpu_torch.ops import warmup as tw
+from reth_tpu_torch.parallel import HashMesh
 from reth_tpu_torch.primitives.keccak import keccak256_batch_np
 from reth_tpu_torch.primitives.types import EMPTY_ROOT_HASH
 from reth_tpu_torch.rpc import engine_api as tengine_api
@@ -124,7 +125,8 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.net.discv4", "reth_tpu_torch.net.discv5",
                 "reth_tpu_torch.net.enr", "reth_tpu_torch.net.dnsdisc",
                 "reth_tpu_torch.net.nat", "reth_tpu_torch.stages.headers_bodies",
-                "reth_tpu_torch.era", "reth_tpu_torch.era_sync", "reth_tpu_torch.rpc.admin"):
+                "reth_tpu_torch.era", "reth_tpu_torch.era_sync", "reth_tpu_torch.rpc.admin",
+                "reth_tpu_torch.parallel", "reth_tpu_torch.parallel.mesh"):
         assert mod in res["modules"]
 
 
@@ -164,7 +166,8 @@ def test_sources_name_no_jax_import():
     tengine_api.payload_to_block, tsnap.SnapServer.__init__, tnetserver.NetworkManager.__init__,
     tdownloader.sync_from_peer, tdownloader.BodiesDownloader.__init__,
     tdownloader.FullBlockClient.__init__, tstages.online_stages,
-    tstages.HeadersStage.__init__, tstages.BodiesStage.__init__,
+    tstages.HeadersStage.__init__, tstages.BodiesStage.__init__, HashMesh.__init__,
+    HashMesh.build,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -198,6 +201,13 @@ def test_cuda_without_a_card_raises():
     # the control plane: the hash service, warm-up and its constructor
     with pytest.raises(RuntimeError):
         ths.HashService(registry=MetricsRegistry())
+    # the member mesh: a roster of cards, and its builder
+    with pytest.raises(RuntimeError):
+        HashMesh(registry=MetricsRegistry())
+    with pytest.raises(RuntimeError):
+        HashMesh(["cuda:0"] * 2, registry=MetricsRegistry())
+    with pytest.raises(RuntimeError):
+        HashMesh.build(2, registry=MetricsRegistry())
     with pytest.raises(RuntimeError):
         tw.WarmupManager(registry=MetricsRegistry())
     with pytest.raises(RuntimeError):

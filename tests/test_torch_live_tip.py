@@ -424,7 +424,7 @@ def test_storage_reveal_map_is_the_merged_map():
     assert got.get(keccak256(b"absent")) is None
 
 
-def test_stateless_validation_is_not_ported():
+def test_stateless_chain_and_witness_source_construct_and_answer_empty_state():
     """WitnessStateSource and StatelessChain are ported now (the EVM's ROADMAP
     item 7): they construct without raising, the chain on the device it is
     given, and an empty witness answers an empty state (tests/

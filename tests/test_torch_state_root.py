@@ -103,15 +103,37 @@ def test_fused_without_hasher_fails_like_reference():
         tsr.state_root(accounts, storages, committer=TrieCommitter(fused=True, device="cpu"))
 
 
-@pytest.mark.parametrize("seam", ["mesh", "supervisor", "warmup"])
-def test_unported_committer_seams_raise(seam):
-    """The mesh is the committer's one unported seam; the warm-up manager,
-    with or without a supervisor, reaches the committer's hasher."""
+def test_committer_mesh_seam_roots_equal_reference():
+    """TrieCommitter(mesh=): the fused committer on a roster of two "cpu"
+    members (FusedMeshEngine) gives the reference's state root on its mesh
+    of two virtual devices; the unfused path ignores the mesh, as the
+    reference's does."""
+    import jax
+    from jax.sharding import Mesh
+
+    from reth_tpu.primitives.keccak import keccak256_batch_np as jhash
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.ops.fused_commit import FusedMeshEngine
+    from reth_tpu_torch.parallel import HashMesh
+
+    accounts, storages = _state(40, 12, seed=8, account_cls=Account)
+    j_accounts, j_storages = _state(40, 12, seed=8, account_cls=JaxAccount)
+    hm = HashMesh(["cpu"] * 2, registry=MetricsRegistry())
+    port = TrieCommitter(fused=True, mesh=hm, min_tier=16, device="cpu",
+                         hasher=keccak256_batch_np)
+    assert isinstance(port._engine, FusedMeshEngine) and port._engine.mesh.size == 2
+    want = jsr.state_root(j_accounts, j_storages, committer=JaxCommitter(
+        fused=True, min_tier=16, mesh=Mesh(np.array(jax.devices()[:2]), ("data",)),
+        hasher=jhash))
+    assert tsr.state_root(accounts, storages, committer=port)[0] == want[0]
+    assert TrieCommitter(hasher=keccak256_batch_np, mesh=hm, device="cpu")._engine is None
+
+
+@pytest.mark.parametrize("seam", ["supervisor", "warmup"])
+def test_committer_seams_reach_the_hasher(seam):
+    """The warm-up manager, with or without a supervisor, reaches the
+    committer's hasher."""
     kw = {seam: object()}
-    if seam == "mesh":
-        with pytest.raises(NotImplementedError):
-            TrieCommitter(device="cpu", **kw)
-        return
     manager = kw["warmup"] = object()
     c = TrieCommitter(device="cpu", **kw)
     assert c.warmup is manager

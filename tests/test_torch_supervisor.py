@@ -588,10 +588,11 @@ def test_failed_build_raises_instead_of_failing_over(monkeypatch, path):
     assert sup.guarded_calls == 0
 
 
-def test_unported_seams_raise():
-    """Only the mesh's seams are left unported; the warm-up and hash-service
-    seams take their objects, and a device arena handed to SupervisedBackend
-    is the wrong type."""
+def test_supervised_seams_take_their_objects():
+    """The warm-up, hash-service and mesh seams take their objects, and a
+    device arena handed to SupervisedBackend is the wrong type; the mesh
+    under the supervised route builds its mesh engine over the live
+    members, as the reference does."""
     sup = _supervisor("port")
     with pytest.raises(TypeError, match="hot-state"):
         psup.SupervisedBackend(sup, lambda: None, arena=object(), device="cpu")
@@ -601,29 +602,48 @@ def test_unported_seams_raise():
                                  hash_service=service).hash_service is service
     assert pcommitter.TrieCommitter(supervisor=sup, device="cpu",
                                     warmup=manager).hasher._warmup is manager
-    with pytest.raises(NotImplementedError):
-        pturbo.TurboCommitter(backend="auto", supervisor=sup, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        pcommitter.TrieCommitter(supervisor=sup, device="cpu", mesh=object())
+    from reth_tpu_torch.parallel import HashMesh
+
+    hm = HashMesh(["cpu"] * 3, registry=pmetrics.MetricsRegistry())
+    hm.mark_unhealthy(1)
+    for k, engine in ((0, pfc.FusedMeshEngine), (8, pfc.SubtrieMeshEngine)):
+        c = pturbo.TurboCommitter(backend="auto", supervisor=sup, device="cpu", mesh=hm,
+                                  subtrie_levels=k)
+        made = c._device_engine(ladder=True)
+        assert type(made) is engine and made.mesh.indices == (0, 2)
+    fused = pcommitter.TrieCommitter(fused=True, supervisor=sup, device="cpu", mesh=hm)
+    assert isinstance(fused._engine, psup.SupervisedBackend)
 
 
 @pytest.mark.parametrize("knob", [{"compile_wedge": 2}, {"device_wedge": (0, 3)},
                                   {"RETH_TPU_FAULT_COMPILE_WEDGE": "-1"},
                                   {"RETH_TPU_FAULT_DEVICE_WEDGE": "1"}])
-def test_unported_fault_knobs_raise(monkeypatch, knob):
-    """The mesh's drill has no hook in the port: a supervisor armed with it
-    refuses to start, so such a drill cannot pass by injecting nothing. The
-    compile wedge is warm-up's drill, ported now: the supervisor starts and
-    its injector carries the knob to the warm-up steps."""
+def test_fault_knobs_arm_the_supervisors_injector_like_reference(monkeypatch, knob):
+    """Both packages' supervisors start with the knob, and their injectors
+    carry it: the compile wedge to the warm-up steps, the device wedge to
+    every mesh dispatch, which fails attributed to the wedged member while it
+    takes part (the mesh's drill, FaultInjector.on_mesh_dispatch)."""
     ((name, value),) = knob.items()
     if name.startswith("RETH_"):
         monkeypatch.setenv(name, value)
-        inj = None
-    else:
-        inj = psup.FaultInjector(**knob)
-    if "compile_wedge" in name.lower():
-        sup = psup.DeviceSupervisor(injector=inj, registry=pmetrics.MetricsRegistry())
-        assert sup.injector.compile_wedge == (int(value) if inj is None else value)
+    sups = {}
+    for pkg, mod, reg in (("jax", jsup, jmetrics.MetricsRegistry),
+                          ("port", psup, pmetrics.MetricsRegistry)):
+        inj = None if name.startswith("RETH_") else mod.FaultInjector(**knob)
+        sups[pkg] = mod.DeviceSupervisor(injector=inj, registry=reg())
+    j, p = sups["jax"].injector, sups["port"].injector
+    assert (p.compile_wedge, p.device_wedge) == (j.compile_wedge, j.device_wedge)
+    assert p.active() and j.active()
+    if "device_wedge" not in name.lower():
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        psup.DeviceSupervisor(injector=inj, registry=pmetrics.MetricsRegistry())
+    wedged = min(p.device_wedge)
+    for members in ((0, 1, 2, 3), tuple(i for i in range(4) if i not in p.device_wedge)):
+        got = []
+        for inj, err in ((j, jsup.InjectedDeviceWedge), (p, psup.InjectedDeviceWedge)):
+            try:
+                inj.on_mesh_dispatch(members)
+                got.append(None)
+            except err as e:
+                got.append(e.device_index)
+        assert got[0] == got[1] == (wedged if wedged in members else None)
+    assert p.devices_wedged == j.devices_wedged == 1

@@ -104,17 +104,41 @@ def test_rejects_like_reference(port):
         port.commit_hashed_pipelined([dup, job(5, seed=2)])
 
 
-# "auto", supervisor= and hash_service= are ported; the mesh is not, with or
-# without them
-@pytest.mark.parametrize("kw", [dict(backend="auto", hash_service=object()), dict(mesh=object()),
-                                dict(hash_service=object()), dict(subtrie_levels=4, mesh=object()),
-                                dict(supervisor=object(), mesh=object())])
-def test_unported_seams_raise(kw):
-    if "mesh" not in kw:
-        assert TurboCommitter(device="cpu", **kw).hash_service is kw["hash_service"]
-        return
-    with pytest.raises(NotImplementedError):
-        TurboCommitter(device="cpu", **kw)
+# "auto", supervisor= and hash_service= take their objects
+@pytest.mark.parametrize("kw", [dict(backend="auto", hash_service=object()),
+                                dict(hash_service=object())])
+def test_seams_take_their_objects(kw):
+    assert TurboCommitter(device="cpu", **kw).hash_service is kw["hash_service"]
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_mesh_seam_roots_equal_reference_mesh(k):
+    """TurboCommitter(mesh=): the rebuild on a roster of two "cpu" members
+    (FusedMeshEngine, or SubtrieMeshEngine for k > 1) gives the reference's
+    roots and branch nodes on its mesh of two virtual devices."""
+    import jax
+    from jax.sharding import Mesh
+
+    from reth_tpu_torch.metrics import MetricsRegistry
+    from reth_tpu_torch.parallel import HashMesh
+
+    jobs = prefix_jobs(200, seed=8)
+    want = JaxTurbo(backend="device", min_tier=256, subtrie_levels=k,
+                    mesh=Mesh(np.array(jax.devices()[:2]), ("data",))).commit_hashed_pipelined(
+        jobs, True, 2)
+    port = TurboCommitter(device="cpu", min_tier=256, subtrie_levels=k,
+                          mesh=HashMesh(["cpu"] * 2, registry=MetricsRegistry()))
+    _same(port.commit_hashed_pipelined(jobs, True, 2), want)
+
+
+def test_mesh_seam_takes_the_services_mesh():
+    """Without mesh=, the committer takes its hash service's mesh, as the
+    reference's does."""
+    class Service:
+        mesh = object()
+
+    assert TurboCommitter(device="cpu", hash_service=Service()).mesh is Service.mesh
+    assert TurboCommitter(device="cpu", hash_service=object()).mesh is None
 
 
 def test_jobs_to_device_round_trip():

@@ -116,13 +116,51 @@ def test_default_menu_grid(kw):
     assert ("fused.subtrie", 8, 2048, 1) in keys
 
 
-def test_mesh_menu_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        pw.default_menu(mesh_sizes=(8,))
-    with pytest.raises(NotImplementedError):
-        pw.build_warmup(mesh_size=4, device="cpu", registry=pmetrics.MetricsRegistry())
-    with pytest.raises(NotImplementedError):
-        _mgr("port", menu=[("keccak.masked", 4, 8, 2)])
+@pytest.mark.parametrize("mesh_sizes", [(8,), (6,), (2, 3)])
+def test_mesh_menu_matches_reference(mesh_sizes, tmp_path):
+    """The mesh's menu variants (test_warmup.py:110): the reference's shapes,
+    keys and "@m{n}" names; build_warmup(mesh_size=) declares them and keys
+    the compile cache by the mesh size as the reference does."""
+    port = pw.default_menu(min_tier=1024, mesh_sizes=mesh_sizes)
+    assert [s.key() for s in port] == [s.key() for s in jw.default_menu(
+        min_tier=1024, mesh_sizes=mesh_sizes)]
+    assert [str(s) for s in port] == [str(s) for s in jw.default_menu(
+        min_tier=1024, mesh_sizes=mesh_sizes)]
+    m = mesh_sizes[-1]
+    assert all(s.batch_tier % s.mesh_size == 0 for s in port)
+    mgr = pw.build_warmup(mesh_size=m, device="cpu", registry=pmetrics.MetricsRegistry())
+    ref = jw.build_warmup(mesh_size=m, registry=JRegistry())
+    assert sorted(mgr.states) == sorted(ref.states)
+    cache = pw.CompileCache(tmp_path, mesh_size=m)
+    assert cache.dir.name.endswith(f"-m{m}") and cache.dir != pw.CompileCache(tmp_path).dir
+    assert jw.CompileCache(tmp_path, mesh_size=m).dir.name.endswith(f"-m{m}")
+
+
+def test_mesh_shapes_warm_over_the_roster():
+    """A manager over mesh shapes warms them over its HashMesh roster (two
+    "cpu" members here), each shape's launch the mesh front-end's; without
+    a roster large enough a mesh shape fails, as the reference's does when
+    too few devices are found, and the route stays on the host."""
+    from reth_tpu_torch.parallel import HashMesh
+
+    menu = [("keccak.masked", 4, 16, 2), ("fused.plain", 4, 16, 2), ("fused.splice", 4, 16, 2),
+            ("fused.subtrie", 8, 2048, 2)]
+    hm = HashMesh(["cpu"] * 2, registry=pmetrics.MetricsRegistry())
+    mgr = pw.WarmupManager(menu=[pw.MenuShape(*s) for s in menu], mesh=hm, device="cpu",
+                           budget=60, attempts=1, verify_cache=False, enable_cache=False,
+                           registry=pmetrics.MetricsRegistry())
+    snap = mgr.run()
+    assert snap["state"] == "warm" and snap["warm"] == 4
+    assert "keccak.masked:4x16@m2" in snap["shapes"]
+    assert mgr.route_bucket("keccak.masked", 4, 16, 2)
+    small = pw.WarmupManager(menu=[pw.MenuShape("keccak.masked", 4, 24, 3)],
+                             mesh=hm, device="cpu", budget=60, attempts=1, backoff=0.0,
+                             verify_cache=False, enable_cache=False,
+                             registry=pmetrics.MetricsRegistry())
+    assert small.run()["failed"] == 1 and small.wedges == 1
+    assert not small.route_bucket("keccak.masked", 4, 24, 3)
+    with pytest.raises(ValueError, match="needs 3 devices, found 2"):
+        pw.build_shape(pw.MenuShape("keccak.masked", 4, 24, 3), device="cpu", mesh=hm)
 
 
 @pytest.mark.parametrize("args", [(5, 8), (100, 8), (100_000, 8, 1024), (100, 8, 1024),
