@@ -376,9 +376,14 @@
    members, no numpy replay, mesh_shrinks_total 1, the member back after
    its breaker's cooldown. Kernels 1-4 and exchange_slots (the digest
    exchange between replicas); its median and largest launch are held
-   against their plain version (index_copy_) and timed beside it, the
-   bound and one index_copy_ on the replicas stacked (the kernels line's
-   exchange_slots row, after step 5's rows).
+   against their plain version (index_copy_), and so is its first design,
+   the debug entry exchange_slots_warp_row (a warp a row); the two designs
+   are timed in turns beside the plain version, the bound and one
+   index_copy_ on the replicas stacked, the kernel also at one row (the
+   kernels line's exchange_slots row, after step 5's rows: warp_row_ms /
+   largest_warp_row_ms, launch_floor_ms, largest_bound_share or
+   largest_l2_resident where the time beats the HBM bound, and ptxas's
+   registers, stack and spills).
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -713,29 +718,36 @@ def ptxas_report(text: str) -> dict[str, dict]:
 # the kernel functions of each source that must have no stack frame and no
 # spills (the debug entries are only logged)
 ENFORCED = {"fused_level.cu": ("packed_level_kernel", "branch_level_kernel",
-                               "subtrie_levels_kernel"),
+                               "subtrie_levels_kernel", "exchange_slots_kernel"),
             "keccak.cu": ("keccak256_absorb_kernel",)}
 KERNEL_FUNCTIONS = ENFORCED["fused_level.cu"] + ENFORCED["keccak.cu"] + (
-    "keccak256_absorb_unstaged_kernel", "exchange_slots_kernel")
+    "keccak256_absorb_unstaged_kernel", "exchange_slots_warp_row_kernel")
 
 
-def check_ptxas(src_name: str, text: str) -> None:
+def check_ptxas(src_name: str, text: str) -> dict[str, dict]:
     """Log each kernel function's ptxas line; raise if a kernel of
-    ``ENFORCED[src_name]`` is missing, has a stack frame or spills."""
+    ``ENFORCED[src_name]`` is missing, has a stack frame or spills. Returns
+    the lines by kernel function, a template's instances as ``name<arg>``
+    (exchange_slots_kernel<1> and <4>), each instance enforced."""
     short = {}
     for fn, r in ptxas_report(text).items():
         name = next((k for k in KERNEL_FUNCTIONS if k in fn), fn)
+        inst = re.search(r"ILi(\d+)EE", fn)
+        if name in KERNEL_FUNCTIONS and inst:
+            name = f"{name}<{inst[1]}>"
         short[name] = r
         log(f"ptxas {src_name} {name}: {r.get('registers', '?')} registers, "
             f"{r.get('stack', '?')} bytes stack frame, {r.get('spill_stores', '?')} bytes spill "
             f"stores, {r.get('spill_loads', '?')} bytes spill loads")
     for k in ENFORCED[src_name]:
-        r = short.get(k)
-        if r is None or "stack" not in r:
+        found = {n: r for n, r in short.items() if n == k or n.startswith(k + "<")}
+        if not found or any("stack" not in r for r in found.values()):
             raise AssertionError(f"ptxas reported nothing for {k}")
-        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
-            raise AssertionError(f"{k} has a {r['stack']}-byte stack frame or spills "
-                                 f"({r['spill_stores']}/{r['spill_loads']} bytes)")
+        for n, r in found.items():
+            if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+                raise AssertionError(f"{n} has a {r['stack']}-byte stack frame or spills "
+                                     f"({r['spill_stores']}/{r['spill_loads']} bytes)")
+    return short
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, hold_ms: float = 0.0) -> float:
@@ -5587,42 +5599,58 @@ class MeshCell:
             f"(recoveries {back['recoveries']}, breaker closed)")
 
 
-def exchange_row(recorder, launches: dict, rng) -> dict:
+def exchange_row(recorder, launches: dict, rng, ptxas: dict) -> dict:
     """The kernels line's row of exchange_slots, at the "mesh" path's median
     and largest launch: bit for bit against its plain version (index_copy_
     from each member's replica into the others') on fresh random replicas,
-    then timed by CUDA events beside the plain version, the bound (bytes
-    over the HBM rate: each row's slot and 32 bytes read once, 32 bytes
-    written to each other replica) and one index_copy_ of the same rows into
-    the replicas stacked in one tensor, the source rows gathered beforehand
-    (the library yardstick)."""
+    and so is its first design, the debug entry exchange_slots_warp_row (a
+    warp a row); then the two timed in turns by CUDA events (50 launches
+    behind the holding spin kernel, as ab_ms), beside the plain version, the
+    bound (bytes over the HBM rate: each row's slot and 32 bytes read once,
+    32 bytes written to each other replica) and one index_copy_ of the same
+    rows into the replicas stacked in one tensor, the source rows gathered
+    beforehand (the library yardstick). The kernel is also timed at one row
+    of the median launch (launch_floor_ms). Repeated launches find the rows
+    in L2, as the main path's exchange does right after the level kernels
+    wrote them: a time below the HBM bound is reported as L2-resident, not
+    as a share of the bound above 1. ``ptxas``: the registers, stack and
+    spills of each of the kernel's instances (a row a thread, and
+    EXCHANGE_RIF rows a thread above one wave)."""
     import torch
 
     from reth_tpu_torch.ops import fused_commit as fc
 
     name = "exchange_slots"
+    if fc.exchange_slots_warp_row.launches:
+        raise AssertionError(f"the debug entry exchange_slots_warp_row launched "
+                             f"{fc.exchange_slots_warp_row.launches} times before its timing")
     row = dict(name=name, route="cuda", source="reth_tpu_torch/ops/csrc/fused_level.cu",
                replaces="reth_tpu/ops/fused_commit.py:892",
-               launches_by_path={p: launches[p][name] for p in PATHS})
+               launches_by_path={p: launches[p][name] for p in PATHS}, ptxas=ptxas)
     row["launches"] = sum(row["launches_by_path"].values())
     calls = recorder.calls["mesh"][name]
     sizes = sorted(recorder.rows(name, a) for a in calls)
     log(f"{name} (main path mesh): {len(calls)} launches, rows per launch min {sizes[0]}, "
-        f"median {sizes[len(sizes) // 2]}, max {sizes[-1]}")
+        f"median {sizes[len(sizes) // 2]}, max {sizes[-1]}; ptxas {ptxas}")
     for label, (slots, bounds, s_rows, m) in recorder.picks(name, "mesh").items():
         base = [torch.from_numpy(rng.integers(0, 256, size=(s_rows, 32), dtype=np.uint8)).to("cuda")
                 for _ in range(m)]
         k_bufs = [b.clone() for b in base]
+        w_bufs = [b.clone() for b in base]
         r_bufs = [b.clone() for b in base]
         fc.exchange_slots(k_bufs, slots, bounds)
+        fc.exchange_slots_warp_row(w_bufs, slots, bounds)
         fc.exchange_slots_ref(r_bufs, slots, bounds)
         torch.cuda.synchronize()
         err = max(max_abs_err(a, b) for a, b in zip(k_bufs, r_bufs))
-        if err:
-            raise AssertionError(f"{name} differs from its plain version at the mesh path's "
-                                 f"{label} launch (max abs err {err})")
+        err_w = max(max_abs_err(a, b) for a, b in zip(w_bufs, r_bufs))
+        if err or err_w:
+            raise AssertionError(f"{name} (max abs err {err}) or exchange_slots_warp_row (max "
+                                 f"abs err {err_w}) differs from the plain version at the mesh "
+                                 f"path's {label} launch")
         n = slots.shape[0]
-        ms = cuda_ms(lambda: fc.exchange_slots(k_bufs, slots, bounds), 50, hold_ms=HOLD_MS)
+        ms, warp_ms = ab_ms(lambda: fc.exchange_slots(k_bufs, slots, bounds),
+                            lambda: fc.exchange_slots_warp_row(w_bufs, slots, bounds), 50)
         plain_ms = cuda_ms(lambda: fc.exchange_slots_ref(r_bufs, slots, bounds), 3)
         stacked = torch.stack(base).view(m * s_rows, 32)
         dst, src = [], []
@@ -5637,15 +5665,26 @@ def exchange_row(recorder, launches: dict, rng) -> dict:
         lib_ms = cuda_ms(lambda: stacked.index_copy_(0, dst, rows), 50, hold_ms=HOLD_MS)
         nbytes = n * (8 + 32 + 32 * (m - 1))
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        l2 = ms < b_ms
+        share = None if l2 else b_ms / ms
         log(f"{name} at the mesh path's {label} launch ({n} rows over {m} replicas of "
-            f"{s_rows} rows, {nbytes} B): bit-exact vs plain; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes)")
+            f"{s_rows} rows, {nbytes} B): both designs bit-exact vs plain; kernel {ms:.4f} ms, "
+            f"warp a row {warp_ms:.4f} ms, plain {plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms (bytes), "
+            + ("below the HBM bound: L2-resident" if l2 else f"{share:.3f} of the bound"))
         if label == "median":
-            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
-                       library_ms=lib_ms, rows_timed=n, replicas=m)
+            one = [0] + [1] * m
+            floor_ms = cuda_ms(lambda: fc.exchange_slots(k_bufs, slots[:1], one), 50,
+                               hold_ms=HOLD_MS)
+            log(f"{name} at one row over {m} replicas (the launch floor): {floor_ms:.4f} ms")
+            row.update(max_abs_err=max(err, err_w), ms=ms, warp_row_ms=warp_ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+                       launch_floor_ms=floor_ms, rows_timed=n, replicas=m)
         else:
-            row.update(largest_ms=ms, largest_plain_ms=plain_ms, largest_bound_ms=b_ms,
-                       largest_library_ms=lib_ms, largest_rows_timed=n, largest_replicas=m)
+            row.update(largest_ms=ms, largest_warp_row_ms=warp_ms, largest_plain_ms=plain_ms,
+                       largest_bound_ms=b_ms, largest_library_ms=lib_ms,
+                       largest_bound_share=share, largest_l2_resident=l2,
+                       largest_rows_timed=n, largest_replicas=m)
     return row
 
 
@@ -6696,9 +6735,10 @@ def smoke(args, t_start: float, srcs, paths, kids: dict) -> int:
     import torch
 
     libs = {s.name: str(p) for s, p in zip(srcs, paths)}
+    ptxas = {}
     for s, p in zip(srcs[:2], paths[:2]):
         log_path = p.with_name(p.name + ".log")
-        check_ptxas(s.name, log_path.read_text() if log_path.exists() else "")
+        ptxas.update(check_ptxas(s.name, log_path.read_text() if log_path.exists() else ""))
     check_coherent_digest_loads(libs["fused_level.cu"], "subtrie_levels_kernel")
     bound = make_bound(libs)
     # the warm-up's children run beside the paths below (their launches are
@@ -6728,7 +6768,9 @@ def smoke(args, t_start: float, srcs, paths, kids: dict) -> int:
     log(f"hot drills (the drills' child): {json.dumps(res['hot'])}")
     log(f"control drills: {json.dumps(res['control'])}")
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
-    rows.append(exchange_row(recorder, launches, np.random.default_rng(args.seed + 4)))
+    rows.append(exchange_row(recorder, launches, np.random.default_rng(args.seed + 4),
+                             {n: r for n, r in ptxas.items()
+                              if n.startswith("exchange_slots_kernel<")}))
     for r in rows:
         if r["name"] == "subtrie_levels":
             r.update(probe)

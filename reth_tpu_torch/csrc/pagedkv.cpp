@@ -812,12 +812,43 @@ bool table_put(Txn* t, TableInfo* ti, std::string_view key,
   return true;
 }
 
+// Whether a delete finds what it removes: the key and, for a dup delete,
+// that value under it, looked up by read-only descents. A write descent
+// copies every page on its path, the table's root and a dup subtree's root
+// among them, and frees the originals; a delete that then found nothing
+// would return without marking the table dirty, and the catalog would keep
+// the freed root. So table_del descends for write only after this.
+bool del_finds(Txn* t, uint32_t root, std::string_view key,
+               const std::string* val) {
+  Path path;
+  bool exact;
+  if (!tree_descend(t, &root, key, path, false, &exact) || !exact)
+    return false;
+  if (val == nullptr) return true;
+  LeafView v = leaf_view(cell_at(tx_page(t, path.back().pgno),
+                                 path.back().idx));
+  if (v.flags == L_DUPTREE) {
+    uint32_t sub = g32(v.payload);
+    return tree_descend(t, &sub, *val, path, false, &exact) && exact;
+  }
+  if (v.flags == L_DUPIN) {
+    std::vector<std::string> dups = dup_unpack(v.payload, v.payload_sz);
+    return std::binary_search(dups.begin(), dups.end(), *val);
+  }
+  std::string prior;
+  if (v.flags == L_OVERFLOW)
+    ov_read(t, g32(v.payload), prior);
+  else
+    prior.assign(reinterpret_cast<const char*>(v.payload), v.vlen);
+  return prior == *val;
+}
+
 bool table_del(Txn* t, TableInfo* ti, std::string_view key,
                const std::string* val) {
   Path path;
   bool exact;
-  if (!tree_descend(t, &ti->root, key, path, ti->root != 0, &exact) || !exact)
-    return false;
+  if (!del_finds(t, ti->root, key, val)) return false;
+  tree_descend(t, &ti->root, key, path, true, &exact);
   LeafView v = leaf_view(cell_at(tx_page(t, path.back().pgno),
                                  path.back().idx));
   uint64_t n = (v.flags == L_DUPIN)     ? g32(v.payload)

@@ -1,9 +1,11 @@
 """Cross-block import pipeline: execute block N+1 while block N commits.
 
 A copy of the JAX package's ``engine/block_pipeline.py`` on the port's modules.
-The mesh is not ported, so a hash service has no ``mesh`` and no lease:
-the speculation prehashes on the proof lane (or the committer's hasher),
-as the reference does without a mesh. A failed prehash batch is counted
+When the committer's hash service has a mesh (``HashService(mesh=)`` over a
+``parallel.HashMesh``), the speculation takes a sub-mesh lease
+(``pipeline_lease``) and prehashes on the leased members; without one it
+prehashes on the proof lane (or the committer's hasher), as the reference
+does. A failed prehash batch is counted
 (``prehash_failed``) and its keys hash again at adoption on the same
 device; a failed build of the native core raises.
 

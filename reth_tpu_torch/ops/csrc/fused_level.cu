@@ -3,7 +3,8 @@
 // persistent launch, each level through the same row assembly, a narrow
 // level with five lanes to a row (the five-lane tiles below); and the
 // mesh's digest exchange (exchange_slots, before the host entry points),
-// which copies a level's digests between the members' replicas.
+// which copies a level's digests between the members' replicas, and its
+// first design, the debug entry exchange_slots_warp_row.
 //
 // packed_level replaces the JAX package's ops/fused_commit.py _packed_level
 // (an XLA program): gather each PACKED row's RLP bytes from the level's
@@ -640,28 +641,106 @@ __global__ void keccak_perm_probe_kernel(uint64_t* out, int perms, int lanes5) {
 // own row range of a level into its own replica of the (S, 32) buffer; this
 // kernel then copies the 32-byte row at each of the level's slots from the
 // replica of the member that wrote it (the range in `bounds` holding the row)
-// into every other replica. One warp a row: lane l moves 16-byte chunk l & 1
-// to destination l >> 1 (16 destinations a pass), every lane loading its
-// chunk from the owner (the loads of a chunk broadcast within the warp).
-// Bound: bytes, 8 (slot) + 32 read + 32 written per destination a row, far
-// below any instruction limit. The replicas are passed by value
-// (__grid_constant__, so the owner's runtime index reads kernel parameter
-// space, no local copy). On one card the replicas share its memory; across
-// cards the launching card reaches the others' replicas by peer access
-// (exchange_enable_peers).
+// into every other replica.
+//
+// Bound: bytes, 8 (slot) + 32 read + 32 written to each other replica, per
+// row, far below any instruction limit. The kernel runs right after the
+// level kernels wrote its rows, so the rows are usually L2-resident and a
+// launch can beat the HBM bound.
+//
+// What held the first design back (kept below as the debug entry
+// exchange_slots_warp_row, timed beside this one by chip_smoke.py): it gave
+// a warp to each row, lane l moving 16-byte half l & 1 to destination l >> 1,
+// so only 2(m-1) of 32 lanes worked (4 at three replicas), and each warp made
+// two dependent loads (the slot, then the owner's row) for 32 bytes. The
+// main path's largest launch (167,548 rows) was some 20 waves of resident
+// warps, each waiting out two memory latencies: latency-bound, at a quarter
+// of its bytes bound. This design:
+//   - one thread per (row, 16-byte half), 16 rows a warp; a row's two halves
+//     are neighbouring threads, so a row is one aligned 32-byte sector, and
+//     a warp over consecutive slots reads and writes 512 contiguous bytes;
+//     each thread stores its half into the m-1 other replicas back to back;
+//   - a launch larger than one wave of resident blocks at a row a thread
+//     takes EXCHANGE_RIF rows a thread, a grid's pass apart: each thread
+//     issues its slot loads for all of them, then all their owner loads,
+//     then the stores, EXCHANGE_RIF independent load chains where the first
+//     design had one a warp. The grid is sized from the rows and capped at
+//     one wave, so the largest launch runs in about one wave. A launch that
+//     one wave covers takes a row a thread (the R = 1 instance): there the
+//     four-row body, its unrolled chains mostly empty, only lengthens the
+//     launch, and the main path's median launch (164 rows) sits at the
+//     launch floor, where the first design already was;
+//   - the owner of a row is the count of bounds[1..15] at or below it (the
+//     bounds rise and the entries past bounds[members] repeat the row
+//     count), compile-time indices into parameter space, no branch;
+//   - slots and the owner's row are read through the non-coherent path
+//     (__ldg): no location is both read and written in one launch, since the
+//     level's slots are distinct and at each slot the owner's replica is only
+//     read and the others only written.
+// The replicas and bounds are passed by value (__grid_constant__, so the
+// owner's runtime index reads kernel parameter space, no local copy). On one
+// card the replicas share its memory; across cards the launching card
+// reaches the others' replicas by peer access (exchange_enable_peers), which
+// has not run: the machines this was measured on hold one card.
 constexpr int EXCHANGE_MAX_MEMBERS = 16;
-constexpr int EXCHANGE_ROWS = 8;  // rows (warps) a block
+constexpr int EXCHANGE_THREADS = 128;  // threads a block: 64 rows a pass
+constexpr int EXCHANGE_RIF = 4;        // rows in flight a thread, above one wave
+constexpr int EXCHANGE_WARP_ROWS = 8;  // the warp-a-row entry: rows (warps) a block
 
 struct ExchangeArgs {
     uint8_t* bufs[EXCHANGE_MAX_MEMBERS];
-    int64_t bounds[EXCHANGE_MAX_MEMBERS + 1];  // member j wrote rows [bounds[j], bounds[j+1])
+    // member j wrote rows [bounds[j], bounds[j+1]); the entries past
+    // bounds[members] repeat it (the launch's row count)
+    int64_t bounds[EXCHANGE_MAX_MEMBERS + 1];
     int members;
 };
 
-__global__ void __launch_bounds__(32 * EXCHANGE_ROWS)
+// R rows a thread (1 or EXCHANGE_RIF), a pass of the grid apart.
+template <int R>
+__global__ void __launch_bounds__(EXCHANGE_THREADS)
     exchange_slots_kernel(const __grid_constant__ ExchangeArgs a,
                           const int64_t* __restrict__ slots, int64_t n) {
-    const int64_t row = (int64_t)blockIdx.x * EXCHANGE_ROWS + (threadIdx.x >> 5);
+    const int64_t half = threadIdx.x & 1;
+    const int64_t pass = (int64_t)gridDim.x * (EXCHANGE_THREADS / 2);
+    for (int64_t row0 = ((int64_t)blockIdx.x * EXCHANGE_THREADS + threadIdx.x) >> 1; row0 < n;
+         row0 += R * pass) {
+        int64_t off[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int64_t row = row0 + r * pass;
+            off[r] = row < n ? __ldg((const long long*)slots + row) * 32 + 16 * half : -1;
+        }
+        int owner[R];
+        uint4 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int64_t row = row0 + r * pass;
+            owner[r] = 0;
+#pragma unroll
+            for (int j = 1; j < EXCHANGE_MAX_MEMBERS; ++j) owner[r] += row >= a.bounds[j];
+            v[r] = off[r] >= 0 ? __ldg((const uint4*)(a.bufs[owner[r]] + off[r]))
+                               : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            if (off[r] < 0) break;  // rows past the end come last
+            for (int d = 0; d < a.members - 1; ++d) {
+                const int k = d < owner[r] ? d : d + 1;
+                *(uint4*)(a.bufs[k] + off[r]) = v[r];
+            }
+        }
+    }
+}
+
+// Debug entry exchange_slots_warp_row (chip_smoke.py and the card tests
+// only, no main path): the first design, one warp a row, lane l moving
+// 16-byte chunk l & 1 to destination l >> 1 (16 destinations a pass), every
+// lane loading its chunk from the owner (the loads of a chunk broadcast
+// within the warp).
+__global__ void __launch_bounds__(32 * EXCHANGE_WARP_ROWS)
+    exchange_slots_warp_row_kernel(const __grid_constant__ ExchangeArgs a,
+                                   const int64_t* __restrict__ slots, int64_t n) {
+    const int64_t row = (int64_t)blockIdx.x * EXCHANGE_WARP_ROWS + (threadIdx.x >> 5);
     if (row >= n) return;
     const int lane = threadIdx.x & 31;
     int owner = 0;
@@ -791,23 +870,76 @@ extern "C" int keccak_perm_probe(void* out, int perms, int lanes5, void* stream)
     return (int)cudaGetLastError();
 }
 
-// The mesh's digest exchange (exchange_slots_kernel above): bufs holds
-// `members` replica pointers and bounds members + 1 row boundaries, both in
-// host memory; slots (n int64) lies on the launching card.
-extern "C" int exchange_slots(void* const* bufs, const int64_t* bounds, int members,
-                              const void* slots, int64_t n, void* stream) {
-    if (n <= 0 || members <= 1) return 0;
-    if (members > EXCHANGE_MAX_MEMBERS) return (int)cudaErrorInvalidValue;
+// The exchange's arguments by value: bufs holds `members` replica pointers
+// and bounds members + 1 row boundaries, both in host memory.
+static ExchangeArgs exchange_args(void* const* bufs, const int64_t* bounds, int members) {
     ExchangeArgs a = {};
     for (int j = 0; j < members; ++j) {
         a.bufs[j] = (uint8_t*)bufs[j];
         a.bounds[j] = bounds[j];
     }
-    a.bounds[members] = bounds[members];
+    for (int j = members; j <= EXCHANGE_MAX_MEMBERS; ++j) a.bounds[j] = bounds[members];
     a.members = members;
-    const int64_t grid = (n + EXCHANGE_ROWS - 1) / EXCHANGE_ROWS;
-    exchange_slots_kernel<<<(unsigned)grid, 32 * EXCHANGE_ROWS, 0, (cudaStream_t)stream>>>(
-        a, (const int64_t*)slots, n);
+    return a;
+}
+
+// Blocks of exchange_slots_kernel<R> the current card holds at once (its
+// occupancy times the SMs), by card; negative: minus a CUDA error.
+template <int R>
+static int64_t exchange_wave(void) {
+    constexpr int CARDS = 64;
+    static int64_t wave[CARDS] = {};
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return -(int64_t)err;
+    if (dev < CARDS && wave[dev]) return wave[dev];
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exchange_slots_kernel<R>,
+                                                            EXCHANGE_THREADS, 0);
+    if (err != cudaSuccess) return -(int64_t)err;
+    const int64_t w = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+    if (dev < CARDS) wave[dev] = w;
+    return w;
+}
+
+// The mesh's digest exchange (exchange_slots_kernel above); slots (n int64)
+// lies on the launching card. A row a thread where one wave of resident
+// blocks covers the rows, else EXCHANGE_RIF rows a thread on at most one
+// wave.
+extern "C" int exchange_slots(void* const* bufs, const int64_t* bounds, int members,
+                              const void* slots, int64_t n, void* stream) {
+    if (n <= 0 || members <= 1) return 0;
+    if (members > EXCHANGE_MAX_MEMBERS) return (int)cudaErrorInvalidValue;
+    constexpr int64_t ROWS = EXCHANGE_THREADS / 2;  // a block's rows a pass
+    const int64_t wave1 = exchange_wave<1>();
+    if (wave1 < 0) return (int)-wave1;
+    const ExchangeArgs a = exchange_args(bufs, bounds, members);
+    const int64_t need = (n + ROWS - 1) / ROWS;
+    if (need <= wave1) {
+        exchange_slots_kernel<1><<<(unsigned)need, EXCHANGE_THREADS, 0, (cudaStream_t)stream>>>(
+            a, (const int64_t*)slots, n);
+    } else {
+        const int64_t wave = exchange_wave<EXCHANGE_RIF>();
+        if (wave < 0) return (int)-wave;
+        const int64_t need_r = (n + ROWS * EXCHANGE_RIF - 1) / (ROWS * EXCHANGE_RIF);
+        exchange_slots_kernel<EXCHANGE_RIF>
+            <<<(unsigned)(need_r < wave ? need_r : wave), EXCHANGE_THREADS, 0,
+               (cudaStream_t)stream>>>(a, (const int64_t*)slots, n);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The first design's entry (exchange_slots_warp_row_kernel; chip_smoke.py and
+// the card tests only), with exchange_slots' arguments.
+extern "C" int exchange_slots_warp_row(void* const* bufs, const int64_t* bounds, int members,
+                                       const void* slots, int64_t n, void* stream) {
+    if (n <= 0 || members <= 1) return 0;
+    if (members > EXCHANGE_MAX_MEMBERS) return (int)cudaErrorInvalidValue;
+    const int64_t grid = (n + EXCHANGE_WARP_ROWS - 1) / EXCHANGE_WARP_ROWS;
+    exchange_slots_warp_row_kernel<<<(unsigned)grid, 32 * EXCHANGE_WARP_ROWS, 0,
+                                     (cudaStream_t)stream>>>(
+        exchange_args(bufs, bounds, members), (const int64_t*)slots, n);
     return (int)cudaGetLastError();
 }
 

@@ -136,8 +136,9 @@ def _fused_lib() -> ctypes.CDLL:
     lib.subtrie_levels_lanes5_rows.argtypes = []
     lib.keccak_perm_probe.restype = c_int
     lib.keccak_perm_probe.argtypes = [p, c_int, c_int, p]
-    lib.exchange_slots.restype = c_int
-    lib.exchange_slots.argtypes = [p, p, c_int, p, i64, p]
+    for fn in (lib.exchange_slots, lib.exchange_slots_warp_row):
+        fn.restype = c_int
+        fn.argtypes = [p, p, c_int, p, i64, p]
     lib.exchange_enable_peers.restype = c_int
     lib.exchange_enable_peers.argtypes = [p, c_int]
     return lib
@@ -397,24 +398,20 @@ def exchange_slots_ref(bufs, slots, bounds):
                 dst.index_copy_(0, ids.to(dst.device), rows.to(dst.device))
 
 
-def exchange_slots(bufs, slots, bounds):
-    """Copy a level's digests between the mesh members' replicas
-    (``csrc/fused_level.cu exchange_slots``): member j wrote the rows at
-    ``slots[bounds[j]:bounds[j+1]]`` into its replica ``bufs[j]``; afterwards
-    every replica holds every row. ``bufs``: (S, 32) u8 replicas, ``slots``:
-    (n,) int64 on the first replica's device, ``bounds``: m + 1 ints on the
-    host. CPU replicas run the plain version; CUDA replicas launch the
-    kernel on the first replica's card (the current stream there), reaching
-    replicas on other cards by peer access."""
+def _exchange(entry: str, bufs, slots, bounds) -> bool:
+    """Run one exchange: the plain version on CPU replicas, else ``entry``
+    of ``csrc/fused_level.cu`` on the first replica's card (the current
+    stream there), reaching replicas on other cards by peer access. True
+    when it launched the kernel."""
     n = _check_exchange(bufs, slots, bounds)
     m = len(bufs)
     if m < 2 or n == 0:
-        return
+        return False
     if bufs[0].device.type == "cpu":
         exchange_slots_ref(bufs, slots, bounds)
-        return
+        return False
     if m > EXCHANGE_MAX_MEMBERS:
-        raise ValueError(f"exchange_slots: {m} replicas, at most {EXCHANGE_MAX_MEMBERS}")
+        raise ValueError(f"{entry}: {m} replicas, at most {EXCHANGE_MAX_MEMBERS}")
     lib = _fused_lib()
     cards = tuple(sorted({b.device.index for b in bufs}))
     if len(cards) > 1 and cards not in _peers_enabled:
@@ -424,12 +421,37 @@ def exchange_slots(bufs, slots, bounds):
     ptrs = (ctypes.c_void_p * m)(*(b.data_ptr() for b in bufs))
     bnd = (ctypes.c_int64 * (m + 1))(*bounds)
     with torch.cuda.device(bufs[0].device):
-        err = lib.exchange_slots(ptrs, bnd, m, slots.data_ptr(), n, stream_handle(bufs[0]))
-    _build.check_launch(err, "exchange_slots")
-    exchange_slots.launches += 1
+        err = getattr(lib, entry)(ptrs, bnd, m, slots.data_ptr(), n, stream_handle(bufs[0]))
+    _build.check_launch(err, entry)
+    return True
+
+
+def exchange_slots(bufs, slots, bounds):
+    """Copy a level's digests between the mesh members' replicas
+    (``csrc/fused_level.cu exchange_slots``): member j wrote the rows at
+    ``slots[bounds[j]:bounds[j+1]]`` into its replica ``bufs[j]``; afterwards
+    every replica holds every row. ``bufs``: (S, 32) u8 replicas, ``slots``:
+    (n,) int64 on the first replica's device, ``bounds``: m + 1 ints on the
+    host. CPU replicas run the plain version; CUDA replicas launch the
+    kernel on the first replica's card (the current stream there), reaching
+    replicas on other cards by peer access."""
+    if _exchange("exchange_slots", bufs, slots, bounds):
+        exchange_slots.launches += 1
 
 
 exchange_slots.launches = 0
+
+
+def exchange_slots_warp_row(bufs, slots, bounds):
+    """The exchange's first design, one warp a row (``csrc/fused_level.cu
+    exchange_slots_warp_row``), with ``exchange_slots``' arguments: a debug
+    entry that chip_smoke.py times beside the kernel. No main path calls it;
+    it counts its launches on its own."""
+    if _exchange("exchange_slots_warp_row", bufs, slots, bounds):
+        exchange_slots_warp_row.launches += 1
+
+
+exchange_slots_warp_row.launches = 0
 
 
 # -- template levels (TrieCommitter's bucket protocol) -------------------------

@@ -390,8 +390,9 @@ def full_state_root_turbo(provider: DatabaseProvider, backend: str = "device",
     the clean MerkleStage path
     (crates/stages/stages/src/stages/merkle.rs:184-330). ``device`` is the
     device backends' card (``"cpu"`` runs the kernels' plain versions);
-    ``mesh`` is the reference's seam, not ported
-    (``NotImplementedError``)."""
+    ``mesh``, a ``parallel.HashMesh``, shards the rebuild's level loop over
+    its members (``TurboCommitter(mesh=)``, the mesh engines of
+    ops/fused_commit.py)."""
     committer = TurboCommitter(backend=backend, supervisor=supervisor,
                                hash_service=hash_service, mesh=mesh, device=device)
     p = provider

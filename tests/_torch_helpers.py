@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -966,3 +968,75 @@ class SyncChain:
         slots = [bytes(rng.integers(0, 256, size=32, dtype=np.uint8)) for _ in range(4)]
         return (b"".join(slots) + self.zero_slots.pop(0)
                 + _word(int(rng.integers(1, 1 << 62))))
+
+
+# -- the cross-block import pipeline ---------------------------------------------
+
+
+HOLD_S = 120.0  # the longest a root phase waits for its child payload
+
+
+def hold_root_until_child_arrives(monkeypatch, tree, blocks) -> list:
+    """Make the two-deep overlap of ``import_chain`` deterministic: every
+    block that has a child in ``blocks`` holds its state-root phase (its
+    commit window open) until the child's ``on_new_payload`` has reached
+    ``try_speculate``, so a loaded host cannot close the window before the
+    child looks at it. Patches only ``tree``'s instance (through
+    ``monkeypatch``); returns the list
+    of blocks whose child did not arrive within ``HOLD_S`` (empty when the
+    overlap held)."""
+    parents = {b.hash for b in blocks[:-1]}
+    arrived = {h: threading.Event() for h in parents}
+    late: list = []
+    pipe = tree.pipeline
+    try_speculate = pipe.try_speculate
+
+    def speculate(block):
+        ev = arrived.get(block.header.parent_hash)
+        if ev is not None:
+            ev.set()
+        return try_speculate(block)
+
+    def held(root_fn):
+        def root(*args, **kwargs):
+            win = pipe.current_window()
+            if win is not None and win.block_hash in arrived:
+                if not arrived[win.block_hash].wait(HOLD_S):
+                    late.append(win.number)
+            return root_fn(*args, **kwargs)
+        return root
+
+    monkeypatch.setattr(pipe, "try_speculate", speculate)
+    for name in ("_sparse_root_or_fallback", "_state_root_job"):
+        monkeypatch.setattr(tree, name, held(getattr(tree, name)))
+    return late
+
+
+def pipeline_chain(testing, account_cls, committer, n_blocks: int = 5, n_wallets: int = 6,
+                   txs_per_block: int = 4, seed: int = 11):
+    """tests/test_block_pipeline.py's ``build_chain`` on a package's own
+    ``testing`` module (``ChainBuilder``, ``Wallet``) and ``Account``: random
+    transfers with same-sender nonce chains inside a block and receivers of
+    block i spending in block i + 1. Both packages seal the same blocks."""
+    import random
+
+    rng = random.Random(seed)
+    wallets = [testing.Wallet(0x5EED + i) for i in range(n_wallets)]
+    genesis = {w.address: account_cls(balance=10**21) for w in wallets}
+    builder = testing.ChainBuilder(genesis, committer=committer)
+    prev_receivers: list[int] = []
+    for i in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            if prev_receivers and j < 2:
+                s = prev_receivers[j % len(prev_receivers)]
+            else:
+                s = rng.randrange(n_wallets)
+            r = rng.randrange(n_wallets)
+            txs.append(wallets[s].transfer(wallets[r].address, 10**14 + i * 100 + j))
+            prev_receivers = [r] + prev_receivers[:1]
+        s = rng.randrange(n_wallets)
+        txs.append(wallets[s].transfer(wallets[(s + 1) % n_wallets].address, 10**13))
+        txs.append(wallets[s].transfer(wallets[(s + 2) % n_wallets].address, 10**13))
+        builder.build_block(txs)
+    return builder

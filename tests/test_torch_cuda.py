@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from _torch_helpers import (EDGE_CASES, TEMPLATE_CASES, arena_level, edge_chain,
-                            edge_digest_buffer,
+                            edge_digest_buffer, hold_root_until_child_arrives, pipeline_chain,
                             edge_level, level_kernel_args, prefix_jobs, require_card,
                             sparse_block, sparse_state, staged_chunks, template_bucket,
                             template_buffer, template_levels, threshold_chain)
@@ -1145,33 +1145,71 @@ def test_net_legs_on_card_match_cpu(tmp_path):
 # -- the member mesh: exchange_slots and the mesh engines ------------------------
 
 
-def _exchange_case(m: int, rows: int, n: int, seed: int):
-    """``m`` random replicas of ``rows`` slots, ``n`` distinct slots split
-    into m ranges in roster order (the last one short)."""
+def _exchange_case(m: int, rows: int, n: int, seed: int, layout: str = "scattered"):
+    """``m`` random replicas of ``rows`` slots and ``n`` distinct slots in m
+    ranges in roster order: ``layout`` "scattered" (random slots, even
+    ranges, the last one short), "consecutive" (slots 7, 8, ...),
+    "warp-split" (scattered, members' boundaries at rows 5, 11, 17, ...:
+    inside a warp's 16 rows, and inside a block's 8 of the warp-a-row
+    design) or "empty" (scattered, member 1's range
+    empty)."""
     rng = np.random.default_rng(seed)
     base = [torch.from_numpy(rng.integers(0, 256, size=(rows, 32), dtype=np.uint8)).cuda()
             for _ in range(m)]
-    slots = torch.from_numpy(rng.choice(np.arange(1, rows), size=n, replace=False)).cuda()
+    ids = (np.arange(7, 7 + n) if layout == "consecutive"
+           else rng.choice(np.arange(1, rows), size=n, replace=False))
+    slots = torch.from_numpy(ids.astype(np.int64)).cuda()
     shard = -(-n // m)
     bounds = [min(j * shard, n) for j in range(m)] + [n]
+    if layout == "warp-split":
+        bounds = [0] + [min(n, 6 * j - 1) for j in range(1, m)] + [n]
+    elif layout == "empty":
+        bounds[2] = bounds[1]
     return base, slots, bounds
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n", [(2, 1), (3, 1000), (4, 4097), (16, 300)])
-def test_exchange_slots_matches_index_copy_on_card(m, n):
-    require_card()
-    base, slots, bounds = _exchange_case(m, 5000, n, seed=m)
+# n of 1, 15, 16, 17 and counts that are no multiple of a block's 64 rows a
+# pass or 256 rows at 4 rows a thread; counts above one wave of resident
+# blocks at a row a thread (about 135,000 rows on an H100), which take 4 rows
+# a thread, one of them past 4 rows a thread of one wave (several trips of
+# the grid); boundaries inside a warp; an empty member
+EXCHANGE_CASES = [(2, 1, "scattered"), (3, 1000, "scattered"), (4, 4097, "scattered"),
+                  (16, 300, "scattered"), (3, 15, "scattered"), (4, 16, "consecutive"),
+                  (16, 17, "scattered"), (2, 4097, "consecutive"), (3, 100, "warp-split"),
+                  (16, 100, "warp-split"), (3, 40, "empty"), (4, 1000, "empty"),
+                  (3, 167_548, "scattered"), (2, 600_001, "consecutive")]
+
+
+def _exchange_matches(fn, m: int, n: int, layout: str) -> None:
+    base, slots, bounds = _exchange_case(m, max(5000, n + 100), n, seed=m + n, layout=layout)
     k_bufs = [b.clone() for b in base]
     r_bufs = [b.clone() for b in base]
-    before = fc.exchange_slots.launches
-    fc.exchange_slots(k_bufs, slots, bounds)
+    before = fn.launches
+    fn(k_bufs, slots, bounds)
     fc.exchange_slots_ref(r_bufs, slots, bounds)
     torch.cuda.synchronize()
-    assert fc.exchange_slots.launches == before + 1
+    assert fn.launches == before + 1
     for a, b in zip(k_bufs, r_bufs):
         assert torch.equal(a, b)
     assert all(torch.equal(k_bufs[0][slots], b[slots]) for b in k_bufs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,layout", EXCHANGE_CASES)
+def test_exchange_slots_matches_index_copy_on_card(m, n, layout):
+    require_card()
+    _exchange_matches(fc.exchange_slots, m, n, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,layout", EXCHANGE_CASES)
+def test_exchange_slots_warp_row_matches_index_copy_on_card(m, n, layout):
+    """The first design, kept as a debug entry, on the same cases; it does
+    not count as the exchange's launch."""
+    require_card()
+    before = fc.exchange_slots.launches
+    _exchange_matches(fc.exchange_slots_warp_row, m, n, layout)
+    assert fc.exchange_slots.launches == before
 
 
 @pytest.mark.cuda
@@ -1207,6 +1245,60 @@ def test_mesh_engines_on_repeated_card_match_single_engine(k):
     assert [r.branch_nodes for r in got] == [r.branch_nodes for r in want]
     assert fc.exchange_slots.launches > before
     assert [e.replicas_checked for e in made] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_two_deep_import_over_meshed_service_on_card_matches_serial(monkeypatch):
+    """The cross-block import pipeline two deep over a meshed hash service on
+    cuda:0 named twice (the committer wired as the reference's cli.py wires
+    --mesh --hash-service): the speculation takes the service's sub-mesh
+    lease, and state roots, receipts and senders equal a serial import's on
+    one card; every lease is released."""
+    from reth_tpu_torch import testing as ptesting
+    from reth_tpu_torch.engine import EngineTree
+    from reth_tpu_torch.engine import block_pipeline
+    from reth_tpu_torch.ops.hash_service import HashService
+    from reth_tpu_torch.parallel import HashMesh
+    from reth_tpu_torch.primitives.keccak import keccak256_batch_np
+    from reth_tpu_torch.storage import MemDb, ProviderFactory
+    from reth_tpu_torch.storage.genesis import init_genesis
+
+    require_card()
+    builder = pipeline_chain(ptesting, Account,
+                             TrieCommitter(hasher=keccak256_batch_np, device="cpu"))
+    blocks = builder.blocks[1:]
+
+    def tree(depth, mesh=None):
+        c, svc = TrieCommitter(device="cuda"), None
+        if mesh is not None:
+            c.hash_mesh = mesh
+            c.hash_service = svc = HashService(backend=c.hasher, mesh=mesh,
+                                               registry=MetricsRegistry())
+            c.hasher = svc.client("live")
+        factory = ProviderFactory(MemDb())
+        init_genesis(factory, builder.genesis, builder.accounts_at_genesis, committer=c)
+        return EngineTree(factory, committer=c, persistence_threshold=100,
+                          pipeline_depth=depth), svc
+
+    piped, svc = tree(2, HashMesh(["cuda:0"] * 2, registry=MetricsRegistry()))
+    serial, _ = tree(1)
+    late = hold_root_until_child_arrives(monkeypatch, piped, blocks)
+    try:
+        got = block_pipeline.import_chain(piped, blocks, fcu=False, overlap=True)
+    finally:
+        svc.stop()
+    one = block_pipeline.import_chain(serial, blocks, fcu=False, overlap=False)
+    assert late == []
+    assert [s.status.value for s in got] == [s.status.value for s in one] == ["VALID"] * len(
+        blocks)
+    for b in blocks:
+        p, q = piped.blocks[b.hash], serial.blocks[b.hash]
+        assert p.block.header.state_root == q.block.header.state_root == b.header.state_root
+        assert [r.encode_2718() for r in p.receipts] == [r.encode_2718() for r in q.receipts]
+        assert list(p.senders) == list(q.senders)
+    stats = piped.pipeline.stats_snapshot()
+    assert stats["adopted"] >= 1 and stats["leases_active"] == 0
+    assert svc.pipeline_leases >= 1
 
 
 @pytest.mark.cuda

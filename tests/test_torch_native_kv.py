@@ -13,9 +13,10 @@ clears and aborts goes through both packages' ``NativeDb`` and ``PagedDb``,
 each in a child process: the walks are equal, each package opens the other's
 store and walks it the same, and the engines' files are byte-identical
 (neither engine writes anything that varies from run to run: ``pagedkv.cpp``'s
-transaction ids count commits). One sequence makes the paged engine abort in
-both packages alike: a reference fault the copy keeps, shown on its own by
-``test_paged_engine_corrupts_after_deleting_an_absent_key``.
+transaction ids count commits). One sequence makes the reference's paged
+engine abort after a delete of an absent key, a fault the port's copy
+repairs: ``test_paged_engine_survives_deleting_an_absent_key`` and
+``test_paged_engine_survives_deleting_an_absent_value`` show it on its own.
 """
 
 from __future__ import annotations
@@ -64,8 +65,9 @@ def test_engines_build_from_the_ports_own_sources(tmp_path):
     """The port's copies are the reference's sources, ``pagedkv.cpp`` apart
     from how it maps its data file (a PROT_NONE reservation with the file
     mapped over its front as it grows, ``env_map_to``; the file format is
-    the same), and each engine loads from a library g++ built from them into
-    the port's build directory."""
+    the same) and from the absent-key delete's repair (``del_finds`` and the
+    two lines of ``table_del`` that call it), and each engine loads from a
+    library g++ built from them into the port's build directory."""
     import difflib
 
     from reth_tpu_torch.ops import _build
@@ -74,12 +76,20 @@ def test_engines_build_from_the_ports_own_sources(tmp_path):
     for src in ("kvstore.cpp", "kvstore_tsan.cpp"):
         assert (PORT_CSRC / src).read_bytes() == (REPO / "native" / src).read_bytes()
     ref = (REPO / "native" / "pagedkv.cpp").read_text().splitlines()
-    port = (PORT_CSRC / "pagedkv.cpp").read_text().splitlines()
+    port_text = (PORT_CSRC / "pagedkv.cpp").read_text()
+    repair = re.search(r"\n// Whether a delete finds what it removes.*?\n}\n", port_text, re.S)
+    assert repair and "bool del_finds(" in repair[0]
+    port = (port_text[:repair.start()] + port_text[repair.end():]).splitlines()
     changed = [line[1:] for line in difflib.unified_diff(ref, port, lineterm="", n=0)
                if line[:1] in "+-" and not line.startswith(("+++", "---"))]
     mapping = re.compile(r"^\s*(//|$)|map|MAP|fstat|PROT_|-1, 0\)|return true;|^\s*}$|^}$|"
                          r"if \(p == |uint64_t want|if \(want")
-    assert changed and all(mapping.search(line) for line in changed), changed
+    table_del = re.compile(r"del_finds\(t, ti->root, key, val\)|"
+                           r"tree_descend\(t, &ti->root, key, path, (true|ti->root != 0), &exact\)|"
+                           r"^\s*return false;$")
+    assert changed and all(mapping.search(line) or table_del.search(line)
+                           for line in changed), changed
+    assert sum("del_finds(" in line for line in changed) == 1
     native.NativeDb().close()
     native.PagedDb(tmp_path / "probe").close()
     built = _build.loaded_from()
@@ -667,18 +677,26 @@ def _walk(db) -> dict:
         return {t: list(tx.cursor(t).walk()) for t in ("t", "u", "d")}
 
 
-def _apply(db, txs, flush_every: int = 0, progress=None) -> None:
+def _apply(db, txs, flush_every: int = 0, progress=None, absent=None) -> None:
+    """Run ``txs`` on ``db``; ``absent``, a list, collects the (transaction,
+    operation) positions of the deletes of a key or a value that is not
+    there."""
     for i, (ops, aborted) in enumerate(txs):
         if progress is not None:
             progress(i)
         tx = db.tx_mut()
-        for op, table, k, v in ops:
+        for j, (op, table, k, v) in enumerate(ops):
+            if absent is not None and op in ("del", "delval") and (
+                    tx.get(table, k) is None if op == "del" else v not in tx.get_dups(table, k)):
+                absent.append((i, j))
             if op == "put":
                 tx.put(table, k, v)
             elif op == "dup":
                 tx.put(table, k, v, dupsort=True)
             elif op == "del":
                 tx.delete(table, k)
+            elif op == "delval":
+                tx.delete(table, k, v)
             elif op == "deldup":
                 dups = tx.get_dups(table, k)
                 if dups:
@@ -691,7 +709,7 @@ def _apply(db, txs, flush_every: int = 0, progress=None) -> None:
 
 
 # the write sequences run in a child per package and engine: the reference's
-# paged engine can abort the process (the watch item below)
+# paged engine can abort the process after a delete of an absent key
 _SEQUENCE_CHILD = textwrap.dedent("""
     import importlib, pickle, sys
     repo, pkg, spec = sys.argv[1:]
@@ -724,24 +742,41 @@ def _run_sequence(tmp: Path, pkg: str, engine: str, txs, path: Path, flush_every
 @pytest.mark.parametrize("engine", ["NativeDb", "PagedDb"])
 @pytest.mark.parametrize("seed", [1, 2])
 def test_random_sequence_walks_and_files_equal_across_packages(tmp_path, engine, seed):
-    """Both packages' engines take the same sequence to the same end: equal
-    walks (also ``MemDb``'s) and byte-identical files, each package's store
-    walked the same by the other; or, where the paged engine aborts on the
-    sequence (seed 2, the watch item below), the same abort at the same
-    transaction in both."""
+    """Both packages' engines take the same sequence to the same end: the
+    port's walks equal ``MemDb``'s and the reference's, and the files are
+    byte-identical, each package's store walked the same by the other. The
+    paged engines part where the sequence deletes an absent key: the port's
+    repaired copy goes on, the reference's can abort (seed 2, ROADMAP C
+    departures), and the files, which the reference's copied root then
+    changes, are compared only where neither package took that path: on the
+    same sequence less its absent-key deletes."""
     txs = _ops(seed)
     flush = 7 if engine == "NativeDb" else 0
     runs = {pkg: _run_sequence(tmp_path, pkg, engine, txs, tmp_path / pkg, flush)
             for pkg in ("reth_tpu", "reth_tpu_torch")}
-    assert runs["reth_tpu_torch"][0] == runs["reth_tpu"][0]
     outcome, walks = runs["reth_tpu_torch"]
-    if outcome[0] != 0:
-        assert engine == "PagedDb" and "tx_writable" in outcome[2][0]
-        return
-    assert runs["reth_tpu"][1] == walks
-    mem = PORT.MemDb()
-    _apply(mem, txs)
+    assert outcome == (0, str(len(txs) - 1), [])
+    mem, absent = PORT.MemDb(), []
+    _apply(mem, txs, absent=absent)
     assert _walk(mem) == walks
+    ref_outcome, ref_walks = runs["reth_tpu"]
+    diverged = engine == "PagedDb" and bool(absent)
+    if engine == "PagedDb" and seed == 2:
+        assert diverged and ref_outcome[0] == -signal.SIGABRT
+    if ref_outcome[0] != 0:
+        assert diverged and "tx_writable" in ref_outcome[2][0]
+    else:
+        assert ref_walks == walks
+    if diverged:
+        txs, tmp_path = _without(txs, absent), tmp_path / "kept"
+        tmp_path.mkdir()
+        runs = {pkg: _run_sequence(tmp_path, pkg, engine, txs, tmp_path / pkg)
+                for pkg in ("reth_tpu", "reth_tpu_torch")}
+        walks = runs["reth_tpu_torch"][1]
+        mem = PORT.MemDb()
+        _apply(mem, txs)
+        for outcome, got in runs.values():
+            assert outcome == (0, str(len(txs) - 1), []) and got == _walk(mem)
     assert _files(tmp_path / "reth_tpu_torch") == _files(tmp_path / "reth_tpu")
     for reader, writer in ((PORT, "reth_tpu"), (REF, "reth_tpu_torch")):
         db = getattr(reader.native, engine)(tmp_path / writer)
@@ -749,23 +784,63 @@ def test_random_sequence_walks_and_files_equal_across_packages(tmp_path, engine,
         db.close()
 
 
-def test_paged_engine_corrupts_after_deleting_an_absent_key(tmp_path):
-    """A reference fault the port's copy of ``pagedkv.cpp`` keeps (ROADMAP
-    C, watch items): a committed transaction that deletes an absent key
-    copies the table's root on write but leaves the catalog on the old root,
-    which it frees; a later transaction reuses that page for another table,
-    and the next write to the first table aborts the process
-    (``tx_writable``'s assertion). Both packages abort at the same place."""
+def _without(txs, absent) -> list:
+    """``txs`` less the operations at the ``absent`` positions."""
+    drop = set(absent)
+    return [([o for j, o in enumerate(ops) if (i, j) not in drop], aborted)
+            for i, (ops, aborted) in enumerate(txs)]
+
+
+def test_paged_engine_survives_deleting_an_absent_key(tmp_path):
+    """A committed transaction that deletes an absent key: the reference's
+    ``pagedkv.cpp`` copies the table's root on write but leaves the catalog
+    on the old root, which it frees; a later transaction reuses that page
+    for another table, and the next write to the first table aborts the
+    process (``tx_writable``'s assertion, transaction 3). The port's copy
+    looks the key up before it descends for write (``del_finds``), so its
+    ``PagedDb`` commits all four transactions and walks as ``MemDb`` does."""
     txs = [([("dup", "d", b"k1", b"x" * 32)], False),
            ([("put", "u", b"a", b"y" * 215)], False),
            ([("del", "u", b"absent", None)], False),
            ([("dup", "d", b"k2", b"z" * 7), ("put", "u", b"c", b"w" * 272)], False)]
-    outcomes = [_run_sequence(tmp_path, pkg, "PagedDb", txs, tmp_path / pkg)[0]
-                for pkg in ("reth_tpu", "reth_tpu_torch")]
-    assert outcomes[0] == outcomes[1]
-    assert outcomes[0][0] == -signal.SIGABRT and outcomes[0][1] == "3"
-    assert "tx_writable" in outcomes[0][2][0]
-    # without the absent-key delete the same writes commit
-    ok = _run_sequence(tmp_path, "reth_tpu_torch", "PagedDb", txs[:2] + txs[3:],
-                       tmp_path / "ok")
+    ref = _run_sequence(tmp_path, "reth_tpu", "PagedDb", txs, tmp_path / "reth_tpu")[0]
+    assert ref[0] == -signal.SIGABRT and ref[1] == "3"
+    assert "tx_writable" in ref[2][0]
+    port, walks = _run_sequence(tmp_path, "reth_tpu_torch", "PagedDb", txs,
+                                tmp_path / "reth_tpu_torch")
+    assert port == (0, "3", [])
+    mem = PORT.MemDb()
+    _apply(mem, txs)
+    assert _walk(mem) == walks
+    # without the absent-key delete the reference commits the same writes
+    ok = _run_sequence(tmp_path, "reth_tpu", "PagedDb", txs[:2] + txs[3:], tmp_path / "ok")
     assert ok[0] == (0, "2", [])
+
+
+@pytest.mark.parametrize("dups", [3, 40], ids=["in-leaf", "sub-tree"])
+def test_paged_engine_survives_deleting_an_absent_value(tmp_path, dups):
+    """The same repair for a dup delete whose key is present and whose value
+    is not: values kept in the leaf cell (3 of them) and values spilled to a
+    sub-tree (40 of 32 bytes, past the cell's 512-byte spill). The port's
+    ``PagedDb`` commits every transaction, later writes to both tables
+    included, and walks as ``MemDb`` does; so does a present value's delete
+    after it. The reference's copy aborts on the sub-tree case at the last
+    transaction's write."""
+    vals = [bytes([i]) * 32 for i in range(dups)]
+    txs = [([("dup", "d", b"k1", v) for v in vals], False),
+           ([("put", "u", b"a", b"y" * 215)], False),
+           ([("delval", "d", b"k1", b"\xff" * 32)], False),
+           ([("dup", "d", b"k2", b"z" * 7), ("put", "u", b"c", b"w" * 272),
+             ("dup", "d", b"k1", b"\xfe" * 32)], False),
+           ([("delval", "d", b"k1", vals[1]), ("put", "u", b"e", b"v" * 300)], False)]
+    absent = []
+    mem = PORT.MemDb()
+    _apply(mem, txs, absent=absent)
+    assert absent == [(2, 0)]
+    port, walks = _run_sequence(tmp_path, "reth_tpu_torch", "PagedDb", txs, tmp_path / "port")
+    assert port == (0, "4", [])
+    assert _walk(mem) == walks
+    assert len(walks["d"]) == dups + 1
+    if dups > 3:  # the reference's sub-tree case aborts at the next write after it
+        ref = _run_sequence(tmp_path, "reth_tpu", "PagedDb", txs, tmp_path / "ref")[0]
+        assert ref[0] == -signal.SIGABRT and ref[1] == "4" and "tx_writable" in ref[2][0]

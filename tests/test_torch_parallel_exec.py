@@ -15,13 +15,12 @@ fields. The import pipeline runs the small staged-sync chain
 
 from __future__ import annotations
 
-import threading
 import types
 
 import numpy as np
 import pytest
 
-from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain
+from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain, hold_root_until_child_arrives
 from reth_tpu import testing as jtesting
 from reth_tpu.engine import EngineTree as JEngineTree
 from reth_tpu.engine import bal as jbal
@@ -341,45 +340,6 @@ def _tables(tree) -> dict:
     return {name: dict(rows) for name, rows in tree.factory.db._tables.items() if rows}
 
 
-HOLD_S = 120.0  # the longest a root phase waits for its child payload
-
-
-def _hold_root_until_child_arrives(monkeypatch, tree, blocks) -> list:
-    """Make the two-deep overlap of ``import_chain`` deterministic: every
-    block that has a child in ``blocks`` holds its state-root phase (its
-    commit window open) until the child's ``on_new_payload`` has reached
-    ``try_speculate``, so a loaded host cannot close the window before the
-    child looks at it. Patches only ``tree``'s instance (through
-    ``monkeypatch``); returns the list
-    of blocks whose child did not arrive within ``HOLD_S`` (empty when the
-    overlap held)."""
-    parents = {b.hash for b in blocks[:-1]}
-    arrived = {h: threading.Event() for h in parents}
-    late: list = []
-    pipe = tree.pipeline
-    try_speculate = pipe.try_speculate
-
-    def speculate(block):
-        ev = arrived.get(block.header.parent_hash)
-        if ev is not None:
-            ev.set()
-        return try_speculate(block)
-
-    def held(root_fn):
-        def root(*args, **kwargs):
-            win = pipe.current_window()
-            if win is not None and win.block_hash in arrived:
-                if not arrived[win.block_hash].wait(HOLD_S):
-                    late.append(win.number)
-            return root_fn(*args, **kwargs)
-        return root
-
-    monkeypatch.setattr(pipe, "try_speculate", speculate)
-    for name in ("_sparse_root_or_fallback", "_state_root_job"):
-        monkeypatch.setattr(tree, name, held(getattr(tree, name)))
-    return late
-
-
 def _status(st):
     return (st.status.value, st.latest_valid_hash, st.validation_error)
 
@@ -408,7 +368,7 @@ def test_pipelined_import_equals_serial_and_reference(chain, parallel_exec, monk
     kw = dict(parallel_exec=parallel_exec, sparse_workers=1, persistence_threshold=0)
     ref, port, blocks = _trees(chain, pipeline_depth=2, **kw)
     _, serial, _ = _trees(chain, **kw)
-    late = _hold_root_until_child_arrives(monkeypatch, port, blocks)
+    late = hold_root_until_child_arrives(monkeypatch, port, blocks)
     got = [_status(s) for s in ppipeline.import_chain(port, blocks)]
     assert late == [], f"no child payload reached try_speculate within the hold: {late}"
     want = [_status(s) for s in jpipeline.import_chain(ref, chain.blocks[1:])]

@@ -209,10 +209,10 @@ def test_default_probe_without_a_card_fails_within_budget():
     assert "rc=1" in r.diag and "CUDA" in r.diag
 
 
-def test_probe_cache_dir_is_not_ported(tmp_path):
-    """Warm-up's compile-cache check is ported now: the child loads kernel 1
-    from the directory it is given. An empty directory (or a host without a
-    card) fails the child: a failed result, not an exception."""
+def test_probe_with_an_empty_cache_dir_fails_in_the_child(tmp_path):
+    """Warm-up's compile-cache check: the child loads kernel 1 from the
+    directory it is given. An empty directory (or a host without a card)
+    fails the child: a failed result, not an exception."""
     r = psup.probe_device(budget=120, cache_dir=str(tmp_path))
     assert not r.ok and r.latency < 120
     assert "rc=1" in r.diag
