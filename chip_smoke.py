@@ -384,6 +384,33 @@
    largest_warp_row_ms, launch_floor_ms, largest_bound_share or
    largest_l2_resident where the time beats the HBM bound, and ptxas's
    registers, stack and spills).
+   The node and the CLI (NodeLegs, path "node", in a child process of its
+   own: chip_smoke.py --node OUT --node-chain CHAIN, started as soon as the
+   sync chain's file exists and joined before step 5, so its launches are
+   its own process's): a) the chain's genesis as a geth-style genesis JSON
+   (its hash the chain's), reth_tpu_torch.cli.main(["init", ...]) and
+   ["import", ...] of the chain file on the default paged store, no
+   --device: head 8 at the chain's root; b) main(["node", ...]) over that
+   datadir on the child's main thread, driven over HTTP from a thread (JWT
+   from the datadir): blocks 9-11 from the chain child's first three
+   unsealed batches, each sent by eth_sendRawTransaction and built over the
+   engine API with the "payload" path's attributes (each holding its whole
+   batch; the main process holds their state roots equal to the "payload"
+   path's blocks 9-11), 64 eth_getProof at block 9 in one batch verified
+   against its root, SIGINT, main returns 0; then main(["node", ...,
+   "--subtrie-levels", "8", "--hot-state"]): recover_on_startup verifies
+   block 9's root (the persisted head at threshold 2), latest is block 9,
+   blocks 10 and 11 sent again over engine_newPayloadV2 (the hot-state
+   arena: kernel 4), SIGINT; c) python -u -m reth_tpu_torch node --dev
+   --block-time 0 --hasher auto as a process of its own: 8 transfers from
+   the dev key mined on arrival, SIGINT (exit 0), the same without --dev
+   (its head the first run's persisted block), SIGINT (exit 0). Every node
+   runs with --disable-p2p. The launch counts are zeroed before each main
+   and read after it: init kernel 1, import kernels 1-3, the first start
+   kernel 1, the second kernels 1 and 4, never exchange_slots; their sum
+   is the kernels line's "node" column. Each start's wall to serving, each
+   block's admission, build, newPayload and forkchoice walls, the proofs
+   and each main's wall are logged.
    Each path must launch its kernels and no other (the leased rebuild may
    also launch kernel 1, for its live client between leases). The
    arguments of every kernel launch of each path are kept; each engine's
@@ -429,7 +456,7 @@
    bound_ms it carries floor_bound_ms, the one-warp floor: like bound_ms,
    computed from this run's inputs, not measured (largest_bound_ms and
    largest_floor_bound_ms for the largest launch). ``launches`` is the sum
-   over the main paths; ``launches_by_path`` splits it (the template_levels,
+   over the main paths and "node"; ``launches_by_path`` splits it (the template_levels,
    sparse_absorb and sparse_subtrie rows count their own path's launches).
    keccak256_absorb's rows also carry unstaged_ms / largest_unstaged_ms, the
    debug entry's times at the same launches, and its first row check_* for
@@ -494,6 +521,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -1035,6 +1063,9 @@ PATHS = ("default", "k=8", "auto", "auto k=8", "state_root", "state_root auto", 
          "merkle incremental", "live tip", "live tip cached", "live tip reused",
          "live tip service", "proofs", "sync", "recovery", "engine", "engine parallel",
          "engine pipelined", "payload", "stateless", "rpc", "net", "mesh")
+# the launch columns of the kernels line: the main paths, and "node", the
+# path the --node child drives in a process of its own (NodeLegs)
+REPORTED_PATHS = PATHS + ("node",)
 # the kernels each main path must launch, and the only ones it may
 PATH_KERNELS = {"default": ("packed_level", "branch_level"), "k=8": ("subtrie_levels",),
                 "auto": ("packed_level", "branch_level"), "auto k=8": ("subtrie_levels",),
@@ -1376,7 +1407,7 @@ def kernel_timings(recorder: MainPathRecorder, launches: dict, bound: Bound, rng
             if name == "template_levels":
                 row["plain"] = "fused_commit.splice_level"
         else:
-            row["launches_by_path"] = {p: launches[p][name] for p in PATHS}
+            row["launches_by_path"] = {p: launches[p][name] for p in REPORTED_PATHS}
         row["launches"] = sum(row["launches_by_path"].values())
         for label, rec in recorder.picks(wrapper, path).items():
             extra = ""
@@ -2449,7 +2480,8 @@ class ChildProcess:
                 stdout=f, stderr=subprocess.STDOUT, cwd=HERE)
         self.t0 = time.perf_counter()
 
-    def result(self) -> dict:
+    def result(self, keep: bool = False) -> dict:
+        """``keep``: leave the output file for another child to read."""
         t0 = time.perf_counter()
         rc = self.proc.wait()
         with open(self.log) as f:
@@ -2459,7 +2491,7 @@ class ChildProcess:
             raise AssertionError(f"the {self.name}'s child process exited {rc}")
         with open(self.out) as f:
             res = json.load(f)
-        for path in (self.out, self.log):
+        for path in (self.log,) if keep else (self.out, self.log):
             os.remove(path)
         log(f"{self.name}: child process done after {time.perf_counter() - self.t0:.1f} s "
             f"(waited {time.perf_counter() - t0:.1f} s for it)")
@@ -4642,6 +4674,534 @@ class NetCell:
         log(f"net: launches {json.dumps(launches)}")
 
 
+# the "node" path: the node and the CLI at the sync cell's size, in a child
+# process of its own (``--node``), started once the sync chain's file exists
+NODE_BLOCKS = 3  # blocks 9-11 on the first start; at threshold 2, 9 is persisted at head 11
+NODE_PROOFS, NODE_SEED = 64, 59  # eth_getProof requests at block 9, and their seed
+NODE_TRANSFERS = 8  # leg c's transfers from the dev key, each mined on arrival
+NODE_KERNELS = {"init": ("keccak256_absorb",),
+                "import": ("keccak256_absorb", "packed_level", "branch_level"),
+                "start 1": ("keccak256_absorb",),
+                "start 2": ("keccak256_absorb", "subtrie_levels")}
+NODE_WAIT_S = 900.0  # the longest a node leg waits for one answer
+
+
+class StdoutTee:
+    """Stands in for ``sys.stdout`` while the CLI runs on the main thread:
+    each write goes on to the real stream and is kept, so a client thread
+    can wait for a printed line (``wait_for``)."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, ""
+        self.cond = threading.Condition()
+
+    def write(self, s: str) -> int:
+        self.stream.write(s)
+        with self.cond:
+            self.text += s
+            self.cond.notify_all()
+        return len(s)
+
+    def flush(self) -> None:
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    def wait_for(self, pattern: str, timeout: float = NODE_WAIT_S):
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                m = re.search(pattern, self.text)
+                if m or time.monotonic() > deadline:
+                    return m
+                self.cond.wait(1.0)
+
+
+class NodeLegs:
+    """The "node" path in the ``--node`` child: the port's CLI and node at the
+    sync cell's size (``sync_chain``'s genesis of --sync-accounts /
+    --sync-slots and its 8 blocks), through ``reth_tpu_torch.cli.main`` as an
+    operator calls it, on the card (no ``--device``). The kernels' launch
+    counts are zeroed before each ``main`` and read after it returns; each
+    ``main`` is a start of the path ("init", "import", "start 1", "start 2").
+
+    a) The chain's genesis (its alloc and header) as a geth-style genesis
+       JSON; ``init`` on the default paged store (the printed genesis hash
+       must be the chain's before ``import`` runs), then ``import`` of the
+       chain file: the head is block 8 at the chain's root.
+    b) ``node`` over the datadir on this process's main thread (JWT from the
+       datadir, no ``--dev``), driven from a thread: ``eth_blockNumber`` 8;
+       blocks 9-11 each from one of the child's unsealed batches sent by
+       ``eth_sendRawTransaction`` and built over the auth port
+       (``engine_forkchoiceUpdatedV2`` with the "payload" path's attributes,
+       ``engine_getPayloadV2``, ``engine_newPayloadV2`` VALID,
+       ``engine_forkchoiceUpdatedV2``), each holding its whole batch; after
+       block 9, NODE_PROOFS ``eth_getProof`` in one batch verified against
+       its root; SIGINT to the process, so ``main`` stops the node and
+       returns 0. At the node's persistence threshold (2) block 9 is
+       persisted and 10-11 are not. Then ``node --subtrie-levels 8
+       --hot-state`` again: ``recover_on_startup`` verifies block 9's root
+       on the card, ``latest`` is block 9, blocks 10 and 11 sent again
+       (``engine_newPayloadV2``: the hot-state arena, kernel 4) and
+       forkchoice moved to 11; SIGINT.
+    c) ``python -u -m reth_tpu_torch node --dev --block-time 0 --hasher auto``
+       as a process of its own on a fresh datadir: NODE_TRANSFERS transfers
+       from the dev key, each mined on arrival; SIGINT, exit 0; the same
+       command without ``--dev``: its head is the first run's persisted
+       block (two below its head), number and hash; SIGINT, exit 0.
+    Every node runs with ``--disable-p2p`` (no peers here)."""
+
+    def __init__(self, res: dict, base: Path):
+        self.res, self.base = res, base
+        self.walls: dict[str, float] = {}
+        self.launches: dict[str, dict] = {}
+        self.blocks: list[dict] = []
+        self.recoveries: list[dict] = []
+        self.datadir = base / "datadir"
+
+    # -- plumbing --------------------------------------------------------------
+
+    @staticmethod
+    def _wrappers() -> dict:
+        from reth_tpu_torch.ops import fused_commit as fc
+        from reth_tpu_torch.ops.keccak import keccak256_words_masked
+
+        return {"keccak256_absorb": keccak256_words_masked, "packed_level": fc.packed_level,
+                "branch_level": fc.branch_level, "subtrie_levels": fc.subtrie_levels,
+                "exchange_slots": fc.exchange_slots}
+
+    def run_main(self, label: str, argv: list[str], client=None) -> str:
+        """``cli.main(argv)`` on this thread with the launch counts zeroed
+        before and read after; ``client(tee, t0)`` runs beside it on a thread
+        of its own and must stop the node. Returns what ``main`` printed."""
+        import torch
+
+        from reth_tpu_torch import cli
+
+        wrappers = self._wrappers()
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        tee = StdoutTee(sys.stdout)
+        errors: list[BaseException] = []
+        running = threading.Event()
+        thread = None
+        t0 = time.perf_counter()
+        if client is not None:
+            def drive():
+                try:
+                    client(tee, t0)
+                except BaseException as e:  # re-raised below, after main returns
+                    errors.append(e)
+                finally:
+                    if running.is_set():  # the node stops either way
+                        os.kill(os.getpid(), signal.SIGINT)
+            thread = threading.Thread(target=drive, name=f"node-client-{label}", daemon=True)
+        real, sys.stdout = sys.stdout, tee
+        running.set()
+        try:
+            if thread is not None:
+                thread.start()
+            rc = cli.main(argv)
+        finally:
+            running.clear()
+            sys.stdout = real
+        if thread is not None:
+            thread.join(NODE_WAIT_S)
+            if thread.is_alive():
+                raise AssertionError(f"node: {label}: the client thread did not end")
+        torch.cuda.synchronize()
+        self.walls[label] = time.perf_counter() - t0
+        self.launches[label] = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"node: {label}: main returned {rc} after {self.walls[label]:.3f} s, launches "
+            f"{json.dumps(self.launches[label])}")
+        if errors:
+            raise AssertionError(f"node: {label}: {errors[0]!r}") from errors[0]
+        if rc != 0:
+            raise AssertionError(f"node: {label}: main returned {rc}")
+        return tee.text
+
+    def rpc(self, port: int, method: str, *params, token: str | None = None):
+        status, body = http_post(port, json.dumps(rpc_request(method, list(params))).encode(),
+                                 token)
+        out = json.loads(body)
+        if status != 200 or "error" in out:
+            raise AssertionError(f"node: {method}: HTTP {status}, {out.get('error')}")
+        return out["result"]
+
+    def serving(self, tee, t0: float, label: str):
+        """The two ports once the node prints them, and the engine's token
+        (the datadir's JWT secret); the wall to serving is kept."""
+        from reth_tpu_torch.rpc.jwt import encode_jwt, load_or_create_secret
+
+        m = tee.wait_for(r"RPC listening on 127\.0\.0\.1:(\d+), engine API on "
+                         r"127\.0\.0\.1:(\d+)")
+        if m is None:
+            raise AssertionError(f"node: {label}: the node never printed its ports")
+        self.walls[f"{label} to serving"] = time.perf_counter() - t0
+        secret = load_or_create_secret(self.datadir / "jwt.hex")
+        return int(m.group(1)), int(m.group(2)), lambda: encode_jwt(secret)
+
+    # -- leg a -------------------------------------------------------------------
+
+    def leg_a(self) -> None:
+        from _torch_helpers import geth_genesis
+
+        from reth_tpu_torch.primitives.types import Header
+        from reth_tpu_torch.storage import ProviderFactory, open_database
+
+        res = self.res
+        t0 = time.perf_counter()
+        fields = {bytes.fromhex(a): {"nonce": n, "balance": int(bal), "code": bytes.fromhex(c),
+                                     "storage": {bytes.fromhex(k): int(v) for k, v in st.items()}}
+                  for a, (n, bal, c, st) in res["alloc"].items()}
+        self.genesis_path = self.base / "genesis.json"
+        self.genesis_path.write_text(json.dumps(geth_genesis(
+            fields, Header.decode(bytes.fromhex(res["genesis"])))))
+        self.chain_path = self.base / "chain.rlp"
+        self.chain_path.write_bytes(bytes.fromhex(res["chain"]))
+        self.fields = fields
+        self.walls["a set-up"] = time.perf_counter() - t0
+        g, d = str(self.genesis_path), str(self.datadir)
+        out = self.run_main("init", ["init", "--datadir", d, "--genesis", g])
+        if f"hash=0x{res['genesis_hash']} chain_id=1" not in out:
+            raise AssertionError(f"node: init: the genesis JSON's hash is not the chain's "
+                                 f"{res['genesis_hash']}: {out.strip()}")
+        out = self.run_main("import", ["import", "--datadir", d, "--genesis", g,
+                                       str(self.chain_path)])
+        if (f"imported {SYNC_BLOCKS} blocks, tip={SYNC_BLOCKS}" not in out
+                or f"pipeline synced to {SYNC_BLOCKS}" not in out):
+            raise AssertionError(f"node: import: {out.strip()}")
+        db = open_database("paged", self.datadir)
+        try:
+            with ProviderFactory(db).provider() as p:
+                head = p.header_by_number(p.last_block_number())
+        finally:
+            db.close()
+        if (head.number, head.state_root.hex()) != (SYNC_BLOCKS, res["roots"][str(SYNC_BLOCKS)]):
+            raise AssertionError(f"node: import: head {head.number} at "
+                                 f"{head.state_root.hex()}, the chain's tip is {SYNC_BLOCKS} "
+                                 f"at {res['roots'][str(SYNC_BLOCKS)]}")
+        log(f"node: a) init and import: the genesis hash {res['genesis_hash']}; head "
+            f"{head.number} at the chain's root {head.state_root.hex()}")
+
+    # -- leg b -------------------------------------------------------------------
+
+    def _attrs(self, i: int, parent: dict) -> dict:
+        """Block 9 + i's attributes: the "payload" path's (block 9 by its
+        miner: no fee recipient and no withdrawals; 10 and 11 by its service
+        and producer: PAYLOAD_COINBASE and the batch's withdrawals)."""
+        batch = self.res["batches"][i]
+        coinbase = "0x" + (b"\x00" * 20 if i == 0 else PAYLOAD_COINBASE).hex()
+        wds = [] if i == 0 else [{"index": hex(w[0]), "validatorIndex": hex(w[1]),
+                                  "address": "0x" + w[2], "amount": hex(w[3])}
+                                 for w in batch["withdrawals"]]
+        return {"timestamp": hex(int(parent["timestamp"], 16) + 12),
+                "prevRandao": "0x" + "00" * 32, "suggestedFeeRecipient": coinbase,
+                "withdrawals": wds}
+
+    def _build(self, ports, token, i: int) -> dict:
+        """Block 9 + i over the node's servers: the batch sent, the payload
+        built, imported and made canonical."""
+        public, auth = ports
+        batch = self.res["batches"][i]
+        rec = {"number": batch["number"]}
+        t0 = time.perf_counter()
+        # one at a time, in the batch's order: the pool's tie-breaks then
+        # match the "payload" path's, whose batcher took them in that order
+        sent = [self.rpc(public, "eth_sendRawTransaction", "0x" + raw) for raw in batch["txs"]]
+        rec["admit_s"] = time.perf_counter() - t0
+        parent = self.rpc(public, "eth_getBlockByNumber", "latest", False)
+        head = parent["hash"]
+        t0 = time.perf_counter()
+        fcu = self.rpc(auth, "engine_forkchoiceUpdatedV2",
+                       {"headBlockHash": head, "safeBlockHash": head, "finalizedBlockHash": head},
+                       self._attrs(i, parent), token=token())
+        payload = self.rpc(auth, "engine_getPayloadV2", fcu["payloadId"],
+                           token=token())["executionPayload"]
+        rec["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        status = self.rpc(auth, "engine_newPayloadV2", payload, token=token())
+        rec["new_payload_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fcu2 = self.rpc(auth, "engine_forkchoiceUpdatedV2",
+                        {"headBlockHash": payload["blockHash"], "safeBlockHash": head,
+                         "finalizedBlockHash": head}, token=token())
+        rec["fcu_s"] = time.perf_counter() - t0
+        if (fcu["payloadStatus"]["status"], status["status"],
+                fcu2["payloadStatus"]["status"]) != ("VALID",) * 3:
+            raise AssertionError(f"node: block {rec['number']}: {fcu['payloadStatus']}, "
+                                 f"{status}, {fcu2['payloadStatus']}")
+        hashes = sorted(h.lower() for h in sent)
+        from reth_tpu_torch.primitives.keccak import keccak256
+
+        held = sorted("0x" + keccak256(bytes.fromhex(t[2:])).hex()
+                      for t in payload["transactions"])
+        if len(payload["transactions"]) != len(batch["txs"]) or held != hashes:
+            raise AssertionError(f"node: block {rec['number']} holds "
+                                 f"{len(payload['transactions'])} transactions of its batch's "
+                                 f"{len(batch['txs'])}")
+        rec.update(hash=payload["blockHash"][2:], root=payload["stateRoot"][2:],
+                   txs=len(payload["transactions"]), gas=int(payload["gasUsed"], 16))
+        self.payloads.append(payload)
+        return rec
+
+    def _proofs(self, public: int, root: str) -> dict:
+        """NODE_PROOFS ``eth_getProof`` at block 9 in one JSON batch: seeded
+        genesis accounts with up to two of their slots and one absent slot,
+        each verified against the root."""
+        rng = np.random.default_rng(NODE_SEED)
+        addrs = sorted(self.fields)
+        reqs = []
+        for j in rng.choice(len(addrs), size=NODE_PROOFS, replace=False):
+            addr = addrs[int(j)]
+            own = sorted(self.fields[addr].get("storage", {}))[:2]
+            slots = ["0x" + s.hex() for s in own] + [
+                "0x" + bytes(rng.integers(0, 256, 32, dtype=np.uint8)).hex()]
+            reqs.append(rpc_request("eth_getProof", ["0x" + addr.hex(), slots, "latest"],
+                                    len(reqs)))
+        t0 = time.perf_counter()
+        status, raw = http_post(public, json.dumps(reqs).encode())
+        wall = time.perf_counter() - t0
+        resps = json.loads(raw)
+        if status != 200 or any("error" in r for r in resps) or len(resps) != NODE_PROOFS:
+            raise AssertionError(f"node: the eth_getProof batch: HTTP {status}")
+        t0 = time.perf_counter()
+        slots = verify_proofs(bytes.fromhex(root), [r["result"] for r in resps])
+        return {"wall_s": wall, "verify_s": time.perf_counter() - t0, "storage_proofs": slots,
+                "bytes": len(raw)}
+
+    def start_1(self, tee, t0: float) -> None:
+        ports, auth_port, token = self.serving(tee, t0, "start 1")
+        ports = (ports, auth_port)
+        if self.rpc(ports[0], "eth_blockNumber") != hex(SYNC_BLOCKS):
+            raise AssertionError("node: start 1 does not serve block 8")
+        for i in range(NODE_BLOCKS):
+            t1 = time.perf_counter()
+            rec = self._build(ports, token, i)
+            rec["wall_s"] = time.perf_counter() - t1
+            if i == 0:
+                rec["proofs"] = self._proofs(ports[0], rec["root"])
+            self.blocks.append(rec)
+            log(f"node: b) block {rec['number']}: {json.dumps(rec)}")
+
+    def start_2(self, tee, t0: float) -> None:
+        ports, auth_port, token = self.serving(tee, t0, "start 2")
+        first = self.blocks[0]
+        latest = self.rpc(ports, "eth_getBlockByNumber", "latest", False)
+        if (latest["hash"][2:], latest["stateRoot"][2:]) != (first["hash"], first["root"]):
+            raise AssertionError(f"node: start 2 serves {latest['number']} "
+                                 f"{latest['hash']}, not block {first['number']}")
+        t1 = time.perf_counter()
+        for payload in self.payloads[1:]:
+            status = self.rpc(auth_port, "engine_newPayloadV2", payload, token=token())
+            if status["status"] != "VALID":
+                raise AssertionError(f"node: start 2: block {payload['blockNumber']}: {status}")
+        head = self.payloads[-1]["blockHash"]
+        fcu = self.rpc(auth_port, "engine_forkchoiceUpdatedV2",
+                       {"headBlockHash": head, "safeBlockHash": "0x" + first["hash"],
+                        "finalizedBlockHash": "0x" + first["hash"]}, token=token())
+        self.walls["start 2 re-import"] = time.perf_counter() - t1
+        latest = self.rpc(ports, "eth_getBlockByNumber", "latest", False)
+        if fcu["payloadStatus"]["status"] != "VALID" or latest["hash"] != head:
+            raise AssertionError(f"node: start 2: forkchoice to {head}: {fcu}, latest "
+                                 f"{latest['hash']}")
+
+    def leg_b(self) -> None:
+        from reth_tpu_torch.storage import recovery
+
+        inner = recovery.recover_on_startup
+
+        def recorded(*a, **kw):
+            report = inner(*a, **kw)
+            self.recoveries.append(dict(report))
+            return report
+
+        recovery.recover_on_startup = recorded
+        self.payloads: list[dict] = []
+        base = ["node", "--datadir", str(self.datadir), "--http-port", "0", "--authrpc-port",
+                "0", "--disable-p2p"]
+        try:
+            self.run_main("start 1", base, client=self.start_1)
+            self.run_main("start 2", base + ["--subtrie-levels", "8", "--hot-state"],
+                          client=self.start_2)
+        finally:
+            recovery.recover_on_startup = inner
+            os.environ.pop("RETH_TPU_SUBTRIE_LEVELS", None)  # the CLI exported k
+        for label, rep, head in zip(("start 1", "start 2"), self.recoveries,
+                                    (SYNC_BLOCKS, SYNC_BLOCKS + 1)):
+            if (rep["status"], rep["root_verified"], rep["fallbacks"], rep.get("head_number")) \
+                    != ("ok", True, {}, head):
+                raise AssertionError(f"node: {label}: recovery {rep}")
+            log(f"node: b) {label}: recovery {json.dumps(rep, default=str)}")
+
+    # -- leg c -------------------------------------------------------------------
+
+    def _process(self, label: str, argv: list[str]):
+        """``python -u -m reth_tpu_torch`` + ``argv`` from the checkout; its
+        RPC port once printed. Killed with this process if it dies."""
+        def die_with_parent():
+            import ctypes
+
+            ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-u", "-m", "reth_tpu_torch"] + argv, cwd=HERE,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                preexec_fn=die_with_parent)
+        lines, port = [], None
+        deadline = time.monotonic() + NODE_WAIT_S
+        while port is None and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"RPC listening on 127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        self.walls[f"{label} to serving"] = time.perf_counter() - t0
+        if port is None:
+            proc.kill()
+            raise AssertionError(f"node: {label}: no RPC port printed: {''.join(lines)}")
+        return proc, port, lines
+
+    def _stop(self, label: str, proc, lines: list) -> None:
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"node: {label}: still running 120 s after SIGINT")
+        self.walls[f"{label} stop"] = time.perf_counter() - t0
+        lines += out.splitlines(keepends=True)
+        for line in lines:
+            log(f"  (node {label}) {line.rstrip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"node: {label}: exit code {proc.returncode}")
+
+    def leg_c(self) -> None:
+        from reth_tpu_torch.cli import DEV_PRIVATE_KEY
+        from reth_tpu_torch.testing import Wallet
+
+        d2 = str(self.base / "dev")
+        args = ["node", "--block-time", "0", "--hasher", "auto", "--datadir", d2,
+                "--http-port", "0", "--authrpc-port", "0", "--disable-p2p"]
+        t0 = time.perf_counter()
+        proc, port, lines = self._process("dev", args[:1] + ["--dev"] + args[1:])
+        try:
+            wallet = Wallet(DEV_PRIVATE_KEY)
+            for k in range(NODE_TRANSFERS):
+                tx = wallet.transfer(bytes([0xd0 + k]) * 20, 1000 + k, chain_id=1337)
+                sent = self.rpc(port, "eth_sendRawTransaction", "0x" + tx.encode().hex())
+                deadline = time.monotonic() + NODE_WAIT_S
+                receipt = None
+                while receipt is None and time.monotonic() < deadline:
+                    receipt = self.rpc(port, "eth_getTransactionReceipt", sent)
+                    time.sleep(0.02)
+                if receipt is None or receipt["status"] != "0x1":
+                    raise AssertionError(f"node: dev: transfer {k}: receipt {receipt}")
+            head = self.rpc(port, "eth_getBlockByNumber", "latest", False)
+            kept = self.rpc(port, "eth_getBlockByNumber",
+                            hex(int(head["number"], 16) - 2), False)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        self._stop("dev", proc, lines)
+        proc, port, lines = self._process("restart", args)
+        try:
+            again = self.rpc(port, "eth_getBlockByNumber", "latest", False)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        self._stop("restart", proc, lines)
+        if (again["number"], again["hash"]) != (kept["number"], kept["hash"]) \
+                or int(head["number"], 16) != NODE_TRANSFERS:
+            raise AssertionError(f"node: restart: head {again['number']} {again['hash']}, the "
+                                 f"first run's persisted {kept['number']} {kept['hash']} "
+                                 f"(head {head['number']})")
+        self.walls["c"] = time.perf_counter() - t0
+        self.dev = {"head": head["number"], "persisted": kept["number"], "hash": kept["hash"]}
+        log(f"node: c) {NODE_TRANSFERS} transfers mined on arrival, head {head['number']}; the "
+            f"restart serves the persisted block {kept['number']} {kept['hash']}; both exits 0")
+
+    def drive(self) -> dict:
+        t0 = time.perf_counter()
+        self.leg_a()
+        self.walls["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.leg_b()
+        self.walls["b"] = time.perf_counter() - t0
+        self.leg_c()
+        total = {k: sum(run[k] for run in self.launches.values()) for k in KERNELS}
+        for label, kernels in NODE_KERNELS.items():
+            if any(self.launches[label][k] == 0 for k in kernels) or \
+                    self.launches[label]["exchange_slots"]:
+                raise AssertionError(f"node: {label} launched {self.launches[label]}; it must "
+                                     f"launch {kernels} and no exchange_slots (one card)")
+        return {"walls": self.walls, "launches": self.launches, "total": total,
+                "blocks": self.blocks, "recoveries": self.recoveries, "dev": self.dev}
+
+
+def node_child(out_path: str, chain_path: str) -> int:
+    """``--node OUT --node-chain CHAIN``: the "node" path's legs (NodeLegs)
+    over the sync chain child's file; their record to OUT. Its datadirs live
+    under ``reth_tpu_torch/build/node-<pid>`` and are removed after."""
+    import shutil
+
+    # SIGINT stops each node: a Python handler of its own, whatever this
+    # process inherited
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    t0 = time.perf_counter()
+    with open(chain_path) as f:
+        res = json.load(f)
+    log(f"node: the sync chain's file read in {time.perf_counter() - t0:.1f} s")
+    base = Path(HERE) / "reth_tpu_torch" / "build" / f"node-{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    try:
+        out = NodeLegs(res, base).drive()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class NodeChild(ChildProcess):
+    """The "node" path's child (``--node``) over the sync chain child's kept
+    file; ``check`` joins it, holds its blocks 9-11 against the "payload"
+    path's (``payload_blocks``, set when that path has run) and adds its
+    launches to ``launches["node"]``."""
+
+    def __init__(self, chain_out: str):
+        super().__init__("node", "--node", ["--node-chain", chain_out])
+        self.chain_out = chain_out
+        self.payload_blocks: list | None = None
+
+    def check(self, launches: dict) -> None:
+        try:
+            res = self.result()
+        finally:
+            if os.path.exists(self.chain_out):
+                os.remove(self.chain_out)
+        want = [(b.header.number, b.header.state_root.hex(), b.hash.hex(), len(b.transactions))
+                for b in self.payload_blocks]
+        got = [(b["number"], b["root"], b["hash"], b["txs"]) for b in res["blocks"]]
+        if [g[:2] + g[3:] for g in got] != [w[:2] + w[3:] for w in want]:
+            raise AssertionError(f"node: blocks 9-11 {got} are not the payload path's {want}")
+        launches["node"] = res["total"]
+        w = res["walls"]
+        log(f"node: blocks 9-11 at the payload path's state roots "
+            f"{[g[1] for g in got]} (block hashes {'equal' if got == want else 'differ'}: "
+            f"{[g[2] for g in got]}); launches by start {json.dumps(res['launches'])}, in all "
+            f"{json.dumps(res['total'])}; walls " + ", ".join(f"{k} {v:.3f} s"
+                                                             for k, v in w.items()))
+
+
 def attempt_future(fut, timeout: float = 120.0) -> tuple:
     """A submitted transaction's outcome: ("ok", hash) or ("err", class,
     message)."""
@@ -5626,7 +6186,7 @@ def exchange_row(recorder, launches: dict, rng, ptxas: dict) -> dict:
                              f"{fc.exchange_slots_warp_row.launches} times before its timing")
     row = dict(name=name, route="cuda", source="reth_tpu_torch/ops/csrc/fused_level.cu",
                replaces="reth_tpu/ops/fused_commit.py:892",
-               launches_by_path={p: launches[p][name] for p in PATHS}, ptxas=ptxas)
+               launches_by_path={p: launches[p][name] for p in REPORTED_PATHS}, ptxas=ptxas)
     row["launches"] = sum(row["launches_by_path"].values())
     calls = recorder.calls["mesh"][name]
     sizes = sorted(recorder.rows(name, a) for a in calls)
@@ -5974,7 +6534,12 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
         # started with the smoke; before the MerkleStage cell, whose twin
         # child takes longer
         recorder.path = None
-        sync = SyncCell(kids["chain"].result())
+        chain_res = kids["chain"].result(keep=True)
+        # the "node" path's child over the chain's file, beside the paths
+        # below; joined before the kernel timings
+        kids["node"] = NodeChild(kids["chain"].out)
+        sync = SyncCell(chain_res)
+        del chain_res
         run_path("sync", sync.drive)
         log(f"main path sync: {walls.pop('sync'):.3f} s wall")
         sync.report(launches["sync"])
@@ -6002,6 +6567,7 @@ def slice_phase(args, storage_jobs, account_jobs, sup, kids: dict):
         log(f"main path payload: {walls.pop('payload'):.3f} s wall")
         payload.check_payload()
         payload.report(launches["payload"])
+        kids["node"].payload_blocks = list(payload.blocks)
         run_path("stateless", payload.drive_stateless)
         log(f"main path stateless: {walls.pop('stateless'):.3f} s wall")
         payload.check_stateless()
@@ -6683,6 +7249,10 @@ def main() -> int:
                     help="internal: seal the sync path's chain on the host, to OUT")
     ap.add_argument("--drills", metavar="OUT", default=None,
                     help="internal: the drills but the hot tip's, their records to OUT")
+    ap.add_argument("--node", metavar="OUT", default=None,
+                    help="internal: the node path's legs over --node-chain, their record to OUT")
+    ap.add_argument("--node-chain", metavar="CHAIN", default=None,
+                    help="internal: the sync chain child's file the node path reads")
     args = ap.parse_args()
 
     import torch
@@ -6699,6 +7269,8 @@ def main() -> int:
         return sync_chain(args.sync_accounts, args.sync_slots, args.sync_chain)
     if args.drills is not None:
         return drills_child(args.drills)
+    if args.node is not None:
+        return node_child(args.node, args.node_chain)
     from reth_tpu_torch.device import resolve
     from reth_tpu_torch.ops import _build
     from reth_tpu_torch.trie import turbo
@@ -6767,6 +7339,8 @@ def smoke(args, t_start: float, srcs, paths, kids: dict) -> int:
     log(f"drills: {json.dumps(res['drills'])}")
     log(f"hot drills (the drills' child): {json.dumps(res['hot'])}")
     log(f"control drills: {json.dumps(res['control'])}")
+    # the node path's child ends before the kernel timings too
+    kids["node"].check(launches)
     rows = kernel_timings(recorder, launches, bound, np.random.default_rng(args.seed + 2))
     rows.append(exchange_row(recorder, launches, np.random.default_rng(args.seed + 4),
                              {n: r for n, r in ptxas.items()

@@ -36,27 +36,45 @@ WORDS_PER_BLOCK = RATE // 4  # 34 u32 words per rate block
 _RC_SIGNED = [rc - (1 << 64) if rc >> 63 else rc for rc in RC]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    """Rotate int64 lanes left by a static r (logical shift via mask)."""
-    if r == 0:
-        return x
-    return (x << r) | ((x >> (64 - r)) & ((1 << r) - 1))
+def _rotl(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Rotate int64 lanes left by ``r`` (broadcast over the last axis;
+    logical shift via mask, so a rotation by 0 keeps the lane)."""
+    one = torch.ones_like(r)
+    return (x << r) | ((x >> (64 - r)) & ((one << r) - one))
 
 
-def keccak_f1600_ref(a: list[torch.Tensor]) -> list[torch.Tensor]:
-    """keccak-f[1600] over 25 int64 lane tensors (plain PyTorch)."""
-    a = list(a)
-    for rc in _RC_SIGNED:
-        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
-        d = [c[(x - 1) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
-        a = [a[i] ^ d[i % 5] for i in range(25)]
-        b = [None] * 25
-        for x in range(5):
-            for y in range(5):
-                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(a[x + 5 * y], ROT[x][y])
-        a = [b[i] ^ (~b[(i % 5 + 1) % 5 + 5 * (i // 5)] & b[(i % 5 + 2) % 5 + 5 * (i // 5)])
-             for i in range(25)]
-        a[0] = a[0] ^ rc
+def _f1600_tables(device) -> dict:
+    """Index and rotation tables of one round, lane i = x + 5 * y: theta's
+    neighbouring columns, rho-pi's source lane and rotation of each target
+    lane, and chi's two neighbours."""
+    src, rot = [0] * 25, [0] * 25
+    for x in range(5):
+        for y in range(5):
+            j = y + 5 * ((2 * x + 3 * y) % 5)
+            src[j], rot[j] = x + 5 * y, ROT[x][y]
+    t = dict(cm1=[4, 0, 1, 2, 3], cp1=[1, 2, 3, 4, 0], src=src,
+             chi1=[(i % 5 + 1) % 5 + 5 * (i // 5) for i in range(25)],
+             chi2=[(i % 5 + 2) % 5 + 5 * (i // 5) for i in range(25)])
+    out = {k: torch.tensor(v, dtype=torch.long, device=device) for k, v in t.items()}
+    out["rot"] = torch.tensor(rot, dtype=torch.int64, device=device)
+    out["one"] = torch.ones(1, dtype=torch.int64, device=device)
+    out["rc"] = torch.tensor(_RC_SIGNED, dtype=torch.int64, device=device)
+    return out
+
+
+def keccak_f1600_ref(a: torch.Tensor) -> torch.Tensor:
+    """keccak-f[1600] over (n, 25) int64 lanes, lane i = x + 5 * y (plain
+    PyTorch, the lanes of a round as whole-tensor operations)."""
+    t = _f1600_tables(a.device)
+    n = a.shape[0]
+    for r in range(len(_RC_SIGNED)):
+        planes = a.view(n, 5, 5)  # [y, x]
+        c = planes[:, 0] ^ planes[:, 1] ^ planes[:, 2] ^ planes[:, 3] ^ planes[:, 4]
+        d = c[:, t["cm1"]] ^ _rotl(c[:, t["cp1"]], t["one"])
+        a = (planes ^ d[:, None, :]).reshape(n, 25)
+        b = _rotl(a[:, t["src"]], t["rot"])
+        a = b ^ (~b[:, t["chi1"]] & b[:, t["chi2"]])
+        a[:, 0] ^= t["rc"][r]
     return a
 
 
@@ -78,13 +96,14 @@ def keccak256_words_masked_ref(words: torch.Tensor, counts: torch.Tensor) -> tor
     blocks = _check_words(words, counts)
     n = words.shape[0]
     lanes = words.contiguous().view(torch.int64).reshape(n, blocks, 17)
-    state = [torch.zeros(n, dtype=torch.int64, device=words.device) for _ in range(25)]
-    for blk in range(blocks):
-        nxt = keccak_f1600_ref(
-            [state[j] ^ lanes[:, blk, j] if j < 17 else state[j] for j in range(25)])
-        live = blk < counts
-        state = [torch.where(live, nxt[j], state[j]) for j in range(25)]
-    return torch.stack(state[:4], dim=1).view(torch.uint32)
+    state = torch.zeros((n, 25), dtype=torch.int64, device=words.device)
+    # a block past every row's count changes no row: stop at the longest
+    for blk in range(min(blocks, int(counts.max()) if n else 0)):
+        absorbed = state.clone()
+        absorbed[:, :17] ^= lanes[:, blk]
+        live = (blk < counts)[:, None]
+        state = torch.where(live, keccak_f1600_ref(absorbed), state)
+    return state[:, :4].contiguous().view(torch.uint32)
 
 
 def _absorb_lib() -> ctypes.CDLL:

@@ -204,10 +204,15 @@ class NativeTx:
     def __init__(self, db: "NativeDb", write: bool):
         self._db = db
         self._api = db._api
+        seen = db._commit_state()
         self._txn = self._api.txn_begin(db._env, 1 if write else 0)
         if not self._txn:
             raise RuntimeError("nested write transaction on one thread")
         self._write = write
+        # the committed state this read transaction sees, when no commit
+        # ran while it began (None: unknown; its key index is its own)
+        self._state = seen[0] if not write and seen[1] == 0 \
+            and db._commit_state() == seen else None
         self._key_cache: dict[str, list[bytes]] = {}
         self._done = False
 
@@ -237,17 +242,22 @@ class NativeTx:
         return int(self._api.entry_count(self._txn, table.encode()))
 
     def _sorted_keys(self, table: str) -> list[bytes]:
-        # cached PER TRANSACTION: with MVCC snapshots a db-level cache
-        # would leak one snapshot's key set into another's view
+        # cached per transaction, and for a read transaction of a known
+        # committed state also on the database for the read transactions
+        # of that state (with MVCC snapshots, one state's key set must not
+        # reach another's view); callers do not modify the list
         cached = self._key_cache.get(table)
         if cached is not None:
             return cached
-        keys = []
-        cur = self.cursor(table)
-        entry = cur.first()
-        while entry is not None:
-            keys.append(entry[0])
-            entry = cur.next_no_dup()
+        keys = self._db._state_keys(self._state, table)
+        if keys is None:
+            keys = []
+            cur = self.cursor(table)
+            entry = cur.first()
+            while entry is not None:
+                keys.append(entry[0])
+                entry = cur.next_no_dup()
+            self._db._keep_state_keys(self._state, table, keys)
         self._key_cache[table] = keys
         return keys
 
@@ -273,7 +283,11 @@ class NativeTx:
 
     def commit(self):
         assert not self._done
-        rc = self._api.commit(self._txn)
+        self._db._commit_begins()
+        try:
+            rc = self._api.commit(self._txn)
+        finally:
+            self._db._commit_ends()
         self._done = True
         if rc != 0:
             raise OSError("native KV commit failed (WAL write error)")
@@ -303,16 +317,58 @@ class NativeTx:
 
 
 class NativeDb:
-    """Database over the C++ engine (persistent when ``path`` given)."""
+    """Database over the C++ engine (persistent when ``path`` given).
+
+    Commits are counted, each bracketed by an in-flight count, so a read
+    transaction that began while none ran knows the committed state it sees
+    (``_commit_state``); the sorted key index of a table at the newest such
+    state is kept for every read transaction of it (a fresh view's cursor
+    otherwise walks the whole table)."""
 
     def __init__(self, path: str | Path | None = None):
         self._api = load_library()
+        self._init_index()
         self._dir = str(path) if path else ""
         if path:
             Path(path).mkdir(parents=True, exist_ok=True)
         self._env = self._api.open(self._dir.encode())
         if not self._env:
             raise NativeBuildError(f"rtkv_open failed for {self._dir!r}")
+
+    def _init_index(self) -> None:
+        self._commits = 0   # commits ended
+        self._inflight = 0  # commits running
+        self._index: tuple[int, dict[str, list[bytes]]] = (-1, {})
+        self._lock = threading.Lock()
+
+    def _commit_state(self) -> tuple[int, int]:
+        with self._lock:
+            return self._commits, self._inflight
+
+    def _commit_begins(self) -> None:
+        with self._lock:
+            self._inflight += 1
+
+    def _commit_ends(self) -> None:
+        with self._lock:
+            self._inflight -= 1
+            self._commits += 1
+
+    def _state_keys(self, state: int | None, table: str) -> list[bytes] | None:
+        if state is None:
+            return None
+        at, tables = self._index
+        return tables.get(table) if at == state else None
+
+    def _keep_state_keys(self, state: int | None, table: str, keys: list[bytes]) -> None:
+        if state is None:
+            return
+        with self._lock:
+            at, tables = self._index
+            if at == state:
+                tables[table] = keys
+            elif state > at:
+                self._index = (state, {table: keys})
 
     def tx(self) -> NativeTx:
         return NativeTx(self, write=False)
@@ -347,6 +403,7 @@ class PagedDb(NativeDb):
 
     def __init__(self, path: str | Path):
         self._api = _load_api("pagedkv.cpp", "rtpg")
+        self._init_index()
         self._dir = str(path)
         Path(path).mkdir(parents=True, exist_ok=True)
         self._env = self._api.open(self._dir.encode())

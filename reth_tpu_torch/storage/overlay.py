@@ -1,7 +1,7 @@
 """Overlay transactions: in-memory write layers over a base snapshot.
 
 A copy of the JAX package's ``storage/overlay.py`` over the port's
-``storage/kv.py``. Two additions, with the reference's results:
+``storage/kv.py``. Three additions, with the reference's results:
 
 - ``OverlayTx.seek_dup``, the subkey lookup the port's provider and proof
   calculator make through ``Tx.seek_dup``: the first duplicate of a key at
@@ -11,7 +11,16 @@ A copy of the JAX package's ``storage/overlay.py`` over the port's
 - ``_sorted_keys`` merges the base transaction's sorted key index with the
   layers' new keys, each put in by bisection, instead of sorting the set of
   their union, so a cursor made after a write, or on a fresh view, costs
-  one pass over the table.
+  one pass over the table; a layer key is new when that index lacks it
+  (bisection), where the reference reads the key's duplicates from the
+  base;
+- over a store other than ``MemDb`` (the paged and native engines), a
+  key's base duplicates are read from the base transaction once and kept
+  for the overlay's life (``_base_get``): the base is a read transaction no
+  write of the overlay reaches, and a DUPSORT read there walks every
+  duplicate of the key (an owner's whole storage or storage trie) through
+  the engine's cursor, once per slot read or trie-node delete without the
+  cache.
 
 Reference analogue: `MemoryOverlayStateProvider` + in-memory trie overlay
 cursors (crates/chain-state/src/in_memory.rs,
@@ -33,6 +42,12 @@ from .kv import Cursor, Tx
 _TOMBSTONE = object()
 
 Layer = dict[str, dict[bytes, object]]  # table -> key -> value | _TOMBSTONE
+
+
+def _holds(keys: list[bytes], key: bytes) -> bool:
+    """Whether the sorted ``keys`` hold ``key``."""
+    i = bisect.bisect_left(keys, key)
+    return i < len(keys) and keys[i] == key
 
 
 class _MergedTable:
@@ -70,6 +85,8 @@ class OverlayTx:
         self.layer: Layer = layer if layer is not None else {}
         self._write = True
         self._key_cache: dict[str, list[bytes]] = {}
+        # (table, key) -> the base's duplicates, off MemDb (see _base_get)
+        self._base_dups: dict[tuple[str, bytes], tuple] = {}
 
     # -- layer plumbing -------------------------------------------------------
 
@@ -86,7 +103,9 @@ class OverlayTx:
         """
         if hasattr(self.base, "_table"):  # MemDb fast path (snapshot-aware)
             return self.base._table(table).get(key)
-        dups = self.base.get_dups(table, key)
+        dups = self._base_dups.get((table, key))
+        if dups is None:
+            dups = self._base_dups[table, key] = tuple(self.base.get_dups(table, key))
         if not dups:
             return None
         # always a list: keeps dup-delete semantics identical across
@@ -111,9 +130,11 @@ class OverlayTx:
                     continue
                 (dead if v is _TOMBSTONE else live).add(k)
         base_keys = self.base._sorted_keys(table)
+        # a live key is new when the base's sorted index lacks it: found by
+        # bisection, with no read of the key's duplicates
+        extra = sorted(k for k in live if not _holds(base_keys, k))
         if dead:
             base_keys = [k for k in base_keys if k not in dead]
-        extra = sorted(k for k in live if self._base_get(table, k) is None)
         # the few layer keys go in by bisection: one pass over the base's
         # run, no comparison sort of the whole table
         merged, lo = [], 0

@@ -24,10 +24,16 @@ Since the RPC: the consumer half of the wire form (``context_from_wire``,
 the ``traceparent`` member a request may carry) and ``recent_traces``
 (``debug_blockTimeline``).
 
-Not ported here (they belong to the node): the OTLP and Chrome exporters,
-the operator's one-line budget and the health engine's summary window, and
-the rest of cross-process correlation (the producer half of the wire form,
-fault observers, merged dumps).
+Since the node: the Chrome trace-event exporter of ``--trace-blocks``
+(``ChromeTraceExporter``, ``init_chrome_trace``, ``shutdown_chrome_trace``,
+``init_block_tracing``, ``shutdown_block_tracing``), the last closed block's
+wall budget and its one-line form (``last_block_summary``,
+``format_wall_budget``) and the closed blocks' window
+(``recent_block_summaries``).
+
+Not ported here: the OTLP exporter and merged dumps (the health slice), and
+the rest of cross-process correlation (the fleet slice: the producer half of
+the wire form, process roles, fault observers, trace stitching).
 
 Span recording is off unless ``RETH_TPU_TRACE`` is set truthy or
 ``set_trace_enabled(True)`` ran; then ``span()`` costs one DEBUG log call.
@@ -62,6 +68,8 @@ _span_ids = itertools.count(1)
 # reference, so ids from several processes never collide
 _SPAN_PID_SHIFT = 40
 _SPAN_PID_BITS = os.getpid() & 0x3FFFFF
+# the process's role in the flight records and the Chrome trace's process
+# metadata (the reference's default; its setter comes with the fleet)
 _ROLE = os.environ.get("RETH_TPU_ROLE", "") or "node"
 
 
@@ -206,6 +214,8 @@ def event(target: str, name: str, **fields) -> None:
 def _record(rec: dict, always: bool = False) -> None:
     if _TRACE_ON or always:
         _RECORDER.record(rec)
+    if _chrome is not None and (_TRACE_ON or always):
+        _chrome.export(rec)
     trace = rec.get("trace")
     if trace is None:
         return
@@ -221,6 +231,7 @@ _TL_LOCK = threading.Lock()
 _TIMELINES: OrderedDict[str, list] = OrderedDict()
 _SUMMARIES: OrderedDict[str, dict] = OrderedDict()
 _MAX_TRACES = 64
+_last_summary: dict | None = None
 _MAX_TIMELINE_RECORDS = 8192
 
 
@@ -333,6 +344,7 @@ def _summarize(trace_id: str, records: list[dict]) -> dict | None:
 
 
 def _finalize_block(trace_id: str) -> None:
+    global _last_summary
     records = block_timeline(trace_id)
     if not records:
         return
@@ -343,6 +355,7 @@ def _finalize_block(trace_id: str) -> None:
         _SUMMARIES[trace_id] = summary
         while len(_SUMMARIES) > _MAX_TRACES:
             _SUMMARIES.popitem(last=False)
+    _last_summary = summary
 
 
 def block_summary(trace_id: str) -> dict | None:
@@ -353,6 +366,30 @@ def block_summary(trace_id: str) -> dict | None:
         return s
     records = block_timeline(trace_id)
     return _summarize(trace_id, records) if records else None
+
+
+def last_block_summary() -> dict | None:
+    """The most recently closed block's wall budget (events dashboard)."""
+    return _last_summary
+
+
+def recent_block_summaries(n: int | None = None) -> list[dict]:
+    """Closed-block wall budgets, oldest first (bounded by the timeline
+    ring) — the health engine's block-import SLO rule averages these over
+    its evaluation window."""
+    with _TL_LOCK:
+        out = list(_SUMMARIES.values())
+    return out[-n:] if n else out
+
+
+def format_wall_budget(s: dict) -> str:
+    """The one-line per-block budget operators read:
+    ``block N total=Xms = prewarm a + exec b + root c (wait d, dispatch
+    e, encode f)``."""
+    return (f"block {s.get('number', '?')} total={s['total_ms']:.1f}ms = "
+            f"prewarm {s['prewarm_ms']:.1f} + exec {s['exec_ms']:.1f} + "
+            f"root {s['root_ms']:.1f} (wait {s['wait_ms']:.1f}, "
+            f"dispatch {s['dispatch_ms']:.1f}, encode {s['encode_ms']:.1f})")
 
 
 # -- flight recorder ----------------------------------------------------------
@@ -492,3 +529,117 @@ def fault_event(drill: str, target: str = "fault", **fields) -> str | None:
     wall = time.time()
     return flight_dump(drill, correlation_id=new_correlation_id(),
                        window=(wall - CORRELATION_WINDOW_S, wall + 5.0))
+
+
+# -- Chrome trace-event exporter ------------------------------------------------
+# one "X" (complete) event per span, instant events as "i". Written one
+# event per line so the file doubles as JSON-lines for tooling; close()
+# terminates it into a fully valid JSON array.
+
+_chrome = None
+
+
+class ChromeTraceExporter:
+    """Spans/events as Chrome trace-event JSON (``--trace-blocks``)."""
+
+    def __init__(self, path: str | Path):
+        self._lock = threading.Lock()
+        self.path = str(path)
+        self._f = open(path, "w", buffering=1)
+        self._f.write("[\n")
+        self._tids: dict[str, int] = {}
+        self.exported = 0
+        self._named = False  # process metadata emitted?
+
+    def _tid(self, thread_name: str) -> int:
+        # caller holds the lock. Distinct pid/tid metadata events per
+        # process so MERGED multi-process traces show named, separate
+        # process/thread tracks instead of anonymous numeric ids.
+        if not self._named:
+            self._named = True
+            self._f.write(json.dumps(
+                {"name": "process_name", "ph": "M", "pid": os.getpid(),
+                 "tid": 0, "args": {"name": f"{_ROLE}-{os.getpid()}"}})
+                + ",\n")
+        tid = self._tids.get(thread_name)
+        if tid is None:
+            tid = self._tids[thread_name] = len(self._tids) + 1
+            self._f.write(json.dumps(
+                {"name": "thread_name", "ph": "M", "pid": os.getpid(),
+                 "tid": tid, "args": {"name": thread_name}}) + ",\n")
+        return tid
+
+    def export(self, rec: dict) -> None:
+        args = {k: str(v) for k, v in rec.get("fields", {}).items()}
+        if rec.get("trace"):
+            args["trace_id"] = rec["trace"]
+        if rec.get("span") is not None:
+            args["span_id"] = rec["span"]
+        if rec.get("parent") is not None:
+            args["parent_id"] = rec["parent"]
+        if rec.get("error"):
+            args["error"] = rec["error"]
+        ev = {
+            "name": rec["name"],
+            "cat": rec["target"],
+            "ph": "X" if rec["kind"] == "span" else "i",
+            "ts": round(rec["ts"] * 1e6, 1),
+            "pid": os.getpid(),
+            "args": args,
+        }
+        if rec["kind"] == "span":
+            ev["dur"] = round(rec["dur_ms"] * 1e3, 1)
+        else:
+            ev["s"] = "p"  # process-scoped instant
+        with self._lock:
+            ev["tid"] = self._tid(rec.get("thread", "main"))
+            self._f.write(json.dumps(ev) + ",\n")
+            self.exported += 1
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._f.closed:
+                # terminate the array so the file is strictly valid JSON
+                self._f.write(json.dumps(
+                    {"name": "trace_end", "ph": "i", "ts": time.time() * 1e6,
+                     "pid": os.getpid(), "tid": 0, "s": "g", "args": {}})
+                    + "\n]\n")
+                self._f.close()
+
+
+def init_chrome_trace(path: str | Path) -> ChromeTraceExporter:
+    """Install the Chrome trace-event exporter for every recorded span."""
+    global _chrome
+    _chrome = ChromeTraceExporter(path)
+    return _chrome
+
+
+def shutdown_chrome_trace() -> None:
+    global _chrome
+    if _chrome is not None:
+        _chrome.close()
+        _chrome = None
+
+
+def init_block_tracing(chrome_path: str | Path | None = None,
+                       flight_dir: str | Path | None = None,
+                       capacity: int | None = None) -> None:
+    """The ``--trace-blocks`` bundle: install the Chrome exporter, point
+    flight-recorder dumps at a directory, and THEN enable span recording —
+    the exporter must exist before the first span can close, or a busy
+    worker thread slips whole spans into the gap: recorded in the ring but
+    missing from the exported trace. (The reference's ``otlp_path`` comes
+    with the OTLP exporter, in the health slice.)"""
+    if chrome_path is not None:
+        init_chrome_trace(chrome_path)
+    if flight_dir is not None:
+        _RECORDER.directory = flight_dir
+    if capacity is not None and capacity != _RECORDER._buf.maxlen:
+        with _RECORDER._lock:
+            _RECORDER._buf = deque(_RECORDER._buf, maxlen=capacity)
+    set_trace_enabled(True)
+
+
+def shutdown_block_tracing() -> None:
+    shutdown_chrome_trace()
+    set_trace_enabled(_env_enabled())

@@ -970,6 +970,30 @@ class SyncChain:
                 + _word(int(rng.integers(1, 1 << 62))))
 
 
+def geth_genesis(fields: dict, header) -> dict:
+    """A geth-style genesis JSON (the CLI's ``--genesis`` schema, its
+    ``_load_genesis``) of a dev-style genesis: ``fields`` is the alloc's plain
+    fields (``convert.alloc_to_fields``: address -> nonce, balance, code,
+    storage) and ``header`` the genesis header whose gas limit, base fee and
+    timestamp it carries. No fork schedule, so ``_load_genesis`` builds the
+    dev-style header (base fee, empty withdrawals root) on chain id 1: the
+    ``SyncChain`` genesis, whose hash the JSON's must equal."""
+    alloc = {}
+    for addr, f in fields.items():
+        entry = {"balance": hex(int(f.get("balance", 0)))}
+        if f.get("nonce"):
+            entry["nonce"] = hex(int(f["nonce"]))
+        if f.get("code"):
+            entry["code"] = "0x" + bytes(f["code"]).hex()
+        if f.get("storage"):
+            entry["storage"] = {"0x" + bytes(k).hex(): hex(int(v))
+                                for k, v in f["storage"].items()}
+        alloc["0x" + bytes(addr).hex()] = entry
+    return {"config": {"chainId": SYNC_CHAIN_ID}, "gasLimit": hex(header.gas_limit),
+            "baseFeePerGas": hex(header.base_fee_per_gas), "timestamp": hex(header.timestamp),
+            "alloc": alloc}
+
+
 # -- the cross-block import pipeline ---------------------------------------------
 
 

@@ -1322,3 +1322,87 @@ def test_mesh_without_a_card_or_with_a_failed_build_raises(monkeypatch, tmp_path
             prefix_jobs(200, seed=3), start_depth=2)
     with pytest.raises(_build.BuildError):
         HashService(mesh=hm, registry=MetricsRegistry())
+
+
+# -- the node and the CLI ------------------------------------------------------------
+
+
+def _node_legs(device: str, tmp_path, gpath, cpath, txs) -> dict:
+    """The CLI's ``init`` and ``import`` into a fresh datadir on ``device``
+    (``--device cpu`` for the CPU; nothing for the card, the default), then a
+    short dev node on it: its recovery's root check, one block of ``txs``
+    mined. The kernels' launches of the CLI's two commands and of the node."""
+    from reth_tpu_torch.cli import main
+    from reth_tpu_torch.node import Node, NodeConfig
+    from reth_tpu_torch.storage import open_database
+    from reth_tpu_torch.storage.tables import TableDef, Tables
+
+    wrappers = (tk.keccak256_words_masked, fc.packed_level, fc.branch_level, fc.subtrie_levels)
+    d = tmp_path / device
+    flags = [] if device == "cuda" else ["--device", "cpu"]
+    before = [w.launches for w in wrappers]
+    assert main(["init", "--datadir", str(d), "--genesis", str(gpath)] + flags) == 0
+    assert main(["import", "--datadir", str(d), "--genesis", str(gpath), str(cpath)]
+                + flags) == 0
+    torch.cuda.synchronize()
+    cli = [w.launches - b for w, b in zip(wrappers, before)]
+    db = open_database("paged", d)
+    with db.tx() as tx:
+        tables = {v.name: list(tx.cursor(v.name).walk()) for v in vars(Tables).values()
+                  if isinstance(v, TableDef)}
+    db.close()
+    before = [w.launches for w in wrappers]
+    node = Node(NodeConfig(datadir=str(d), dev=True), device=device)
+    try:
+        report = dict(node.recovery)
+        for tx in txs:
+            node.pool.add_transaction(tx)
+        block = node.miner.mine_block()
+    finally:
+        node.stop()
+    torch.cuda.synchronize()
+    return {"tables": tables, "root_verified": report["root_verified"],
+            "fallbacks": report["fallbacks"], "block": (block.hash, block.header.state_root,
+                                                          len(block.transactions)),
+            "cli": cli, "node": [w.launches - b for w, b in zip(wrappers, before)]}
+
+
+@pytest.mark.cuda
+def test_cli_init_import_and_dev_node_on_card_match_cpu(tmp_path):
+    """``cli.main(["init", ...])`` and ``["import", ...]`` of a small sync
+    chain, then a short dev node over the datadir, on the card and with
+    ``--device cpu``: the same tables, the recovered root verified on both,
+    the same mined block (hash and state root). On the card the import's
+    MerkleStage runs kernels 1-3 and the node's block kernel 1."""
+    import json
+    import types
+
+    from _torch_helpers import SYNC_BLOCK_SMALL, SyncChain, geth_genesis
+    from reth_tpu_torch import testing as ptesting
+    from reth_tpu_torch.convert import alloc_to_fields
+    from reth_tpu_torch.primitives import keccak as pkeccak
+    from reth_tpu_torch.primitives import secp256k1 as psecp
+    from reth_tpu_torch.primitives import types as ptypes
+
+    require_card()
+    pkg = types.SimpleNamespace(testing=ptesting, types=ptypes, keccak=pkeccak,
+                                secp256k1=psecp)
+    chain = SyncChain(pkg, n_accounts=300, n_slots=120, seed=47, n_wallets=6, n_blocks=3,
+                      sizes=SYNC_BLOCK_SMALL,
+                      committer=TrieCommitter(hasher=pkeccak.keccak256_batch_np, device="cpu"),
+                      spare=1)
+    b = chain.builder
+    gpath = tmp_path / "genesis.json"
+    gpath.write_text(json.dumps(geth_genesis(
+        alloc_to_fields(b.accounts_at_genesis, b.storage_at_genesis, b.codes_at_genesis),
+        b.genesis)))
+    cpath = tmp_path / "chain.rlp"
+    cpath.write_bytes(b.export_rlp())
+    _, txs, _ = chain.batch()
+    got = _node_legs("cuda", tmp_path, gpath, cpath, txs)
+    want = _node_legs("cpu", tmp_path, gpath, cpath, txs)
+    assert got["tables"] == want["tables"]
+    assert got["root_verified"] is True and want["root_verified"] is True
+    assert got["fallbacks"] == {} and got["block"] == want["block"]
+    assert got["block"][2] == len(txs)
+    assert all(n > 0 for n in got["cli"][:3]) and got["node"][0] > 0

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from reth_tpu_torch import cli as tcli
 from reth_tpu_torch import convert
 from reth_tpu_torch import stages as tstages
 from reth_tpu_torch import testing as ttesting
@@ -28,6 +29,7 @@ from reth_tpu_torch.metrics import MetricsRegistry
 from reth_tpu_torch.net import downloader as tdownloader
 from reth_tpu_torch.net import server as tnetserver
 from reth_tpu_torch.net import snap as tsnap
+from reth_tpu_torch.node import Node
 from reth_tpu_torch.ops import fused_commit as fc
 from reth_tpu_torch.ops import hash_service as ths
 from reth_tpu_torch.ops import keccak as tk
@@ -126,7 +128,11 @@ def test_import_loads_no_jax_and_nothing_of_reth_tpu():
                 "reth_tpu_torch.net.enr", "reth_tpu_torch.net.dnsdisc",
                 "reth_tpu_torch.net.nat", "reth_tpu_torch.stages.headers_bodies",
                 "reth_tpu_torch.era", "reth_tpu_torch.era_sync", "reth_tpu_torch.rpc.admin",
-                "reth_tpu_torch.parallel", "reth_tpu_torch.parallel.mesh"):
+                "reth_tpu_torch.parallel", "reth_tpu_torch.parallel.mesh",
+                "reth_tpu_torch.tasks", "reth_tpu_torch.events", "reth_tpu_torch.exex",
+                "reth_tpu_torch.config", "reth_tpu_torch.ethstats", "reth_tpu_torch.cli",
+                "reth_tpu_torch.__main__", "reth_tpu_torch.node",
+                "reth_tpu_torch.node.node", "reth_tpu_torch.node.events"):
         assert mod in res["modules"]
 
 
@@ -167,7 +173,7 @@ def test_sources_name_no_jax_import():
     tdownloader.sync_from_peer, tdownloader.BodiesDownloader.__init__,
     tdownloader.FullBlockClient.__init__, tstages.online_stages,
     tstages.HeadersStage.__init__, tstages.BodiesStage.__init__, HashMesh.__init__,
-    HashMesh.build,
+    HashMesh.build, Node.__init__, tcli._make_committer,
 ])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -420,3 +426,32 @@ def test_native_engines_source_is_the_ports_own():
     assert "native/" not in src and "subprocess" not in src
     assert issubclass(tnative.NativeBuildError, __import__(
         "reth_tpu_torch.ops._build", fromlist=["BuildError"]).BuildError)
+
+
+def test_node_and_cli_build_on_the_device(tmp_path):
+    """The node without a committer, the CLI's committer and ``node`` without
+    ``--device cpu`` hash on the card, and raise without one; with
+    ``device="cpu"`` / ``--device cpu`` every committer is on the CPU."""
+    from reth_tpu_torch.node import NodeConfig
+
+    class Args:  # the reference's test stand-in: no device of its own
+        hasher = "device"
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            Node(NodeConfig(dev=True))
+        with pytest.raises(RuntimeError):
+            tcli._make_committer(Args())
+        with pytest.raises(RuntimeError):
+            tcli.main(["node", "--dev", "--block-time", "0", "--http-port", "0",
+                       "--authrpc-port", "0", "--disable-p2p"])
+        with pytest.raises(RuntimeError):
+            tcli.main(["init", "--datadir", str(tmp_path / "d"), "--genesis",
+                       str(tmp_path / "missing.json")])
+    assert tcli._make_committer(Args(), device="cpu").device == torch.device("cpu")
+    node = Node(NodeConfig(dev=True), device="cpu")
+    try:
+        assert node.committer.device == torch.device("cpu")
+        assert node.tree.committer is node.committer and node.tree.device == "cpu"
+    finally:
+        node.stop()

@@ -485,6 +485,40 @@ def test_reader_snapshot_stable_across_commit(tmp_path, backend):
     both(_snapshot_stable, tmp_path, backend)
 
 
+def _key_index_per_state(P, d, backend):
+    """Each read transaction's sorted key index is its own state's: one made
+    before a commit keeps the old keys after a later state's index exists, a
+    write transaction sees its own keys, and on the port's engines the read
+    transactions of one committed state share one index."""
+    db = _make(P, backend, d)
+    with db.tx_mut() as tx:
+        tx.put("t", b"a", b"1")
+    old = db.tx()
+    with db.tx_mut() as tx:
+        tx.put("t", b"b", b"2", dupsort=True)
+        tx.put("t", b"b", b"3", dupsort=True)
+        seen = [list(tx._sorted_keys("t"))]
+    new, twin = db.tx(), db.tx()
+    seen += [list(new._sorted_keys("t")), list(old._sorted_keys("t"))]
+    shared = twin._sorted_keys("t") is new._sorted_keys("t")
+    with db.tx_mut() as tx:
+        tx.delete("t", b"a")
+    last = db.tx()
+    seen += [list(last._sorted_keys("t")), list(twin._sorted_keys("t")),
+             list(db.tx()._sorted_keys("t"))]
+    for t in (old, new, twin, last):
+        t.abort()
+    assert seen == [[b"a", b"b"], [b"a", b"b"], [b"a"], [b"b"], [b"a", b"b"], [b"b"]]
+    if P is PORT and backend != "mem":
+        assert shared
+    return seen
+
+
+@pytest.mark.parametrize("backend", ["mem", "native", "paged"])
+def test_key_index_is_each_states_own(tmp_path, backend):
+    both(_key_index_per_state, tmp_path, backend)
+
+
 def _abort_discards(P, d, backend):
     db = _make(P, backend, d)
     with db.tx_mut() as tx:

@@ -266,11 +266,16 @@ def test_context_from_wire_matches_reference(wire):
 
 
 def test_recent_traces_matches_reference():
-    """The same block traces, oldest first, bounded as the reference's."""
+    """The same block traces, oldest first, bounded as the reference's. The
+    traces made here are dropped after, as are the ones they evicted kept:
+    each package's timelines are process-wide, and a later test may look a
+    trace id up (``tests/test_observability.py`` expects none at 0)."""
     seen = []
     for trc in (jtracing, ptracing):
         was_on = trc.trace_enabled()
         trc.set_trace_enabled(True)
+        with trc._TL_LOCK:
+            kept = (trc._TIMELINES.copy(), trc._SUMMARIES.copy())
         try:
             before = trc.recent_traces()
             ids = [f"{i:064x}" for i in range(3)] + [f"{1:064x}"]
@@ -280,6 +285,10 @@ def test_recent_traces_matches_reference():
             after = trc.recent_traces()
         finally:
             trc.set_trace_enabled(was_on)
+            with trc._TL_LOCK:
+                for table, old in zip((trc._TIMELINES, trc._SUMMARIES), kept):
+                    table.clear()
+                    table.update(old)
         seen.append(([t for t in after if t in ids], after[-3:], len(after) <= 64,
                      set(after) <= set(before) | set(ids)))
     assert seen[1] == seen[0]
